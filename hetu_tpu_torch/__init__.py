@@ -1,0 +1,30 @@
+"""hetu_tpu_torch — the PyTorch/CUDA port of ``hetu_tpu``, for an NVIDIA
+H100. Public surface laid out like ``hetu_tpu/__init__.py``, so model code
+written against ``hetu_tpu`` imports unchanged:
+
+    import hetu_tpu_torch as ht
+    x = ht.Variable(name='x', trainable=False)
+    w = ht.init.random_normal((784, 10), stddev=0.1, name='w')
+    loss = ht.reduce_mean_op(ht.softmaxcrossentropy_op(ht.matmul_op(x, w), y), [0])
+    train_op = ht.optim.SGDOptimizer(0.1).minimize(loss)
+    executor = ht.Executor({'train': [loss, train_op]})   # cuda:0
+    executor.run('train', feed_dict={...})
+
+This package imports torch, never jax, and nothing of ``hetu_tpu``.
+"""
+from .graph.ops import *  # noqa: F401,F403 — the ported op registry
+from .graph.node import Variable, placeholder_op, Op, find_topo_sort
+from .graph.gradients import gradients
+from .graph.executor import Executor, HetuConfig, SubExecutor
+from .context import context, get_current_context, DeviceGroup
+from .dataloader import dataloader_op, Dataloader, DataloaderOp
+from .ndarray import (
+    cpu, gpu, tpu, array, empty, is_gpu_ctx, is_tpu_ctx, NDArray, DLContext,
+)
+from . import optimizer as optim
+from . import initializers as init
+from . import data
+from . import interop
+from . import kernels
+
+__version__ = "0.1.0"
