@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke test of hetu_tpu_torch, the PyTorch/CUDA port: builds the
-CUDA kernels from this checkout, holds each against its plain PyTorch
-version on the card, then trains the full-width MLP of
+CUDA kernels from this checkout and holds each against its plain PyTorch
+version on the card; trains the full-width MLP of
 ``examples/cnn/models/MLP.py`` (3072-256-256-10, synthetic CIFAR10, batch
-128) through ``hetu_tpu_torch.Executor`` and checks that the training went
-through the kernels.
+128) through ``hetu_tpu_torch.Executor``; then runs the BERT-base forward
+(``hetu_tpu_torch.models.bert``, random weights from a seed): the
+pretraining loss without gradient on a synthetic phase-1 batch (32 x 128)
+and the classifier on 8 requests. Each path is checked to have gone
+through its kernels.
 
     python3 chip_smoke.py
 
@@ -45,10 +48,37 @@ TOL = {"fused_sgd": dict(rtol=1e-6, atol=1e-7),
 # the port's different initial weights.
 SGD_LOSS_MAX, ADAM_LOSS_MAX = 1e-2, 1e-2
 
-# Peak rates for the bound, by card name: device-memory bytes/s and
-# float32 (non-tensor-core) flop/s, from NVIDIA's data sheets.
-CARDS = [("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
-         ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12)]
+# Attention checks (B, H, S, D, dtype, causal, key padding): the BERT-base
+# layer (the main path's shape; its times go into the kernels line), a long
+# causal sequence, and a small f32 case also held against the unfused
+# softmax(q k^T) v in f32.
+ATTN_CASES = [(32, 12, 128, 64, torch.bfloat16, False, True),
+              (8, 12, 512, 64, torch.bfloat16, True, False),
+              (2, 4, 256, 128, torch.float32, True, True)]
+# Fused linear+CE checks (N, V, D, layout), bf16: BERT-base's MLM loss (32
+# rows x 20 slots against the tied (V, D) embedding, with the MLM bias; the
+# main path's shape) and a GPT-2 LM head ((D, V), N ragged against 64).
+CE_CASES = [(640, 30522, 768, "vd"), (1000, 50257, 768, "dv")]
+# Kernel vs plain version: o in bf16 may differ by one bf16 rounding (the
+# same f32 sums in another order); f32 by summation order alone; lse, the
+# target logit and the NLL are f32 sums over 128 keys or 30k-50k logits.
+TOL.update({
+    "flash_attention_fwd": {"o_bf16": dict(rtol=2e-2, atol=2e-2),
+                            "o_f32": dict(rtol=2e-5, atol=2e-5),
+                            "lse": dict(rtol=0, atol=1e-3)},
+    "fused_linear_nll_fwd": {"lse_tl_nll": dict(rtol=0, atol=1e-3)}})
+# The BERT-base forward with the kernels against kernels="off" (the plain
+# versions on the card): losses rel 5e-3; classifier logits (|x| < ~1)
+# atol 2e-2, for bf16 activations rounded at other places over 12 layers.
+BERT_REL, LOGITS_ATOL = 5e-3, 2e-2
+BERT_BATCH, BERT_SEQ, BERT_PRED, BERT_REQUESTS, BERT_ITERS = 32, 128, 20, 8, 20
+
+# Peak rates for the bound, by card name: device-memory bytes/s, float32
+# (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
+# data sheets.
+CARDS = [("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100", 3.35e12, 67e12, 989e12), ("H200", 4.8e12, 67e12, 989e12)]
 
 
 def emit(phase, **fields):
@@ -61,9 +91,9 @@ def check(cond, msg):
 
 
 def card_peaks(name):
-    for key, bw, flops in CARDS:
+    for key, bw, f32, bf16 in CARDS:
         if key in name:
-            return bw, flops
+            return bw, f32, bf16
     raise RuntimeError(f"chip_smoke: no peak rates known for card {name!r}")
 
 
@@ -188,6 +218,178 @@ def kernel_phase(fused_opt, dev, bw, flops):
     return out
 
 
+def attention_phase(fa, dev, bw, f32, bf16):
+    """flash_attention_fwd against its plain version (and, in f32, against
+    unfused attention) at ATTN_CASES; timed at each case."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tol = TOL["flash_attention_fwd"]
+    cases = []
+    for b, h, s, d, dtype, causal, pad in ATTN_CASES:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        kb = None
+        if pad:   # key padding from lengths drawn in [S/2, S], as BERT's mask
+            lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                                    device=dev)
+            kb = torch.where(torch.arange(s, device=dev)[None, :]
+                             < lengths[:, None], 0.0, -1e30)
+        kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
+                  block_k=min(128, s))
+        o, lse = fa._flash_fwd_kernel(q, k, v, kb, **kw)
+        want_o, want_lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
+        torch.cuda.synchronize()
+        o_tol = tol["o_bf16"] if dtype == torch.bfloat16 else tol["o_f32"]
+        case = {"shape": [b, h, s, d], "dtype": str(dtype)[6:],
+                "causal": causal, "key_padding": pad,
+                "o_max_abs_err": max_err(o.float(), want_o.float(), o_tol),
+                "lse_max_abs_err": max_err(lse, want_lse, tol["lse"])}
+        if dtype == torch.float32:
+            sc = torch.matmul(q, k.transpose(-1, -2)) * kw["scale"]
+            if kb is not None:
+                sc = sc + kb[:, None, None, :]
+            if causal:
+                sc = torch.where(torch.ones(s, s, dtype=torch.bool,
+                                            device=dev).tril(), sc, -1e30)
+            unfused = torch.matmul(torch.softmax(sc, -1), v)
+            case["o_vs_unfused_max_abs_err"] = max_err(o, unfused,
+                                                       tol["o_f32"])
+        es = q.element_size()
+        pairs = s * (s + 1) // 2 if causal else s * s
+        case["bound"] = bound(
+            # read q, k, v (and the bias) once, write o and lse
+            4 * b * h * s * d * es + b * h * s * 4 + (b * s * 4 if pad else 0),
+            # q k^T and p v over the (query, key) pairs the mask keeps
+            4 * b * h * pairs * d, bw, bf16 if dtype == torch.bfloat16 else f32)
+        mask = None if kb is None else (kb == 0)[:, None, None, :]
+        case.update(
+            ms=graph_ms(lambda: fa._flash_fwd_kernel(q, k, v, kb, **kw)),
+            # the public entry the model calls, launched one call at a time
+            launched_ms=time_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal, kw["scale"], kw["block_q"], kw["block_k"],
+                kb)),
+            plain_ms=graph_ms(lambda: fa._flash_fwd_plain(q, k, v, kb, **kw),
+                              iters=20),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal,
+                scale=kw["scale"])))
+        cases.append(case)
+    return cases
+
+
+def ce_phase(ce, dev, bw, bf16):
+    """fused_linear_nll_fwd against its plain version at CE_CASES, timed."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tol = TOL["fused_linear_nll_fwd"]["lse_tl_nll"]
+    cases = []
+    for n, v, d, layout in CE_CASES:
+        w_dv = layout == "dv"
+        h = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        if w_dv:
+            w = w.t().contiguous()
+        b = torch.randn((v,), generator=gen, device=dev) * 0.02
+        t = torch.randint(0, v, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        kw = dict(block_n=128, block_v=512, w_dv=w_dv)
+        lse, tl = ce._linear_nll_fwd_kernel(h, w, b, t, **kw)
+        want_lse, want_tl = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
+        torch.cuda.synchronize()
+        err = max(max_err(lse, want_lse, tol), max_err(tl, want_tl, tol),
+                  max_err(lse - tl, want_lse - want_tl, tol))
+
+        def library():
+            logits = torch.matmul(h, w if w_dv else w.t()).float() + b
+            return (torch.logsumexp(logits, -1)
+                    - torch.gather(logits, 1, t.long()[:, None])[:, 0])
+
+        cases.append({
+            "shape": [n, v, d], "layout": layout, "dtype": "bfloat16",
+            "max_abs_err": err, "mean_nll": float((lse - tl).mean()),
+            # read h, W, b and the targets once; write lse and tl
+            "bound": bound(2 * (n * d + v * d) + 4 * v + 4 * n + 8 * n,
+                           2 * n * v * d, bw, bf16),
+            "ms": graph_ms(lambda: ce._linear_nll_fwd_kernel(h, w, b, t, **kw)),
+            "launched_ms": time_ms(
+                lambda: ce.fused_linear_nll(h, w, b, t, w_layout=layout), 50),
+            "plain_ms": graph_ms(
+                lambda: ce._linear_nll_fwd_plain(h, w, b, t, **kw), iters=20),
+            "library_ms": graph_ms(library)})
+    return cases
+
+
+def bert_phase(bert, bert_forward, registry, dev):
+    """The BERT-base forward: the pretraining loss without gradient and the
+    classifier on requests, each once with the launch counts zeroed just
+    before it and read just after, then against kernels="off", then timed."""
+    cfg = bert.BERT_BASE
+    params = bert.init_params(0, cfg, dev)
+    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
+                                      seed=0, device=dev)
+    cls_params = bert.init_classifier_params(1, cfg, 2, pretrained=params)
+    ids, seg, mask = bert_forward.requests(cfg, BERT_REQUESTS, BERT_SEQ,
+                                           seed=1, device=dev)
+
+    def pretrain():
+        loss, (mlm, nsp) = bert.pretrain_loss(params, batch, cfg)
+        return torch.stack([loss, mlm, nsp])
+
+    def classify():
+        return bert.classify_logits(cls_params, ids, seg, cfg,
+                                    input_mask=mask)
+
+    with torch.inference_mode():
+        # -- the main path, with the kernels -------------------------------
+        losses, pre_counts = bert_forward.counted(pretrain)
+        logits, cls_counts = bert_forward.counted(classify)
+        loss, mlm, nsp = (float(x) for x in losses)
+        check(pre_counts == {"flash_attention_fwd": cfg.n_layers,
+                             "fused_linear_nll_fwd": 1},
+              f"pretrain_loss launched {pre_counts}, expected "
+              f"{cfg.n_layers} flash_attention_fwd and 1 fused_linear_nll_fwd")
+        check(cls_counts == {"flash_attention_fwd": cfg.n_layers},
+              f"classify_logits launched {cls_counts}, expected "
+              f"{cfg.n_layers} flash_attention_fwd")
+        check(np.isfinite([loss, mlm, nsp]).all(), f"losses {losses}")
+        check(abs(mlm - np.log(cfg.vocab_size)) < 0.5,
+              f"mlm {mlm} at init is not within 0.5 of ln V")
+        check(abs(nsp - np.log(2)) < 0.2,
+              f"nsp {nsp} at init is not within 0.2 of ln 2")
+        check(tuple(logits.shape) == (BERT_REQUESTS, 2)
+              and bool(torch.isfinite(logits).all()), f"logits {logits}")
+        # -- the same inputs through the plain versions on the card --------
+        with registry.active("off"):
+            off_losses, off_counts = bert_forward.counted(pretrain)
+            off_logits, _ = bert_forward.counted(classify)
+            off_ms = bert_forward.forward_ms(pretrain, iters=5)
+        check(off_counts == {}, "kernels='off' launched a kernel")
+        rel = (losses - off_losses).abs() / off_losses.abs()
+        check(bool((rel < BERT_REL).all()),
+              f"losses {losses.tolist()} vs kernels='off' "
+              f"{off_losses.tolist()}: rel {rel.tolist()}")
+        logits_err = float((logits - off_logits).abs().max())
+        check(logits_err < LOGITS_ATOL,
+              f"classifier logits differ from kernels='off' by {logits_err}")
+        # -- timed ---------------------------------------------------------
+        ms = bert_forward.forward_ms(pretrain, BERT_ITERS)
+        cls_ms = bert_forward.forward_ms(classify, BERT_ITERS)
+    emit("bert_forward", config="BERT_BASE", layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, vocab=cfg.vocab_size,
+         dtype="bfloat16", params=bert.count_params(params),
+         batch=BERT_BATCH, seq_len=BERT_SEQ, mlm_slots=BERT_PRED,
+         real_mlm_slots=int(batch["mlm_weights"].sum()),
+         loss=loss, mlm=mlm, nsp=nsp, ln_vocab=float(np.log(cfg.vocab_size)),
+         off_rel_diff=[float(x) for x in rel], launches=pre_counts,
+         forward_ms=ms, sequences_per_s=BERT_BATCH / ms * 1e3,
+         off_forward_ms=off_ms)
+    emit("bert_requests", requests=BERT_REQUESTS, seq_len=BERT_SEQ,
+         logits_absmax=float(logits.abs().max()),
+         off_max_abs_diff=logits_err, launches=cls_counts, ms=cls_ms,
+         requests_per_s=BERT_REQUESTS / cls_ms * 1e3)
+    return pre_counts
+
+
 def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
           validate=False):
     """One fresh executor on the MLP: (losses, step ms, validation)."""
@@ -220,10 +422,39 @@ def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
     return losses, step_ms, val
 
 
+def kernels_line(kern, attn, ces, launches):
+    """The ``kernels`` JSON object: one entry per ported kernel."""
+    replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
+                "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
+                "flash_attention_fwd": "hetu_tpu/kernels/flash_attention.py:111",
+                "fused_linear_nll_fwd": "hetu_tpu/kernels/fused_ce.py:223"}
+    sources = {"fused_sgd": "fused_opt.cu", "fused_adam": "fused_opt.cu",
+               "flash_attention_fwd": "flash_attention.cu",
+               "fused_linear_nll_fwd": "fused_ce.cu"}
+    # the new kernels' entries are timed at the main path's shapes (their
+    # first cases); max_abs_err is the largest over all their cases
+    kern = dict(kern)
+    kern["flash_attention_fwd"] = dict(attn[0], max_abs_err=max(
+        max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn))
+    kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
+        c["max_abs_err"] for c in ces))
+    return {"kernels": [dict(
+        name=k, route="cuda", source="hetu_tpu_torch/csrc/" + sources[k],
+        replaces=replaces[k], launches=launches[k],
+        max_abs_err=v["max_abs_err"], tolerance=TOL[k], ms=v["ms"],
+        plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+        bound_by=v["bound"][1], library_ms=v["library_ms"],
+        **{f: v[f] for f in ("launched_ms", "plain_launched_ms",
+                             "library_launched_ms", "shape") if f in v})
+        for k, v in kern.items()]}
+
+
 def main():
     import hetu_tpu_torch as ht
-    from hetu_tpu_torch.examples import cnn_main
-    from hetu_tpu_torch.kernels import _build, fused_opt, registry
+    from hetu_tpu_torch.examples import bert_forward, cnn_main
+    from hetu_tpu_torch.kernels import (_build, flash_attention, fused_ce,
+                                        fused_opt, registry)
+    from hetu_tpu_torch.models import bert
 
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -236,7 +467,7 @@ def main():
     smi = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_peaks(name)
+    bw, f32, bf16 = card_peaks(name)
     emit("device", name=name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
@@ -247,10 +478,16 @@ def main():
          libraries=[os.path.relpath(p) for p in libs.values()])
 
     # -- 3. kernels against their plain versions ---------------------------
-    kern = kernel_phase(fused_opt, dev, bw, flops)
+    kern = kernel_phase(fused_opt, dev, bw, f32)
     emit("kernels_checked", shapes=[list(s) for s in MLP_SHAPES + [ODD_SHAPE]],
-         tolerance=TOL, **{k: {"max_abs_err": v["max_abs_err"]}
-                           for k, v in kern.items()})
+         tolerance={k: TOL[k] for k in kern},
+         **{k: {"max_abs_err": v["max_abs_err"]} for k, v in kern.items()})
+    attn = attention_phase(flash_attention, dev, bw, f32, bf16)
+    emit("flash_attention_checked", tolerance=TOL["flash_attention_fwd"],
+         cases=attn)
+    ces = ce_phase(fused_ce, dev, bw, bf16)
+    emit("fused_linear_nll_checked", tolerance=TOL["fused_linear_nll_fwd"],
+         cases=ces)
 
     # -- 4. train the full-width MLP through the executor ------------------
     data = cnn_main.load_dataset("CIFAR10")
@@ -295,18 +532,10 @@ def main():
         emit("parity_cpu", opt=opt, steps=8,
              max_rel=float(np.max(np.abs(gpu_l - cpu_l) / np.abs(cpu_l))))
 
-    replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
-                "fused_adam": "hetu_tpu/kernels/fused_opt.py:95"}
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": "hetu_tpu_torch/csrc/fused_opt.cu",
-         "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
-         "bound_by": v["bound"][1], "library_ms": v["library_ms"],
-         "launched_ms": v["launched_ms"],
-         "plain_launched_ms": v["plain_launched_ms"],
-         "library_launched_ms": v["library_launched_ms"]}
-        for k, v in kern.items()]}), flush=True)
+    # -- 6. the BERT-base forward ------------------------------------------
+    launches.update(bert_phase(bert, bert_forward, registry, dev))
+
+    print(json.dumps(kernels_line(kern, attn, ces, launches)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -26,5 +26,6 @@ from . import initializers as init
 from . import data
 from . import interop
 from . import kernels
+from . import models
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Example trainers of the port (counterparts of ``examples/``)."""
+"""Example entry points of the port (counterparts of ``examples/``)."""

@@ -1,0 +1,207 @@
+"""Flash attention, forward: hand-written CUDA for Hopper in
+``csrc/flash_attention.cu`` (counterpart of
+``hetu_tpu/kernels/flash_attention.py``).
+
+``flash_attention_fwd`` replaces ``hetu_tpu/kernels/flash_attention.py:
+_fwd_pallas`` (body ``_fwd_kernel``): blockwise attention over
+``(batch, heads, seq, head_dim)`` with an online softmax, causal or not,
+with an optional per-key additive bias ``k_bias`` ``(batch, seq)``, that
+returns ``o`` and the row logsumexp ``lse`` ``(batch, heads, seq)`` f32.
+It serves every encoder layer of BERT (``models/transformer.py``'s
+``_attention_core`` with ``impl="flash"``): 12 launches per BERT-base
+forward.
+
+Bound on an H100 SXM at the BERT-base shape (B=32, H=12, S=128, D=64,
+bf16): 4·B·H·S²·D = 1.6 GFLOP against 25 MB of q, k, v and o, i.e. 1.6 us
+of tensor-core time and 7.5 us of memory time — memory-bound. The first
+kernel does its products in f32 on the CUDA cores, so it is bound by its
+own arithmetic; it reads q, k and v once per block and never writes the
+(S, S) scores (the source's header has the design).
+
+Only the forward is ported. ``flash_attention`` is a
+``torch.autograd.Function`` whose backward raises: the backward kernels
+(``_bwd_pallas``) come with the training slice.
+
+``_flash_fwd_plain`` is ``_fwd_kernel``'s online softmax as a blockwise
+PyTorch loop over the same (block_q, block_k) tiles: what a CPU tensor
+runs, what ``kernels="off"`` runs, and the oracle the kernel is held
+against.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build, registry
+
+_SRC = "flash_attention"
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+_NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)   # the head_dims csrc/flash_attention.cu is built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its C signature declared (pointers and the
+    stream as c_void_p, sizes as c_int64)."""
+    lib = _build.load(_SRC)
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    lib.hetu_flash_attention_fwd.argtypes = [
+        P, P, P, P, P, P, I64, I64, I64, I64, ctypes.c_float, ctypes.c_int,
+        I64, I64, ctypes.c_int, P]
+    lib.hetu_flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _causal_upper_kb(q_start, block_q, block_k):
+    """First key block strictly above the diagonal, by ceil division (the
+    reference's ``_causal_upper_kb``)."""
+    return (q_start + block_q + block_k - 1) // block_k
+
+
+def _resolve(q, scale, block_q, block_k):
+    """The reference's ``_resolve``: default scale, blocks cut to the
+    sequence, and a sequence the blocks must divide."""
+    s = q.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    block_q = min(block_q, s)
+    block_k = min(block_k, s)
+    if s % block_q or s % block_k:
+        raise ValueError(f"seq_len {s} must divide blocks ({block_q},{block_k})")
+    return scale, block_q, block_k
+
+
+def _flash_fwd_plain(q, k, v, k_bias, *, scale, causal, block_q, block_k):
+    """``_fwd_kernel`` in PyTorch: for each q block, the online softmax over
+    its key blocks (up to the diagonal when causal). Returns ``(o, lse)``."""
+    B, H, S, D = q.shape
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    kb = None if k_bias is None else k_bias.float()[:, None, None, :]
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    n_kb = S // block_k
+    for q0 in range(0, S, block_q):
+        qb = qf[:, :, q0:q0 + block_q]
+        acc = torch.zeros((B, H, block_q, D), device=q.device)
+        m = torch.full((B, H, block_q), _NEG_INF, device=q.device)
+        l = torch.zeros((B, H, block_q), device=q.device)
+        upper = _causal_upper_kb(q0, block_q, block_k) if causal else n_kb
+        for k0 in range(0, upper * block_k, block_k):
+            s = torch.matmul(qb, kf[:, :, k0:k0 + block_k].transpose(-1, -2))
+            if kb is not None:
+                s = s + kb[..., k0:k0 + block_k]
+            if causal:
+                q_pos = torch.arange(q0, q0 + block_q, device=q.device)
+                k_pos = torch.arange(k0, k0 + block_k, device=q.device)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(
+                p, vf[:, :, k0:k0 + block_k])
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        o[:, :, q0:q0 + block_q] = (acc / l[..., None]).to(q.dtype)
+        lse[:, :, q0:q0 + block_q] = m + torch.log(l)
+    return o, lse
+
+
+def _flash_fwd_kernel(q, k, v, k_bias, *, scale, causal, block_q, block_k):
+    """Launch ``flash_fwd_kernel``: returns ``(o, lse)``."""
+    B, H, S, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.hetu_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if k_bias is None else k_bias.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B * H, H, S, D, float(scale), int(causal),
+            block_q, block_k, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd: kernel launch failed with "
+                           f"CUDA error {rc}")
+    _FLASH.launches += 1
+    return o, lse
+
+
+def _flash_eligible(q, k, v, k_bias, **_kw):
+    for nm, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device or x.device.type != "cuda":
+            return False, f"{nm} is on {x.device}, the call is on {q.device}"
+        if x.dtype not in _DTYPE_CODE or x.dtype != q.dtype:
+            return False, (f"{nm} must be float32 or bfloat16 like q, got "
+                           f"{x.dtype}")
+        if x.shape != q.shape:
+            return False, (f"{nm} has shape {tuple(x.shape)}, q has "
+                           f"{tuple(q.shape)}")
+        if not x.is_contiguous():
+            return False, f"{nm} is not contiguous"
+    if q.dim() != 4 or q.numel() == 0:
+        return False, f"q must be a non-empty (B, H, S, D) tensor, got {tuple(q.shape)}"
+    if q.shape[-1] not in HEAD_DIMS:
+        return False, f"head_dim {q.shape[-1]} is not one of {HEAD_DIMS}"
+    if k_bias is not None:
+        if k_bias.device != q.device:
+            return False, f"k_bias is on {k_bias.device}, the call is on {q.device}"
+        if k_bias.dtype != torch.float32:
+            return False, f"k_bias must be float32, got {k_bias.dtype}"
+        if tuple(k_bias.shape) != (q.shape[0], q.shape[2]):
+            return False, (f"k_bias has shape {tuple(k_bias.shape)}, expected "
+                           f"{(q.shape[0], q.shape[2])}")
+        if not k_bias.is_contiguous():
+            return False, "k_bias is not contiguous"
+    return True, None
+
+
+_FLASH = registry.register_kernel(
+    "flash_attention_fwd", kernel_fn=_flash_fwd_kernel,
+    plain_fn=_flash_fwd_plain, eligibility=_flash_eligible)
+
+
+class _FlashFwd(torch.autograd.Function):
+    """The forward through the registry; the backward is not ported."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_bias, causal, scale, block_q, block_k):
+        o, lse = registry.dispatch("flash_attention_fwd", q, k, v, k_bias,
+                                   scale=scale, causal=causal,
+                                   block_q=block_q, block_k=block_k)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        raise NotImplementedError(
+            "flash_attention has no backward in hetu_tpu_torch yet: its "
+            "backward kernels (hetu_tpu/kernels/flash_attention.py:"
+            "_bwd_pallas) come with the BERT pretraining slice (ROADMAP "
+            "Queue 1, slice 5b)")
+
+
+def flash_attention_fwd(q, k, v, causal=True, scale=None,
+                        block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                        k_bias=None):
+    """Fused attention forward. q/k/v: (batch, heads, seq, head_dim).
+    Returns ``(o, lse)``: ``o`` like q, ``lse`` (batch, heads, seq) f32.
+
+    ``k_bias``: optional (batch, seq) float added to every score column —
+    the key-padding mask form (0 valid / -1e30 padded)."""
+    scale, block_q, block_k = _resolve(q, scale, block_q, block_k)
+    return _FlashFwd.apply(q, k, v, k_bias, causal, scale, block_q, block_k)
+
+
+def flash_attention(q, k, v, causal=True, scale=None,
+                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
+                    k_bias=None):
+    """Fused attention (the reference's signature). Returns ``o``."""
+    return flash_attention_fwd(q, k, v, causal, scale, block_q, block_k,
+                               k_bias)[0]

@@ -62,6 +62,24 @@ def is_gpu_ctx(ctx) -> bool:
 is_tpu_ctx = is_gpu_ctx
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device of a functional entry point (the models, ``interop``):
+    ``None`` is ``cuda:0``; a ``DLContext``, a string or a
+    ``torch.device`` names another. A CUDA device without CUDA raises
+    rather than run on the CPU."""
+    if device is None:
+        dev = torch.device("cuda", 0)
+    elif isinstance(device, DLContext):
+        dev = device.torch_device()
+    else:
+        dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the call runs on {dev} but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
 class NDArray:
     """Thin handle over a ``torch.Tensor`` with the reference's surface."""
 

@@ -1,0 +1,261 @@
+"""hetu_tpu_torch's BERT and transformer forward against the JAX package.
+
+The same params (``hetu_tpu``'s init, carried across with
+``interop.tree_from_numpy``) and the same batch (numpy, seeded) go through
+``hetu_tpu.models.{bert,transformer}`` and ``hetu_tpu_torch.models``' at a
+small width, in f32. Attention runs ``flash`` on both sides (the JAX
+package's Pallas kernel in interpret mode, the port's plain version) and
+``dot``; the MLM and LM losses run fused (likewise) and unfused.
+
+Tolerances: hidden states and logits atol 1e-4 (two layers of f32 matmuls
+summed in another order); losses rel 1e-5.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hetu_tpu.models import bert as jb, transformer as jt
+from hetu_tpu_torch.interop import tree_from_numpy
+from hetu_tpu_torch.kernels import registry
+from hetu_tpu_torch.models import bert as tb, transformer as tt
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+SMALL = dict(vocab_size=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+             max_seq_len=32, remat=False)
+B, T, P = 4, 32, 5
+HID = dict(atol=1e-4, rtol=0)
+LOSS = dict(rtol=1e-5, atol=0)
+
+
+def _configs(hf, **kw):
+    jc = (jb.BertConfig.hf if hf else jb.BertConfig)(
+        dtype=jnp.float32, **SMALL, **kw)
+    tc = (tb.BertConfig.hf if hf else tb.BertConfig)(
+        dtype=torch.float32, **SMALL, **kw)
+    return jc, tc
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["preln", "hf"])
+def bert_pair(request):
+    """(hf, JAX params, the port's params carried across)."""
+    jc, tc = _configs(request.param)
+    jp = jb.init_params(jax.random.PRNGKey(0), jc)
+    tp = tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu",
+                         like=tb.init_params(0, tc, "cpu"))
+    return request.param, jp, tp
+
+
+@pytest.fixture(scope="module")
+def batch():
+    rng = np.random.RandomState(0)
+    mask = np.ones((B, T), np.int32)
+    mask[1, 20:] = 0
+    mask[2, 5:] = 0
+    return {"input_ids": rng.randint(0, 97, (B, T)).astype(np.int32),
+            "input_mask": mask,
+            "segment_ids": (np.arange(T)[None, :] >= T // 2)
+                           .astype(np.int32).repeat(B, 0),
+            "mlm_positions": rng.randint(1, T, (B, P)).astype(np.int32),
+            "mlm_ids": rng.randint(0, 97, (B, P)).astype(np.int32),
+            "mlm_weights": (rng.rand(B, P) > 0.2).astype(np.float32),
+            "nsp_label": rng.randint(0, 2, (B,)).astype(np.int32)}
+
+
+def _tb(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("impl", ["dot", "flash"])
+def test_encode_matches_jax(bert_pair, batch, impl):
+    hf, jp, tp = bert_pair
+    jc, tc = _configs(hf, attn_impl=impl)
+    want = jb.encode(jp, batch["input_ids"], batch["segment_ids"], jc,
+                     input_mask=batch["input_mask"])
+    got = tb.encode(tp, torch.from_numpy(batch["input_ids"]),
+                    torch.from_numpy(batch["segment_ids"]), tc,
+                    input_mask=torch.from_numpy(batch["input_mask"]))
+    assert got.shape == (B, T, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **HID)
+
+
+@pytest.mark.parametrize("impl,fused", [("dot", False), ("flash", True)])
+def test_pretrain_loss_matches_jax(bert_pair, batch, impl, fused):
+    hf, jp, tp = bert_pair
+    jc, tc = _configs(hf, attn_impl=impl, fused_mlm_ce=fused)
+    jl, (jm, jn) = jb.pretrain_loss(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jc)
+    tl, (tm, tn) = tb.pretrain_loss(tp, _tb(batch), tc)
+    np.testing.assert_allclose([float(tl), float(tm), float(tn)],
+                               [float(jl), float(jm), float(jn)], **LOSS)
+
+
+def test_classify_logits_matches_jax(bert_pair, batch):
+    hf, jp, tp = bert_pair
+    jc, tc = _configs(hf, attn_impl="flash")
+    jcp = jb.init_classifier_params(jax.random.PRNGKey(1), jc, 3,
+                                    pretrained=jp)
+    tcp = tree_from_numpy(
+        jax.tree.map(np.asarray, jcp), "cpu",
+        like=tb.init_classifier_params(1, tc, 3, pretrained=tp))
+    want = jb.classify_logits(jcp, batch["input_ids"], batch["segment_ids"],
+                              jc, input_mask=batch["input_mask"])
+    got = tb.classify_logits(tcp, torch.from_numpy(batch["input_ids"]),
+                             torch.from_numpy(batch["segment_ids"]), tc,
+                             input_mask=torch.from_numpy(batch["input_mask"]))
+    assert got.shape == (B, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **HID)
+    assert tb.count_params(tp) == jb.count_params(jp)
+
+
+LM = dict(vocab_size=101, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+          max_seq_len=32, remat=False)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["dv_head", "vd_tied"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_causal_lm_loss_matches_jax(tied, fused):
+    kw = dict(LM, tied_head=tied, fused_lm_ce=fused, attn_impl="flash")
+    jc = jt.TransformerConfig(dtype=jnp.float32, **kw)
+    tc = tt.TransformerConfig(dtype=torch.float32, **kw)
+    jp = jt.init_params(jax.random.PRNGKey(2), jc)
+    tp = tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu",
+                         like=tt.init_params(0, tc, "cpu"))
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, 101, (2, T)).astype(np.int32)
+    targets = rng.randint(0, 101, (2, T)).astype(np.int32)
+    want = jt.loss_fn(jp, jnp.asarray(tokens), jnp.asarray(targets), jc)
+    got = tt.loss_fn(tp, torch.from_numpy(tokens), torch.from_numpy(targets),
+                     tc)
+    np.testing.assert_allclose(float(got), float(want), **LOSS)
+
+
+@pytest.mark.parametrize("dialect", [
+    dict(rope=True, use_pos_emb=False),
+    dict(n_kv_heads=2),
+    dict(mlp="swiglu", norm="rmsnorm"),
+    dict(post_ln=True, gelu_exact=True, attn_proj_bias=True),
+], ids=["rope", "gqa", "swiglu_rmsnorm", "postln"])
+def test_dialects_forward_match_jax(dialect):
+    kw = dict(LM, **dialect)
+    jc = jt.TransformerConfig(dtype=jnp.float32, **kw)
+    tc = tt.TransformerConfig(dtype=torch.float32, **kw)
+    jp = jt.init_params(jax.random.PRNGKey(3), jc)
+    tp = tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu",
+                         like=tt.init_params(0, tc, "cpu"))
+    tokens = np.random.RandomState(2).randint(0, 101, (2, T)).astype(np.int32)
+    want, _ = jt.forward(jp, jnp.asarray(tokens), jc)
+    got, aux = tt.forward(tp, torch.from_numpy(tokens), tc)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **HID)
+
+
+def test_init_schedule_and_interop_checks():
+    tc = tt.TransformerConfig(dtype=torch.float32, **LM)
+    full = tt.init_params(7, tc, "cpu")
+    trunk = tt.init_trunk_params(7, tc, "cpu")
+    for k, v in trunk["blocks"].items():
+        assert torch.equal(v, full["blocks"][k])
+    jp = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(0),
+                                                 jt.TransformerConfig(**LM)))
+    assert tt.count_params(full) == jt.count_params(jp)
+    bad = dict(jp, extra=np.zeros(3, np.float32))
+    with pytest.raises(KeyError, match="extra"):
+        tree_from_numpy(bad, "cpu", like=full)
+    wrong = dict(jp, embed=np.zeros((5, 64), np.float32))
+    with pytest.raises(ValueError, match="embed"):
+        tree_from_numpy(wrong, "cpu", like=full)
+    f64 = dict(jp, lnf_scale=jp["lnf_scale"].astype(np.float64))
+    with pytest.raises(ValueError, match="lnf_scale: torch.float64"):
+        tree_from_numpy(f64, "cpu", like=full)
+    flat = dict(jp, blocks=np.zeros(3, np.float32))
+    with pytest.raises(KeyError, match="blocks"):
+        tree_from_numpy(flat, "cpu", like=full)
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tb.BertConfig(dtype=torch.float32, **SMALL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tb.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tree_from_numpy({"w": np.zeros(2, np.float32)})
+    assert tb.init_params(0, cfg, "cpu")["embed"].device.type == "cpu"
+
+
+def test_unported_paths_raise(batch):
+    moe = tt.TransformerConfig(dtype=torch.float32, n_experts=2, **LM)
+    p = tt.init_params(0, moe, "cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tt.forward(p, tokens, moe)
+    ring = tt.TransformerConfig(dtype=torch.float32, attn_impl="ring", **LM)
+    p = tt.init_params(0, ring, "cpu")
+    with pytest.raises(NotImplementedError, match="ring"):
+        tt.forward(p, tokens, ring)
+    plain = tt.TransformerConfig(dtype=torch.float32, **LM)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tt.forward(p, tokens, plain, mesh=object())
+    with pytest.raises(NotImplementedError, match="dropout_rng"):
+        tt.forward(p, tokens, plain, dropout_rng=torch.Generator())
+    # the forward kernels have no backward yet: training raises
+    cfg = tb.BertConfig(dtype=torch.float32, fused_mlm_ce=True,
+                        attn_impl="flash", **SMALL)
+    params = tb.init_params(0, cfg, "cpu")
+    params["embed"].requires_grad_()
+    loss, _ = tb.pretrain_loss(params, _tb(batch), cfg)
+    with pytest.raises(NotImplementedError, match="pretraining slice"):
+        loss.backward()
+
+
+def test_auto_rules_and_batch_from_instances(batch):
+    cfg = tt.TransformerConfig(**LM)
+    kp = torch.zeros((2, 1, 1, 128))
+    assert tt._resolve_attn_impl(cfg, None, 128, kp, "cpu") == "dot"
+    assert tt._resolve_attn_impl(cfg, None, 128, kp, "cuda:0") == "flash"
+    assert tt._resolve_attn_impl(cfg, None, 96, kp, "cuda:0") == "dot"
+    flash = tt.TransformerConfig(attn_impl="flash", **LM)
+    with pytest.warns(UserWarning, match="non-key-padding"):
+        assert tt._resolve_attn_impl(flash, None, 128,
+                                     torch.zeros((2, 1, 128, 128))) == "dot"
+    # the reference's rule: T % min(128, T), so only T > 128 can miss it
+    with pytest.warns(UserWarning, match="divisible by 128"):
+        assert tt._resolve_attn_impl(flash, None, 192,
+                                     torch.zeros((2, 1, 1, 192))) == "dot"
+    assert tt._resolve_attn_impl(flash, None, 96, kp[..., :96]) == "flash"
+    rows = [tuple(batch[k][i] for k in ("input_ids", "input_mask",
+                                        "segment_ids", "mlm_positions",
+                                        "mlm_ids")) + (int(batch["nsp_label"][i]),)
+            for i in range(B)]
+    want = jb.batch_from_instances(rows)
+    got = tb.batch_from_instances(rows, "cpu")
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
+    # and through the kernels' dispatch on the CPU: plain versions only
+    registry.reset_stats()
+    bc = tb.BertConfig(dtype=torch.float32, fused_mlm_ce=True,
+                       attn_impl="flash", **SMALL)
+    with torch.inference_mode():
+        tb.pretrain_loss(tb.init_params(0, bc, "cpu"), got, bc)
+    assert registry.dispatch_stats() == {
+        ("flash_attention_fwd", "plain"): 2,
+        ("fused_linear_nll_fwd", "plain"): 1}
+
+
+def test_bert_forward_example_runs_on_the_cpu():
+    from hetu_tpu_torch.examples import bert_forward
+    # a vocabulary that holds BERT's special ids (101-103) and words (1000+)
+    cfg = tb.BertConfig(dtype=torch.float32, **dict(SMALL, vocab_size=1100))
+    batch = bert_forward.phase1_batch(cfg, 4, 32, n_pred=5, device="cpu")
+    w = batch["mlm_weights"].numpy()
+    assert w.shape == (4, 5) and (w.sum(1) >= 1).all()
+    pos = batch["mlm_positions"].numpy()
+    assert (batch["input_ids"].numpy()[np.arange(4)[:, None], pos][w > 0]
+            == bert_forward.MASK).all()
+    res = list(bert_forward.run("cpu", 4, 32, 2, iters=1, cfg=cfg))
+    assert [r["entry"] for r in res] == ["pretrain_loss", "classify_logits"]
+    assert np.isfinite(res[0]["mlm"]) and res[1]["logits_shape"] == [2, 2]
+    assert res[0]["launches"] == {} and res[1]["launches"] == {}

@@ -95,3 +95,118 @@ def test_mlp_on_the_card_matches_the_cpu(dev):
     on_card = losses(None)
     assert registry.launch_counts()["fused_adam"] == 8
     np.testing.assert_allclose(on_card, losses(ht.cpu(0)), rtol=1e-4)
+
+
+# -- flash_attention_fwd and fused_linear_nll_fwd ---------------------------
+# Tolerances as in chip_smoke.py: bf16 o rtol/atol 2e-2 (one bf16 rounding
+# of o on each side), lse and NLL atol 1e-3 (f32 sums in another order).
+
+def _bert_attention(dev, b=4, h=12, s=128, d=64, dtype=torch.bfloat16,
+                    seed=0):
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
+               .to(dev, dtype) for _ in range(3))
+    lengths = rng.randint(s // 2, s + 1, b)
+    kb = torch.from_numpy(np.where(np.arange(s)[None, :] < lengths[:, None],
+                                   0.0, -1e30).astype(np.float32)).to(dev)
+    return q, k, v, kb
+
+
+@pytest.mark.parametrize("s,d,causal,dtype", [
+    (128, 64, False, torch.bfloat16),     # BERT-base layer
+    (512, 64, True, torch.bfloat16),
+    (256, 128, True, torch.float32),
+    (64, 32, False, torch.float32),
+])
+def test_flash_kernel_matches_plain(dev, s, d, causal, dtype):
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    q, k, v, kb = _bert_attention(dev, s=s, d=d, dtype=dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
+              block_k=min(128, s))
+    want_o, want_lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
+    with registry.active("auto"):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, k_bias=kb)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    assert registry.launch_counts()["flash_attention_fwd"] == 1
+
+
+@pytest.mark.parametrize("n,v,d,layout", [
+    (640, 30522, 768, "vd"),              # BERT-base MLM
+    (1000, 50257, 768, "dv"),
+    (33, 517, 48, "vd"),
+])
+def test_fused_ce_kernel_matches_plain(dev, n, v, d, layout):
+    from hetu_tpu_torch.kernels import fused_ce as ce
+    rng = np.random.RandomState(1)
+    h = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy(rng.randn(v, d).astype(np.float32) * 0.05).to(
+        dev, torch.bfloat16)
+    if layout == "dv":
+        w = w.t().contiguous()
+    b = torch.from_numpy(rng.randn(v).astype(np.float32) * 0.1).to(dev)
+    t = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(dev)
+    lse, tl = ce._linear_nll_fwd_plain(h, w, b, t, block_n=128, block_v=512,
+                                       w_dv=layout == "dv")
+    with registry.active("auto"):
+        nll = ce.fused_linear_nll(h, w, b, t, w_layout=layout)
+    torch.testing.assert_close(nll, lse - tl, rtol=0, atol=1e-3)
+    assert registry.launch_counts()["fused_linear_nll_fwd"] == 1
+
+
+def test_ineligible_attention_and_ce_calls_raise(dev):
+    from hetu_tpu_torch.kernels import flash_attention as fa, fused_ce as ce
+    q, k, v, kb = _bert_attention(dev, b=2, s=128)
+    bad = [((q.half(), k.half(), v.half()), {}, "float32 or bfloat16"),
+           ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v), {},
+            "contiguous"),
+           ((q, k, v), dict(k_bias=kb.double()), "k_bias must be float32"),
+           ((q[..., :48].contiguous(), k[..., :48].contiguous(),
+             v[..., :48].contiguous()), {}, "head_dim")]
+    for args, kw, why in bad:
+        with pytest.raises(registry.KernelEligibilityError, match=why):
+            fa.flash_attention(*args, causal=False, **kw)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        fa.flash_attention(q, k, v, block_q=96)     # 128 % 96 != 0
+    h = torch.zeros((8, 16), device=dev)
+    w = torch.zeros((40, 16), device=dev)
+    b = torch.zeros((40,), device=dev)
+    t = torch.zeros((8,), dtype=torch.int32, device=dev)
+    bad = [((h.double(), w.double(), b, t), "float32 or both bfloat16"),
+           ((h, w.t(), b, t), "contiguous"),
+           ((h, w, b[:20], t), "shape"),
+           ((h, w, b, t.cpu()), "cpu")]
+    for args, why in bad:
+        with pytest.raises(registry.KernelEligibilityError, match=why):
+            ce.fused_linear_nll(*args)
+    assert registry.launch_counts()["flash_attention_fwd"] == 0
+    assert registry.launch_counts()["fused_linear_nll_fwd"] == 0
+
+
+def test_bert_forward_on_the_card_matches_the_cpu(dev):
+    """A narrow BERT in f32: the card (both kernels) against the port on
+    the CPU (plain versions), atol 1e-4 on the losses."""
+    from hetu_tpu_torch.models import bert
+    cfg = bert.BertConfig(vocab_size=1000, d_model=128, n_heads=2,
+                          n_layers=2, d_ff=256, max_seq_len=128,
+                          dtype=torch.float32, fused_mlm_ce="auto")
+    params = bert.init_params(0, cfg, "cpu")
+    rng = np.random.RandomState(2)
+    rows = [(rng.randint(0, 1000, 128), np.ones(128, np.int32),
+             np.zeros(128, np.int32), rng.randint(1, 128, 5),
+             rng.randint(0, 1000, 5), i % 2) for i in range(4)]
+    cpu = bert.batch_from_instances(rows, "cpu")
+    with torch.inference_mode():
+        want, _ = bert.pretrain_loss(params, cpu, cfg)
+        got, _ = bert.pretrain_loss(_to(params, dev), _to(cpu, dev), cfg)
+    assert registry.launch_counts()["flash_attention_fwd"] == 2
+    assert registry.launch_counts()["fused_linear_nll_fwd"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

@@ -77,6 +77,41 @@ def test_a_cpu_step_loads_neither_jax_nor_hetu_tpu():
     assert "LOADED []" in p.stdout, p.stdout
 
 
+def test_a_cpu_bert_forward_loads_neither_jax_nor_hetu_tpu():
+    """The BERT forward (pretraining loss through both kernels' dispatch,
+    and the classifier) on the CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from hetu_tpu_torch.models import bert
+        cfg = bert.BertConfig(vocab_size=50, d_model=32, n_heads=2,
+                              n_layers=1, d_ff=64, max_seq_len=16,
+                              dtype=torch.float32, attn_impl="flash",
+                              fused_mlm_ce=True)
+        params = bert.init_params(0, cfg, "cpu")
+        rng = np.random.RandomState(0)
+        rows = [(rng.randint(0, 50, 16), np.ones(16, np.int32),
+                 np.zeros(16, np.int32), np.array([3, 5, 0]),
+                 rng.randint(0, 50, 3), i % 2) for i in range(2)]
+        batch = bert.batch_from_instances(rows, "cpu")
+        with torch.inference_mode():
+            loss, _ = bert.pretrain_loss(params, batch, cfg)
+            cp = bert.init_classifier_params(1, cfg, 3, pretrained=params)
+            logits = bert.classify_logits(cp, batch["input_ids"],
+                                          batch["segment_ids"], cfg)
+        assert torch.isfinite(loss) and logits.shape == (2, 3)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
 def test_executor_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = ht.init.zeros((3,), name="w")
@@ -109,9 +144,11 @@ def test_build_reports_nvcc_stderr(monkeypatch, tmp_path):
 
 
 def test_every_source_is_built_and_keyed_by_its_content():
-    assert _build.sources() == ["fused_opt"]
-    path = _build.library_path("fused_opt")
-    assert path.startswith(_build.BUILD_DIR)
-    assert path == _build.library_path("fused_opt")
+    assert _build.sources() == ["flash_attention", "fused_ce", "fused_opt"]
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.startswith(_build.BUILD_DIR)
+        assert path == _build.library_path(name)
+    assert len({_build.library_path(n) for n in _build.sources()}) == 3
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
