@@ -3,10 +3,13 @@
 CUDA kernels from this checkout and holds each against its plain PyTorch
 version on the card; trains the full-width MLP of
 ``examples/cnn/models/MLP.py`` (3072-256-256-10, synthetic CIFAR10, batch
-128) through ``hetu_tpu_torch.Executor``; then runs the BERT-base forward
+128) through ``hetu_tpu_torch.Executor``; runs the BERT-base forward
 (``hetu_tpu_torch.models.bert``, random weights from a seed): the
 pretraining loss without gradient on a synthetic phase-1 batch (32 x 128)
-and the classifier on 8 requests. Each path is checked to have gone
+and the classifier on 8 requests; then trains BERT-base with
+``make_pretrain_step`` for 20 steps on that batch, checks its first step's
+gradients against ``kernels="off"``, and fine-tunes the classifier for 5
+steps with ``make_finetune_step``. Each path is checked to have gone
 through its kernels.
 
     python3 chip_smoke.py
@@ -17,6 +20,7 @@ phase, then the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,12 +70,36 @@ TOL.update({
     "flash_attention_fwd": {"o_bf16": dict(rtol=2e-2, atol=2e-2),
                             "o_f32": dict(rtol=2e-5, atol=2e-5),
                             "lse": dict(rtol=0, atol=1e-3)},
-    "fused_linear_nll_fwd": {"lse_tl_nll": dict(rtol=0, atol=1e-3)}})
+    "fused_linear_nll_fwd": {"lse_tl_nll": dict(rtol=0, atol=1e-3)},
+    # the backward kernels against their plain versions: each gradient is
+    # an f32 sum rounded once to the output dtype on both sides, so bf16
+    # outputs may differ by a bf16 rounding and f32 ones by summation
+    # order; db is an f32 sum over the rows. The f32 attention case is
+    # also held against autograd of the unfused f32 softmax(q k^T) v.
+    "flash_attention_bwd": {"bf16": dict(rtol=2e-2, atol=2e-2),
+                            "f32": dict(rtol=2e-5, atol=2e-5),
+                            "f32_vs_autograd": dict(rtol=0, atol=2e-5)},
+    "fused_linear_nll_bwd": {"dh_dw_bf16": dict(rtol=2e-2, atol=2e-2),
+                             "db": dict(rtol=0, atol=1e-3)}})
 # The BERT-base forward with the kernels against kernels="off" (the plain
 # versions on the card): losses rel 5e-3; classifier logits (|x| < ~1)
 # atol 2e-2, for bf16 activations rounded at other places over 12 layers.
 BERT_REL, LOGITS_ATOL = 5e-3, 2e-2
 BERT_BATCH, BERT_SEQ, BERT_PRED, BERT_REQUESTS, BERT_ITERS = 32, 128, 20, 8, 20
+# BERT-base pretraining: 20 AdamW steps at lr 1e-4 on the phase-1 batch,
+# 3 of them warm-up for the step time; the first loss within
+# FIRST_LOSS_TOL of ln V + ln 2, the loss at random init. The first step's
+# gradients with the kernels against kernels="off" (plain versions on the
+# card), at full width twice: in f32, every parameter's gradient within a
+# relative L2 error of GRAD_REL (the two sides differ by summation order
+# only); in bf16, the main path's dtype, all gradients together within
+# GRAD_REL. Per tensor, bf16 rounding at other places through 12 layers
+# and back is amplified where a gradient is a sum that cancels: pool_w's
+# comes only from NSP, summed over 32 sequences with random labels, and
+# differed by 3.7 % in one run.
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR, GRAD_REL, FIRST_LOSS_TOL = (
+    20, 3, 1e-4, 2e-2, 0.5)
+FINETUNE_STEPS, FINETUNE_LR = 5, 2e-5
 
 # Peak rates for the bound, by card name: device-memory bytes/s, float32
 # (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
@@ -218,6 +246,18 @@ def kernel_phase(fused_opt, dev, bw, flops):
     return out
 
 
+def _attention_inputs(gen, dev, b, h, s, d, dtype, pad):
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    kb = None
+    if pad:   # key padding from lengths drawn in [S/2, S], as BERT's mask
+        lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                                device=dev)
+        kb = torch.where(torch.arange(s, device=dev)[None, :]
+                         < lengths[:, None], 0.0, -1e30)
+    return q, k, v, kb
+
+
 def attention_phase(fa, dev, bw, f32, bf16):
     """flash_attention_fwd against its plain version (and, in f32, against
     unfused attention) at ATTN_CASES; timed at each case."""
@@ -226,14 +266,7 @@ def attention_phase(fa, dev, bw, f32, bf16):
     tol = TOL["flash_attention_fwd"]
     cases = []
     for b, h, s, d, dtype, causal, pad in ATTN_CASES:
-        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
-        kb = None
-        if pad:   # key padding from lengths drawn in [S/2, S], as BERT's mask
-            lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
-                                    device=dev)
-            kb = torch.where(torch.arange(s, device=dev)[None, :]
-                             < lengths[:, None], 0.0, -1e30)
+        q, k, v, kb = _attention_inputs(gen, dev, b, h, s, d, dtype, pad)
         kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
                   block_k=min(128, s))
         o, lse = fa._flash_fwd_kernel(q, k, v, kb, **kw)
@@ -317,6 +350,249 @@ def ce_phase(ce, dev, bw, bf16):
                 lambda: ce._linear_nll_fwd_plain(h, w, b, t, **kw), iters=20),
             "library_ms": graph_ms(library)})
     return cases
+
+
+def attention_bwd_phase(fa, dev, bw, f32, bf16):
+    """flash_attention_bwd against its plain version (and, in f32, against
+    autograd of unfused attention) at ATTN_CASES; timed at each case."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = TOL["flash_attention_bwd"]
+    cases = []
+    for b, h, s, d, dtype, causal, pad in ATTN_CASES:
+        q, k, v, kb = _attention_inputs(gen, dev, b, h, s, d, dtype, pad)
+        do = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+        kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
+                  block_k=min(128, s))
+        o, lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
+        args = (q, k, v, o, lse, do, kb)
+        got = fa._flash_bwd_kernel(*args, **kw)
+        want = fa._flash_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        g_tol = tol["bf16"] if dtype == torch.bfloat16 else tol["f32"]
+        case = {"shape": [b, h, s, d], "dtype": str(dtype)[6:],
+                "causal": causal, "key_padding": pad,
+                "max_abs_err": max(max_err(g.float(), w.float(), g_tol)
+                                   for g, w in zip(got, want))}
+        mask = None if kb is None else (kb == 0)[:, None, None, :]
+        if dtype == torch.float32:
+            qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+            sc = torch.matmul(qkv[0], qkv[1].transpose(-1, -2)) * kw["scale"]
+            if kb is not None:
+                sc = sc + kb[:, None, None, :]
+            if causal:
+                sc = torch.where(torch.ones(s, s, dtype=torch.bool,
+                                            device=dev).tril(), sc, -1e30)
+            ref = torch.autograd.grad(
+                torch.matmul(torch.softmax(sc, -1), qkv[2]), qkv, do)
+            case["vs_autograd_max_abs_err"] = max(
+                max_err(g, r, tol["f32_vs_autograd"])
+                for g, r in zip(got, ref))
+        es = q.element_size()
+        pairs = s * (s + 1) // 2 if causal else s * s
+        case["bound"] = bound(
+            # read q, k, v, o, dO (and lse, the bias) once; write dq, dk, dv
+            8 * b * h * s * d * es + b * h * s * 4 + (b * s * 4 if pad else 0),
+            # q k^T (recomputed), dO v^T, ds k, p^T dO, ds^T q over the
+            # (query, key) pairs the mask keeps
+            10 * b * h * pairs * d, bw, bf16 if dtype == torch.bfloat16 else f32)
+        lq, lk, lv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=mask, is_causal=causal,
+                scale=kw["scale"])
+
+        # the library's backward alone: SDPA forward+backward (one
+        # torch.autograd.grad over the same inputs and dO) minus its forward
+        lib_fwd = graph_ms(sdpa)
+        lib_both = graph_ms(lambda: torch.autograd.grad(sdpa(), (lq, lk, lv),
+                                                        do))
+        case.update(
+            ms=graph_ms(lambda: fa._flash_bwd_kernel(*args, **kw)),
+            launched_ms=time_ms(lambda: fa._flash_bwd_kernel(*args, **kw)),
+            plain_ms=graph_ms(lambda: fa._flash_bwd_plain(*args, **kw),
+                              iters=20),
+            library_ms=lib_both - lib_fwd, library_fwd_bwd_ms=lib_both)
+        cases.append(case)
+    return cases
+
+
+def ce_bwd_phase(ce, dev, bw, bf16):
+    """fused_linear_nll_bwd against its plain version at CE_CASES, timed."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tol = TOL["fused_linear_nll_bwd"]
+    cases = []
+    for n, v, d, layout in CE_CASES:
+        w_dv = layout == "dv"
+        h = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        if w_dv:
+            w = w.t().contiguous()
+        b = torch.randn((v,), generator=gen, device=dev) * 0.02
+        t = torch.randint(0, v, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        ct = torch.rand((n,), generator=gen, device=dev) / n
+        kw = dict(block_n=128, block_v=512, w_dv=w_dv)
+        lse, _ = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
+        args = (h, w, b, t, lse, ct)
+        got = ce._linear_nll_bwd_kernel(*args, **kw)
+        want = ce._linear_nll_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0].float(), want[0].float(), tol["dh_dw_bf16"]),
+                  max_err(got[1].float(), want[1].float(), tol["dh_dw_bf16"]),
+                  max_err(got[2], want[2], tol["db"]))
+        check(got[0].dtype == h.dtype and got[1].dtype == w.dtype
+              and got[2].dtype == torch.float32, "fused CE grad dtypes")
+
+        def library():
+            # one materialised pass: logits, softmax - onehot, g.W, g^T.h
+            logits = torch.matmul(h, w if w_dv else w.t()).float() + b
+            g = torch.softmax(logits, -1)
+            g[torch.arange(n, device=dev), t.long()] -= 1.0
+            g = (g * ct[:, None]).to(h.dtype)
+            dh = torch.matmul(g, w.t() if w_dv else w)
+            dw = torch.matmul(h.t(), g) if w_dv else torch.matmul(g.t(), h)
+            return dh, dw, g.float().sum(0)
+
+        cases.append({
+            "shape": [n, v, d], "layout": layout, "dtype": "bfloat16",
+            "max_abs_err": err,
+            # read h, W, b, targets, lse and ct once; write dh, dW and db
+            "bound": bound(2 * 2 * (n * d + v * d) + 8 * v + 12 * n,
+                           # the logits (recomputed), g.W and g^T.h
+                           3 * 2 * n * v * d, bw, bf16),
+            "ms": graph_ms(lambda: ce._linear_nll_bwd_kernel(*args, **kw),
+                           iters=20),
+            "launched_ms": time_ms(
+                lambda: ce._linear_nll_bwd_kernel(*args, **kw), 20),
+            "plain_ms": graph_ms(lambda: ce._linear_nll_bwd_plain(*args, **kw),
+                                 iters=20),
+            "library_ms": graph_ms(library, iters=20)})
+    return cases
+
+
+def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
+    """BERT-base pretraining: the first step's gradients with the kernels
+    against kernels="off", then TRAIN_STEPS steps of make_pretrain_step,
+    each with the launch counts zeroed just before it and read just after;
+    then FINETUNE_STEPS steps of make_finetune_step on the requests."""
+    cfg = bert.BERT_BASE
+    want = {"flash_attention_fwd": 2 * cfg.n_layers,   # forward + remat
+            "flash_attention_bwd": cfg.n_layers,
+            "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1}
+    params = bert.init_params(0, cfg, dev)
+    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
+                                      seed=0, device=dev)
+
+    def grads(c):
+        return bert_forward.counted(lambda: tfm.value_and_grad(
+            bert.pretrain_loss, params, batch, c, has_aux=True))
+
+    def rel_l2(a, b):
+        den = float(torch.linalg.vector_norm(b.float()))
+        num = float(torch.linalg.vector_norm((a - b).float()))
+        return num / den if den > 0 else num
+
+    # -- the first step's gradients against the plain versions -------------
+    agree = {}
+    for name, c in (("bfloat16", cfg),
+                    ("float32", dataclasses.replace(cfg, dtype=torch.float32))):
+        ((loss_k, _), g_k), counts = grads(c)
+        check(counts == want, f"{name} pretrain gradient launched {counts}, "
+              f"expected {want}")
+        with registry.active("off"):
+            ((loss_o, _), g_o), off_counts = grads(c)
+        check(off_counts == {}, f"kernels='off' launched {off_counts}")
+        flat_k, flat_o = tfm.tree_leaves(g_k), tfm.tree_leaves(g_o)
+        per = {p: rel_l2(a, b) for p, a, b in zip(_paths(g_k), flat_k, flat_o)}
+        worst = max(per, key=per.get)
+        agree[name] = dict(
+            loss=float(loss_k), off_loss=float(loss_o),
+            loss_rel=abs(float(loss_k) - float(loss_o)) / abs(float(loss_o)),
+            grad_rel_l2_all=rel_l2(torch.cat([g.flatten() for g in flat_k]),
+                                   torch.cat([g.flatten() for g in flat_o])),
+            grad_rel_l2_max=per[worst], grad_rel_l2_worst=worst)
+        check(agree[name]["loss_rel"] < BERT_REL, f"{name} first loss "
+              f"{float(loss_k)} vs kernels='off' {float(loss_o)}")
+        check(agree[name]["grad_rel_l2_all"] < GRAD_REL, f"{name} gradients "
+              f"differ from kernels='off': {agree[name]}")
+        if name == "float32":
+            check(per[worst] < GRAD_REL, f"float32 gradient of {worst} "
+                  f"differs from kernels='off' by rel L2 {per[worst]}")
+        else:
+            first_loss = float(loss_k)
+        del g_k, g_o, flat_k, flat_o
+    # the off step itself launches nothing (on copies: a step updates in
+    # place)
+    copy = tfm.tree_map(torch.clone, params)
+    step_off = bert.make_pretrain_step(cfg, lr=TRAIN_LR)
+    with registry.active("off"):
+        (off_step_loss, _, _, _), off_step_counts = bert_forward.counted(
+            lambda: step_off(copy, bert.init_opt_state(copy), batch))
+    check(off_step_counts == {}, f"kernels='off' step launched "
+          f"{off_step_counts}")
+    check(float(off_step_loss) == agree["bfloat16"]["off_loss"],
+          "the off step's loss differs from the off gradient's")
+    del copy, params
+
+    # -- the main path: TRAIN_STEPS steps with the kernels -----------------
+    rows = list(bert_pretrain.run(dev, TRAIN_STEPS, BERT_BATCH, BERT_SEQ,
+                                  BERT_PRED, TRAIN_LR, cfg=cfg))
+    steps, summary = rows[:-1], rows[-1]
+    losses = [r["loss"] for r in steps]
+    for r in steps:
+        check(r["launches"] == want, f"step {r['step']} launched "
+              f"{r['launches']}, expected {want}")
+    check(np.isfinite(losses).all(), f"losses {losses}")
+    ln = float(np.log(cfg.vocab_size) + np.log(2))
+    check(abs(losses[0] - ln) < FIRST_LOSS_TOL,
+          f"first loss {losses[0]} is not within {FIRST_LOSS_TOL} of {ln}")
+    check(abs(losses[0] - first_loss) / losses[0] < BERT_REL,
+          "the step's first loss differs from the gradient check's")
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < losses[0], f"mean of the last 5 losses {last5} is not "
+          f"below the first {losses[0]}")
+    emit("bert_pretrain", config="BERT_BASE", remat=cfg.remat,
+         batch=BERT_BATCH, seq_len=BERT_SEQ, mlm_slots=BERT_PRED,
+         lr=TRAIN_LR, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+         losses=losses, first_loss=losses[0], ln_vocab_plus_ln2=ln,
+         mean_last5=last5, step_ms=summary["step_ms"],
+         sequences_per_s=summary["sequences_per_s"],
+         tokens_per_s=summary["tokens_per_s"],
+         launches_per_step=summary["launches_per_step"],
+         vs_off=agree, grad_rel_l2_tol=GRAD_REL)
+
+    # -- fine-tuning the classifier on the requests -------------------------
+    cls = bert.init_classifier_params(1, cfg, 2, pretrained=bert.init_params(
+        0, cfg, dev))
+    opt = bert.init_opt_state(cls)
+    ids, seg, mask = bert_forward.requests(cfg, BERT_REQUESTS, BERT_SEQ,
+                                           seed=1, device=dev)
+    fb = {"input_ids": ids, "segment_ids": seg, "input_mask": mask,
+          "label": torch.arange(BERT_REQUESTS, device=dev) % 2}
+    step = bert.make_finetune_step(cfg, lr=FINETUNE_LR)
+    ft_losses = []
+    for i in range(FINETUNE_STEPS):
+        (loss, acc, cls, opt), counts = bert_forward.counted(
+            lambda: step(cls, opt, fb))
+        ft_want = {"flash_attention_fwd": 2 * cfg.n_layers,
+                   "flash_attention_bwd": cfg.n_layers}
+        check(counts == ft_want, f"finetune step {i} launched {counts}, "
+              f"expected {ft_want}")
+        ft_losses.append(float(loss))
+    check(np.isfinite(ft_losses).all(), f"finetune losses {ft_losses}")
+    emit("bert_finetune", requests=BERT_REQUESTS, seq_len=BERT_SEQ,
+         lr=FINETUNE_LR, steps=FINETUNE_STEPS, losses=ft_losses,
+         launches_per_step=counts)
+    return summary["launches_per_step"]
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k in tree for p in _paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
 
 
 def bert_phase(bert, bert_forward, registry, dev):
@@ -422,22 +698,30 @@ def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
     return losses, step_ms, val
 
 
-def kernels_line(kern, attn, ces, launches):
+def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, launches):
     """The ``kernels`` JSON object: one entry per ported kernel."""
     replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
                 "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
                 "flash_attention_fwd": "hetu_tpu/kernels/flash_attention.py:111",
-                "fused_linear_nll_fwd": "hetu_tpu/kernels/fused_ce.py:223"}
+                "fused_linear_nll_fwd": "hetu_tpu/kernels/fused_ce.py:223",
+                "flash_attention_bwd": "hetu_tpu/kernels/flash_attention.py:240",
+                "fused_linear_nll_bwd": "hetu_tpu/kernels/fused_ce.py:252"}
     sources = {"fused_sgd": "fused_opt.cu", "fused_adam": "fused_opt.cu",
                "flash_attention_fwd": "flash_attention.cu",
-               "fused_linear_nll_fwd": "fused_ce.cu"}
-    # the new kernels' entries are timed at the main path's shapes (their
+               "fused_linear_nll_fwd": "fused_ce.cu",
+               "flash_attention_bwd": "flash_attention.cu",
+               "fused_linear_nll_bwd": "fused_ce.cu"}
+    # the BERT kernels' entries are timed at the main path's shapes (their
     # first cases); max_abs_err is the largest over all their cases
     kern = dict(kern)
     kern["flash_attention_fwd"] = dict(attn[0], max_abs_err=max(
         max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn))
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
         c["max_abs_err"] for c in ces))
+    kern["flash_attention_bwd"] = dict(attn_bwd[0], max_abs_err=max(
+        c["max_abs_err"] for c in attn_bwd))
+    kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
+        c["max_abs_err"] for c in ce_bwd))
     return {"kernels": [dict(
         name=k, route="cuda", source="hetu_tpu_torch/csrc/" + sources[k],
         replaces=replaces[k], launches=launches[k],
@@ -451,12 +735,13 @@ def kernels_line(kern, attn, ces, launches):
 
 def main():
     import hetu_tpu_torch as ht
-    from hetu_tpu_torch.examples import bert_forward, cnn_main
+    from hetu_tpu_torch.examples import bert_forward, bert_pretrain, cnn_main
     from hetu_tpu_torch.kernels import (_build, flash_attention, fused_ce,
                                         fused_opt, registry)
-    from hetu_tpu_torch.models import bert
+    from hetu_tpu_torch.models import bert, transformer
 
     # -- 1. device --------------------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -488,6 +773,12 @@ def main():
     ces = ce_phase(fused_ce, dev, bw, bf16)
     emit("fused_linear_nll_checked", tolerance=TOL["fused_linear_nll_fwd"],
          cases=ces)
+    attn_bwd = attention_bwd_phase(flash_attention, dev, bw, f32, bf16)
+    emit("flash_attention_bwd_checked", tolerance=TOL["flash_attention_bwd"],
+         cases=attn_bwd)
+    ce_bwd = ce_bwd_phase(fused_ce, dev, bw, bf16)
+    emit("fused_linear_nll_bwd_checked",
+         tolerance=TOL["fused_linear_nll_bwd"], cases=ce_bwd)
 
     # -- 4. train the full-width MLP through the executor ------------------
     data = cnn_main.load_dataset("CIFAR10")
@@ -533,9 +824,19 @@ def main():
              max_rel=float(np.max(np.abs(gpu_l - cpu_l) / np.abs(cpu_l))))
 
     # -- 6. the BERT-base forward ------------------------------------------
-    launches.update(bert_phase(bert, bert_forward, registry, dev))
+    forward_launches = bert_phase(bert, bert_forward, registry, dev)
+    check(set(forward_launches) == {"flash_attention_fwd",
+                                    "fused_linear_nll_fwd"},
+          f"the forward launched {forward_launches}")
 
-    print(json.dumps(kernels_line(kern, attn, ces, launches)), flush=True)
+    # -- 7. BERT-base pretraining and fine-tuning ---------------------------
+    launches.update(bert_train_phase(bert, transformer, bert_forward,
+                                     bert_pretrain, registry, dev))
+
+    print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd,
+                                  launches)), flush=True)
+    print(json.dumps({"phase": "done",
+                      "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -12,9 +12,10 @@ forward time over ``--iters`` calls after warm-up (host clock around calls
 that end in ``torch.cuda.synchronize()``), sequences per second and the
 kernel launches of one call. ``--profile DIR`` adds, per entry point, the
 device time of one call summed over kernels from ``torch.profiler``
-(kernel events only), the device's busy share, and that time by group:
-flash attention, the fused linear+CE, the dense products (cuBLAS GEMMs)
-and the rest; the full tables go to ``DIR/profile_bert_<entry>.txt``.
+(kernel events only), the device's busy share, and that time by group
+(``kernel_group``): flash attention, the fused linear+CE, the dense
+products (cuBLAS GEMMs) and the rest; the full tables go to
+``DIR/profile_bert_<entry>.txt``.
 ``--gpu -1`` runs on the CPU (plain kernel versions; times are the CPU's).
 """
 import argparse
@@ -104,12 +105,21 @@ def counted(fn):
 
 
 def kernel_group(name):
+    """The group of a device kernel's name: each ported kernel of
+    ``csrc/``, the dense products (cuBLAS), the optimizer's foreach
+    kernels, and the rest."""
     if "flash_fwd_kernel" in name:
-        return "flash_attention"
+        return "flash_attention_fwd"
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
+    if "linear_nll_bwd" in name:
+        return "fused_linear_nll_bwd"
     if "linear_nll" in name:
-        return "fused_linear_nll"
+        return "fused_linear_nll_fwd"
     if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "dense_matmul"
+    if "multi_tensor_apply" in name or "foreach" in name:
+        return "optimizer_foreach"
     return "other"
 
 

@@ -3,8 +3,9 @@
 kernel module registers itself with :mod:`.registry` on import.
 
 Ported so far: ``fused_sgd`` and ``fused_adam`` (:mod:`.fused_opt`), one
-launch per parameter; ``flash_attention_fwd`` (:mod:`.flash_attention`)
-and ``fused_linear_nll_fwd`` (:mod:`.fused_ce`), forward only.
+launch per parameter; ``flash_attention_fwd`` and ``flash_attention_bwd``
+(:mod:`.flash_attention`); ``fused_linear_nll_fwd`` and
+``fused_linear_nll_bwd`` (:mod:`.fused_ce`).
 """
 from . import registry
 from . import fused_opt

@@ -1,4 +1,4 @@
-"""Flash attention, forward: hand-written CUDA for Hopper in
+"""Flash attention, forward and backward: hand-written CUDA for Hopper in
 ``csrc/flash_attention.cu`` (counterpart of
 ``hetu_tpu/kernels/flash_attention.py``).
 
@@ -7,25 +7,32 @@ _fwd_pallas`` (body ``_fwd_kernel``): blockwise attention over
 ``(batch, heads, seq, head_dim)`` with an online softmax, causal or not,
 with an optional per-key additive bias ``k_bias`` ``(batch, seq)``, that
 returns ``o`` and the row logsumexp ``lse`` ``(batch, heads, seq)`` f32.
-It serves every encoder layer of BERT (``models/transformer.py``'s
-``_attention_core`` with ``impl="flash"``): 12 launches per BERT-base
-forward.
+``flash_attention_bwd`` replaces ``_bwd_pallas`` (bodies
+``_bwd_dq_kernel``, ``_bwd_dkv_kernel``): ``(dq, dk, dv)`` in q's dtype,
+each tile's probabilities recomputed from ``(q, k, lse)``; ``k_bias`` gets
+no gradient, as in the reference's ``_flash_bwd``. They serve every
+encoder layer of BERT (``models/transformer.py``'s ``_attention_core``
+with ``impl="flash"``): per BERT-base training step with remat, 24 forward
+launches (12 in the forward, 12 in the recompute) and 12 backward ones.
 
-Bound on an H100 SXM at the BERT-base shape (B=32, H=12, S=128, D=64,
-bf16): 4·B·H·S²·D = 1.6 GFLOP against 25 MB of q, k, v and o, i.e. 1.6 us
-of tensor-core time and 7.5 us of memory time — memory-bound. The first
-kernel does its products in f32 on the CUDA cores, so it is bound by its
-own arithmetic; it reads q, k and v once per block and never writes the
-(S, S) scores (the source's header has the design).
+Bounds on an H100 SXM at the BERT-base shape (B=32, H=12, S=128, D=64,
+bf16): forward 4·B·H·S²·D = 1.6 GFLOP against 25 MB of q, k, v and o
+(7.5 us of memory time); backward 10·B·H·S²·D = 4.0 GFLOP against 50 MB
+of q, k, v, o, dO, dq, dk and dv (15 us). Both memory-bound. The first
+kernels do their products in f32 on the CUDA cores, so they are bound by
+their own arithmetic; they never write an (S, S) tensor (the source's
+header has the design).
 
-Only the forward is ported. ``flash_attention`` is a
-``torch.autograd.Function`` whose backward raises: the backward kernels
-(``_bwd_pallas``) come with the training slice.
+``flash_attention`` is a ``torch.autograd.Function``. Its forward records
+the dispatch mode it ran under, and its backward dispatches under that
+mode: PyTorch runs a CUDA backward on its own thread, where the caller's
+(thread-local) ``registry.active`` scope does not reach.
 
 ``_flash_fwd_plain`` is ``_fwd_kernel``'s online softmax as a blockwise
-PyTorch loop over the same (block_q, block_k) tiles: what a CPU tensor
-runs, what ``kernels="off"`` runs, and the oracle the kernel is held
-against.
+PyTorch loop over the same (block_q, block_k) tiles, and
+``_flash_bwd_plain`` the blockwise backward of ``_bwd_blockwise`` with the
+Pallas kernels' block skipping: what a CPU tensor runs, what
+``kernels="off"`` runs, and the oracles the kernels are held against.
 """
 from __future__ import annotations
 
@@ -55,6 +62,10 @@ def _lib() -> ctypes.CDLL:
         P, P, P, P, P, P, I64, I64, I64, I64, ctypes.c_float, ctypes.c_int,
         I64, I64, ctypes.c_int, P]
     lib.hetu_flash_attention_fwd.restype = ctypes.c_int
+    lib.hetu_flash_attention_bwd.argtypes = [
+        P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64, ctypes.c_float,
+        ctypes.c_int, I64, I64, ctypes.c_int, P]
+    lib.hetu_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -167,24 +178,128 @@ _FLASH = registry.register_kernel(
     plain_fn=_flash_fwd_plain, eligibility=_flash_eligible)
 
 
+def _visit_limit(S, causal, block_q, block_k, device):
+    """Per query row, one past the last key the reference's kernels visit
+    (the ceil bound of ``_causal_upper_kb`` on the row's q block), or
+    None when every key is visited."""
+    if not causal:
+        return None
+    rows = torch.arange(S, device=device)
+    q_start = rows // block_q * block_q
+    return _causal_upper_kb(q_start, block_q, block_k) * block_k
+
+
+def _flash_bwd_plain(q, k, v, o, lse, do, k_bias, *, scale, causal,
+                     block_q, block_k):
+    """``_bwd_blockwise`` in PyTorch: for each key block, every query row's
+    probabilities recomputed as ``p = exp(s - lse)``, then dv, dk for the
+    block and its share of dq; no (S, S) tensor. Keys the Pallas kernels
+    never visit for a row (causal blocks above the diagonal) get p = 0, as
+    there; only a fully masked row can tell. Returns ``(dq, dk, dv)`` in
+    the inputs' dtype."""
+    B, H, S, D = q.shape
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1)                     # (B, H, S)
+    limit = _visit_limit(S, causal, block_q, block_k, q.device)
+    rows = torch.arange(S, device=q.device)
+    dq = torch.zeros((B, H, S, D), device=q.device)
+    dk = torch.empty((B, H, S, D), device=q.device)
+    dv = torch.empty((B, H, S, D), device=q.device)
+    for k0 in range(0, S, block_k):
+        kb, vb = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        if k_bias is not None:
+            s = s + k_bias.float()[:, None, None, k0:k0 + block_k]
+        p_mask = None
+        if causal:
+            keys = torch.arange(k0, k0 + block_k, device=q.device)
+            s = torch.where(rows[:, None] >= keys[None, :], s, _NEG_INF)
+            p_mask = keys[None, :] < limit[:, None]
+        p = torch.exp(s - lse[..., None])
+        if p_mask is not None:
+            p = torch.where(p_mask, p, 0.0)
+        dv[:, :, k0:k0 + block_k] = torch.matmul(p.transpose(-1, -2), dof)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.matmul(ds, kb)
+        dk[:, :, k0:k0 + block_k] = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_kernel(q, k, v, o, lse, do, k_bias, *, scale, causal,
+                      block_q, block_k):
+    """Launch ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (two
+    CUDA kernels, counted as one launch); ``delta = rowsum(dO·O)`` in f32
+    is computed here first, as the reference computes it in XLA. Returns
+    ``(dq, dk, dv)``."""
+    B, H, S, D = q.shape
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.hetu_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if k_bias is None else k_bias.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B * H, H, S, D, float(scale),
+            int(causal), block_q, block_k, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
+                           f"CUDA error {rc}")
+    _FLASH_BWD.launches += 1
+    return dq, dk, dv
+
+
+def _flash_bwd_eligible(q, k, v, o, lse, do, k_bias, **_kw):
+    ok, reason = _flash_eligible(q, k, v, k_bias)
+    if not ok:
+        return ok, reason
+    for nm, x in (("o", o), ("do", do)):
+        if x.device != q.device or x.dtype != q.dtype or x.shape != q.shape:
+            return False, (f"{nm} must match q's device, dtype and shape, got "
+                           f"{x.device} {x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            return False, f"{nm} is not contiguous"
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != tuple(q.shape[:3])
+            or not lse.is_contiguous()):
+        return False, (f"lse must be a contiguous float32 {tuple(q.shape[:3])} "
+                       f"tensor on {q.device}, got {lse.dtype} "
+                       f"{tuple(lse.shape)} on {lse.device}")
+    return True, None
+
+
+_FLASH_BWD = registry.register_kernel(
+    "flash_attention_bwd", kernel_fn=_flash_bwd_kernel,
+    plain_fn=_flash_bwd_plain, eligibility=_flash_bwd_eligible)
+
+
 class _FlashFwd(torch.autograd.Function):
-    """The forward through the registry; the backward is not ported."""
+    """Forward and backward through the registry, both under the mode the
+    forward ran under."""
 
     @staticmethod
     def forward(ctx, q, k, v, k_bias, causal, scale, block_q, block_k):
+        ctx.mode = registry.current_mode()
         o, lse = registry.dispatch("flash_attention_fwd", q, k, v, k_bias,
                                    scale=scale, causal=causal,
                                    block_q=block_q, block_k=block_k)
         ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse, k_bias)
+        ctx.blocks = (causal, scale, block_q, block_k)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "flash_attention has no backward in hetu_tpu_torch yet: its "
-            "backward kernels (hetu_tpu/kernels/flash_attention.py:"
-            "_bwd_pallas) come with the BERT pretraining slice (ROADMAP "
-            "Queue 1, slice 5b)")
+        q, k, v, o, lse, k_bias = ctx.saved_tensors
+        causal, scale, block_q, block_k = ctx.blocks
+        with registry.active(ctx.mode):
+            dq, dk, dv = registry.dispatch(
+                "flash_attention_bwd", q, k, v, o, lse, do.contiguous(),
+                k_bias, scale=scale, causal=causal, block_q=block_q,
+                block_k=block_k)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_fwd(q, k, v, causal=True, scale=None,

@@ -1,5 +1,5 @@
-"""Fused linear + softmax cross-entropy, forward: hand-written CUDA for
-Hopper in ``csrc/fused_ce.cu`` (counterpart of
+"""Fused linear + softmax cross-entropy, forward and backward: hand-written
+CUDA for Hopper in ``csrc/fused_ce.cu`` (counterpart of
 ``hetu_tpu/kernels/fused_ce.py``).
 
 ``fused_linear_nll_fwd`` replaces ``hetu_tpu/kernels/fused_ce.py:
@@ -7,24 +7,36 @@ _fused_fwd`` (body ``_fwd_kernel``): per row of ``h`` (N, D), the
 logsumexp over the vocabulary of ``h·Wᵀ + b`` (``w_layout="vd"``, W is
 (V, D), the tied-embedding orientation) or ``h·W + b`` (``"dv"``, W is
 (D, V), the LM-head orientation), and the target's logit, without the
-(N, V) logits in device memory. ``fused_linear_nll`` returns
-``lse − target logit`` as (N,) f32. It serves BERT's MLM loss (one launch
-per ``pretrain_loss``) and the LM ``loss_fn``.
+(N, V) logits in device memory. ``fused_linear_nll_bwd`` replaces
+``_fused_bwd`` (bodies ``_bwd_dh_kernel``, ``_bwd_dw_kernel``): with
+``g = (softmax − onehot)·ct`` recomputed tile by tile from the forward's
+``lse``, ``dh`` in h's dtype, ``dW`` in W's dtype and ``db`` in f32.
+``fused_linear_nll`` returns ``lse − target logit`` as (N,) f32. It
+serves BERT's MLM loss (one forward and one backward launch per training
+step) and the LM ``loss_fn``.
 
-Bound on an H100 SXM at the BERT-base MLM shape (N = 32·20 = 640,
-V = 30522, D = 768, bf16): 2·N·V·D = 30 GFLOP against 47 MB of W, i.e.
-30 us of tensor-core time and 14 us of memory time — compute-bound. The
-first kernel does its products in f32 on the CUDA cores, so it is bound by
-its own arithmetic; it splits the vocabulary across blocks to fill the 132
-SMs and merges the splits in a second small kernel (two launches, counted
-as one; the source's header has the design).
+Bounds on an H100 SXM at the BERT-base MLM shape (N = 32·20 = 640,
+V = 30522, D = 768, bf16): forward 2·N·V·D = 30 GFLOP (30 us of
+tensor-core time, 14 us of memory time); backward 3·2·N·V·D = 90 GFLOP
+(91 us) against 94 MB of W and dW (28 us). Both compute-bound. The first
+kernels do their products in f32 on the CUDA cores, so they are bound by
+their own arithmetic. The forward splits the vocabulary across blocks to
+fill the 132 SMs and merges the splits in a second pass; the backward
+walks the vocabulary in chunks, computing the logits once per chunk into
+an N × chunk slab of g (at most 16 MB) that its dh and dW products read
+(the source's header has the design). Each wrapper counts its CUDA
+kernels as one launch.
 
-Only the forward is ported; the backward (``_fused_bwd``) comes with the
-training slice, and ``fused_linear_nll``'s backward raises.
+The forward records the dispatch mode it ran under, and the backward
+dispatches under that mode: PyTorch runs a CUDA backward on its own
+thread, where the caller's (thread-local) ``registry.active`` scope does
+not reach.
 
 ``_linear_nll_fwd_plain`` is ``_fwd_kernel``'s online logsumexp as a
-PyTorch loop over the same vocab tiles: what a CPU tensor runs, what
-``kernels="off"`` runs, and the oracle the kernel is held against.
+PyTorch loop over the same vocab tiles, and ``_linear_nll_bwd_plain`` the
+backward's ``(softmax − onehot)·ct`` over those tiles: what a CPU tensor
+runs, what ``kernels="off"`` runs, and the oracles the kernels are held
+against.
 """
 from __future__ import annotations
 
@@ -66,6 +78,11 @@ def _lib() -> ctypes.CDLL:
     lib.hetu_fused_linear_nll_fwd.restype = I
     lib.hetu_linear_nll_tile_width.argtypes = []
     lib.hetu_linear_nll_tile_width.restype = I
+    lib.hetu_fused_linear_nll_bwd.argtypes = [
+        P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64, I64, I, I, P]
+    lib.hetu_fused_linear_nll_bwd.restype = I
+    lib.hetu_linear_nll_bwd_plan.argtypes = [I64, I64, I64, I64, P]
+    lib.hetu_linear_nll_bwd_plan.restype = None
     return lib
 
 
@@ -157,22 +174,110 @@ _FUSED = registry.register_kernel(
     plain_fn=_linear_nll_fwd_plain, eligibility=_linear_nll_eligible)
 
 
+def _linear_nll_bwd_plain(h, w, b, targets, lse, ct, *, block_n, block_v,
+                          w_dv):
+    """``_fused_bwd`` in PyTorch: over vocab tiles of ``block_v``, the
+    logits tile recomputed and ``g = (exp(s − lse) − onehot)·ct``, then
+    ``dh += g·W_tileᵀ`` (``g·W_tile`` for ``vd``), the tile's dW and db.
+    Returns ``(dh, dW, db)`` in h's, w's dtype and f32."""
+    del block_n
+    hf = h.float()
+    N, V = h.shape[0], _vocab(w, w_dv)
+    dh = torch.zeros(hf.shape, device=h.device)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
+    db = torch.empty((V,), dtype=torch.float32, device=h.device)
+    for v0 in range(0, V, block_v):
+        v1 = min(v0 + block_v, V)
+        wt = w[:, v0:v1].float().t() if w_dv else w[v0:v1].float()  # (bv, D)
+        s = torch.matmul(hf, wt.t()) + b[v0:v1].float()
+        hit = torch.arange(v0, v1, device=h.device)[None, :] == targets[:, None]
+        g = (torch.exp(s - lse[:, None]) - hit.float()) * ct[:, None]
+        dh += torch.matmul(g, wt)
+        gt_h = torch.matmul(g.t(), hf)                          # (bv, D)
+        if w_dv:
+            dw[:, v0:v1] = gt_h.t()
+        else:
+            dw[v0:v1] = gt_h
+        db[v0:v1] = g.sum(0)
+    return dh.to(h.dtype), dw.to(w.dtype), db
+
+
+def _linear_nll_bwd_kernel(h, w, b, targets, lse, ct, *, block_n, block_v,
+                           w_dv):
+    """Launch, per vocab chunk, ``linear_nll_bwd_g_kernel`` (g into an
+    N × chunk f32 slab), the db column sums and the dh and dW products,
+    then the sum of the dh partials (CUDA kernels counted as one launch);
+    returns ``(dh, dW, db)``."""
+    del block_n, block_v   # the kernels' tiles are their own
+    N, D = h.shape
+    V = _vocab(w, w_dv)
+    lib = _lib()
+    plan = (ctypes.c_int64 * 2)()
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    lib.hetu_linear_nll_bwd_plan(N, D, V, sms, plan)
+    chunk, n_split = plan
+    g = torch.empty((N, chunk), dtype=torch.float32, device=h.device)
+    dh_part = torch.empty((n_split, N, D), dtype=torch.float32,
+                          device=h.device)
+    dh = torch.empty_like(h)
+    dw = torch.empty_like(w)
+    db = torch.empty((V,), dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        rc = lib.hetu_fused_linear_nll_bwd(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), targets.data_ptr(),
+            lse.data_ptr(), ct.data_ptr(), g.data_ptr(), dh_part.data_ptr(),
+            dh.data_ptr(), dw.data_ptr(), db.data_ptr(), N, D, V, chunk,
+            n_split, int(w_dv), _DTYPE_CODE[h.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_linear_nll_bwd: kernel launch failed with "
+                           f"CUDA error {rc}")
+    _FUSED_BWD.launches += 1
+    return dh, dw, db
+
+
+def _linear_nll_bwd_eligible(h, w, b, targets, lse, ct, *, w_dv, **_kw):
+    ok, reason = _linear_nll_eligible(h, w, b, targets, w_dv=w_dv)
+    if not ok:
+        return ok, reason
+    for nm, x in (("lse", lse), ("ct", ct)):
+        if (x.device != h.device or x.dtype != torch.float32
+                or tuple(x.shape) != (h.shape[0],) or not x.is_contiguous()):
+            return False, (f"{nm} must be a contiguous float32 "
+                           f"({h.shape[0]},) tensor on {h.device}, got "
+                           f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return True, None
+
+
+_FUSED_BWD = registry.register_kernel(
+    "fused_linear_nll_bwd", kernel_fn=_linear_nll_bwd_kernel,
+    plain_fn=_linear_nll_bwd_plain, eligibility=_linear_nll_bwd_eligible)
+
+
 class _FusedLinearNll(torch.autograd.Function):
-    """The forward through the registry; the backward is not ported."""
+    """Forward and backward through the registry, both under the mode the
+    forward ran under; the forward saves ``lse`` for the backward."""
 
     @staticmethod
     def forward(ctx, h, w, b, targets, block_n, block_v, w_dv):
+        ctx.mode = registry.current_mode()
         lse, tl = registry.dispatch("fused_linear_nll_fwd", h, w, b, targets,
                                     block_n=block_n, block_v=block_v,
                                     w_dv=w_dv)
+        ctx.save_for_backward(h, w, b, targets, lse)
+        ctx.blocks = (block_n, block_v, w_dv)
         return lse - tl
 
     @staticmethod
     def backward(ctx, dnll):
-        raise NotImplementedError(
-            "fused_linear_nll has no backward in hetu_tpu_torch yet: its "
-            "backward kernels (hetu_tpu/kernels/fused_ce.py:_fused_bwd) come "
-            "with the BERT pretraining slice (ROADMAP Queue 1, slice 5b)")
+        h, w, b, targets, lse = ctx.saved_tensors
+        block_n, block_v, w_dv = ctx.blocks
+        with registry.active(ctx.mode):
+            dh, dw, db = registry.dispatch(
+                "fused_linear_nll_bwd", h, w, b, targets, lse,
+                dnll.float().contiguous(), block_n=block_n, block_v=block_v,
+                w_dv=w_dv)
+        return dh, dw, db, None, None, None, None
 
 
 def fused_linear_nll(h, w, b, targets, block_n=DEFAULT_BLOCK_N,

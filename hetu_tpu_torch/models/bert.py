@@ -4,12 +4,13 @@ token-type embeddings, the MLM head (dense + gelu + LN, decode tied to the
 token embedding, plus an output bias), the NSP head on the pooled [CLS]
 vector, and a classifier head for serving.
 
-``encode``, ``pretrain_loss`` (the pretraining loss evaluated without
-gradient) and ``classify_logits`` (answering requests) run the ported
-kernels on the card: flash attention in every encoder layer and the fused
-linear+CE for the MLM loss. The train steps (``make_pretrain_step``,
-``make_finetune_step``), ``param_specs`` and ``init_opt_state`` are
-training or mesh code and come with later slices.
+``encode``, ``pretrain_loss``, ``classify_logits`` and the train steps
+``make_pretrain_step`` (MLM + NSP pretraining) and ``make_finetune_step``
+(the classifier) run the ported kernels on the card: flash attention
+forward and backward in every encoder layer, the fused linear+CE forward
+and backward for the MLM loss. The steps use the trunk's AdamW
+(``transformer.adamw_update``) and update params and optimizer state in
+place. ``param_specs`` is mesh code and comes with the parallel slices.
 """
 from __future__ import annotations
 
@@ -209,6 +210,49 @@ def classify_logits(params, input_ids, segment_ids, cfg: BertConfig,
     return _pool(params, h) @ params["cls_w"] + params["cls_b"]
 
 
+def make_pretrain_step(cfg: BertConfig, mesh=None, lr: float = 1e-4):
+    """Returns ``step(params, opt_state, batch) -> (loss, (mlm, nsp),
+    params, opt_state)``: ``pretrain_loss``'s gradient and one AdamW
+    update. The step updates ``params`` and ``opt_state``'s ``m`` and ``v``
+    in place, as the reference donates its buffers. A mesh raises
+    ``NotImplementedError``."""
+    tfm._check_train_options(cfg.trunk(), mesh)
+
+    def step(params, opt_state, batch):
+        (loss, parts), grads = tfm.value_and_grad(
+            pretrain_loss, params, batch, cfg, mesh, has_aux=True)
+        params, opt_state = tfm.adamw_update(params, grads, opt_state, lr=lr)
+        return loss, parts, params, opt_state
+
+    return step
+
+
+def make_finetune_step(cfg: BertConfig, lr: float = 2e-5, mesh=None):
+    """Returns ``step(params, opt_state, batch{input_ids, segment_ids,
+    label, [input_mask]}) -> (loss, acc, params, opt_state)`` for the
+    classifier params of ``init_classifier_params``; params and optimizer
+    state are updated in place, as in ``make_pretrain_step``."""
+    tfm._check_train_options(cfg.trunk(), mesh)
+
+    def loss_fn(params, batch):
+        logits = classify_logits(params, batch["input_ids"],
+                                 batch["segment_ids"], cfg, mesh,
+                                 batch.get("input_mask"))
+        label = batch["label"].long()
+        lp = torch.log_softmax(logits, -1)
+        loss = -torch.mean(torch.gather(lp, -1, label[:, None])[:, 0])
+        acc = torch.mean((torch.argmax(logits, -1) == label).float())
+        return loss, acc
+
+    def step(params, opt_state, batch):
+        (loss, acc), grads = tfm.value_and_grad(loss_fn, params, batch,
+                                                has_aux=True)
+        params, opt_state = tfm.adamw_update(params, grads, opt_state, lr=lr)
+        return loss, acc, params, opt_state
+
+    return step
+
+
 def batch_from_instances(instances, device=None):
     """Stack rows of the pretrain data pipeline (input_ids, input_mask,
     segment_ids, mlm_positions, mlm_ids, nsp_label) into the batch dict
@@ -226,4 +270,5 @@ def batch_from_instances(instances, device=None):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+init_opt_state = tfm.init_opt_state
 count_params = tfm.count_params

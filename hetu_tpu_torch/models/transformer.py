@@ -1,4 +1,4 @@
-"""Transformer trunk, forward (counterpart of
+"""Transformer trunk, forward and training (counterpart of
 ``hetu_tpu/models/transformer.py``): the shared block stack of the causal
 LM and the bidirectional BERT encoder, with the reference's names,
 signatures and parameter layout (a dict whose ``blocks`` entry holds each
@@ -7,16 +7,20 @@ per-layer tensor stacked over a leading ``L`` axis).
 Params are f32 and cast to ``cfg.dtype`` (bf16 by default) at use; dense
 projections are ``torch.matmul`` (the JAX package leaves them to XLA, so
 they are not kernels to port) with f32 accumulation, cast back where the
-reference casts. Attention runs the ported flash kernel
+reference casts. Attention runs the ported flash kernels
 (``kernels/flash_attention.py``) or the unfused ``dot`` form; the LM loss
-runs the ported fused linear+CE kernel (``kernels/fused_ce.py``) or the
+runs the ported fused linear+CE kernels (``kernels/fused_ce.py``) or the
 materialising form. ``encode`` is a Python loop over the layers in place
-of the reference's ``lax.scan``.
+of the reference's ``lax.scan``; under ``cfg.remat`` each block is
+recomputed in the backward (``torch.utils.checkpoint``), as
+``jax.checkpoint`` does there.
 
-This slice is the forward only (serving and evaluation). Not ported, and
-refused with ``NotImplementedError``: the MoE MLP (``n_experts > 0``),
-ring attention and any mesh (the parallel slices), training-time dropout
-(``dropout_rng``) and the train step (the pretraining slice).
+Training: ``init_opt_state``, ``adamw_update`` (the reference's AdamW,
+plain PyTorch, as the reference leaves it to XLA) and ``make_train_step``.
+Not ported, and refused with ``NotImplementedError``: the MoE MLP
+(``n_experts > 0``), ring attention, any mesh and ZeRO-1 (the parallel
+slices), and training-time dropout (``dropout_rate > 0``,
+``dropout_rng``).
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels import registry
 from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ce import fused_linear_nll, should_fuse
 from ..ndarray import resolve_device
@@ -45,7 +51,7 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     dropout_rate: float = 0.0
     dtype: Any = torch.bfloat16  # compute dtype
-    remat: bool = True          # no effect in a forward-only slice
+    remat: bool = True          # recompute each block in the backward
     causal: bool = True         # False = bidirectional encoder (BERT)
     # "auto" picks the fused flash kernel for CUDA tensors when the
     # sequence is a multiple of 128, the unfused dot form otherwise
@@ -351,8 +357,7 @@ def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
     if dropout_rng is not None:
         raise NotImplementedError(
             "dropout_rng (training-time dropout) is not ported to "
-            "hetu_tpu_torch yet: it comes with the pretraining slice "
-            "(ROADMAP Queue 1, slice 5b)")
+            "hetu_tpu_torch yet: it comes with slice 5d (ROADMAP Queue 1)")
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "n_experts > 0 (the switch MoE MLP) is not ported to "
@@ -398,14 +403,32 @@ def nll_loss(logits, targets):
 def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
            attn_bias=None, dropout_rng=None):
     """Run the block stack on embedded input h (B, T, D) -> (h, aux_sum).
-    ``attn_bias`` (a padding mask) is the same for every layer."""
+    ``attn_bias`` (a padding mask) is the same for every layer. With
+    ``cfg.remat`` and gradients enabled, each block keeps only its inputs
+    and is recomputed in the backward, under the kernel mode of this call
+    (the recompute runs on PyTorch's backward thread, which the caller's
+    ``registry.active`` scope does not reach)."""
     _no_mesh(mesh)
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        layer_params = {name: x[li] for name, x in blocks.items()}
-        h, aux = _block(h, layer_params, cfg, mesh, attn_bias=attn_bias,
-                        dropout_rng=dropout_rng)
+    # one unbind per stacked tensor: its backward stacks the L layer
+    # gradients once, where indexing x[li] would zero-fill and add a whole
+    # (L, ...) gradient per layer
+    names = list(params["blocks"])
+    layers = zip(*(params["blocks"][n].unbind(0) for n in names))
+    remat = cfg.remat and torch.is_grad_enabled()
+    mode = registry.current_mode()
+
+    def block(h, layer_params):
+        with registry.active(mode):
+            return _block(h, layer_params, cfg, mesh, attn_bias=attn_bias,
+                          dropout_rng=dropout_rng)
+
+    for layer in layers:
+        layer_params = dict(zip(names, layer))
+        if remat:
+            h, aux = checkpoint(block, h, layer_params, use_reentrant=False)
+        else:
+            h, aux = block(h, layer_params)
         aux_sum = aux_sum + aux
     return h, aux_sum
 
@@ -449,8 +472,140 @@ def loss_fn(params, tokens, targets, cfg: TransformerConfig, mesh=None,
     return nll_loss(logits, targets) + aux_weight * aux
 
 
+# ---------------------------------------------------------------------------
+# train step: AdamW, params and optimizer state updated in place
+# ---------------------------------------------------------------------------
+
 def count_params(params) -> int:
     """Total parameter count of a (nested dict) params tree."""
-    if isinstance(params, dict):
-        return sum(count_params(v) for v in params.values())
-    return int(params.numel())
+    return sum(int(p.numel()) for p in tree_leaves(params))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def value_and_grad(fn, params, *args, has_aux=False, **kwargs):
+    """``jax.value_and_grad(fn, has_aux=has_aux)(params, *args)``:
+    ``(value, grads)``, where ``value`` is ``fn``'s output (with its aux
+    when ``has_aux``) and ``grads`` mirrors ``params``. A tensor the loss
+    does not reach gets a zero gradient, as in JAX. ``params`` are read
+    through leaves that share their storage, so the caller's tensors are
+    neither copied nor marked as requiring grad."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        out = fn(leaves, *args, **kwargs)
+        loss = out[0] if has_aux else out
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(flat, grads))
+    return _detach(out), tree_map(lambda _: next(it), leaves)
+
+
+def _detach(x):
+    if isinstance(x, tuple):
+        return tuple(_detach(y) for y in x)
+    return x.detach()
+
+
+def init_opt_state(params):
+    """AdamW state: zero ``m`` and ``v`` shaped like ``params``, and the
+    step count ``t`` as a 0-d f32 tensor on the params' device."""
+    device = tree_leaves(params)[0].device
+    return {"m": tree_map(torch.zeros_like, params),
+            "v": tree_map(torch.zeros_like, params),
+            "t": torch.zeros((), dtype=torch.float32, device=device)}
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, lr=1e-3, b1=0.9, b2=0.999,
+                 eps=1e-8, wd=0.01):
+    """The reference's AdamW: ``t += 1``; ``m = b1·m + (1−b1)·g``;
+    ``v = b2·v + (1−b2)·g²``; ``p −= lr·(m̂/(√v̂ + eps) + wd·p)`` with
+    ``m̂ = m/(1−b1^t)``, ``v̂ = v/(1−b2^t)``. Updates ``params`` and the
+    state's ``m`` and ``v`` in place (the reference donates them) with
+    ``torch._foreach_*`` ops, and returns ``(params, opt_state)`` with a
+    new ``t``."""
+    ps, gs = tree_leaves(params), tree_leaves(grads)
+    ms, vs = tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
+    t = opt_state["t"] + 1.0
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, gs, alpha=1 - b1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+    upd = torch._foreach_div(ms, 1 - b1 ** t)
+    denom = torch._foreach_div(vs, 1 - b2 ** t)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_div_(upd, denom)
+    torch._foreach_add_(upd, ps, alpha=wd)
+    torch._foreach_add_(ps, upd, alpha=-lr)
+    return params, {"m": opt_state["m"], "v": opt_state["v"], "t": t}
+
+
+def _check_train_options(cfg, mesh, zero1=False):
+    _no_mesh(mesh)
+    if zero1:
+        raise NotImplementedError(
+            "zero1=True (optimizer state sharded over a dp mesh) is not "
+            "ported to hetu_tpu_torch yet: it comes with the parallel "
+            "slices (ROADMAP Queue 1, slices 3 and 5c)")
+    if cfg.dropout_rate > 0.0:
+        raise NotImplementedError(
+            "dropout_rate > 0 (training-time dropout) is not ported to "
+            "hetu_tpu_torch yet: it comes with slice 5d (ROADMAP Queue 1)")
+
+
+def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
+                    accum_steps: int = 1, zero1: bool = False):
+    """Returns ``step(params, opt_state, tokens, targets) -> (loss, params,
+    opt_state)``: ``loss_fn``'s gradient and one ``adamw_update``.
+
+    State rule: the step updates ``params`` and ``opt_state``'s ``m`` and
+    ``v`` in place and returns them, as the reference donates its buffers;
+    keep a copy of anything you need from before the step.
+
+    ``accum_steps > 1``: tokens/targets carry a leading accumulation axis
+    (A, B, T); the microbatches' losses and gradients are averaged, in a
+    Python loop, before the single optimizer update.
+
+    A mesh, ``zero1=True`` and ``cfg.dropout_rate > 0`` raise
+    ``NotImplementedError`` (later slices)."""
+    _check_train_options(cfg, mesh, zero1)
+
+    def step(params, opt_state, tokens, targets):
+        if accum_steps == 1:
+            loss, grads = value_and_grad(loss_fn, params, tokens, targets,
+                                         cfg, mesh)
+        else:
+            if tokens.shape[0] != accum_steps:
+                raise ValueError(f"leading (accumulation) axis "
+                                 f"{tokens.shape[0]} != accum_steps "
+                                 f"{accum_steps}")
+            loss, grads = None, None
+            for mi in range(accum_steps):
+                l, g = value_and_grad(loss_fn, params, tokens[mi],
+                                      targets[mi], cfg, mesh)
+                if grads is None:
+                    loss, grads = l, g
+                else:
+                    loss = loss + l
+                    torch._foreach_add_(tree_leaves(grads), tree_leaves(g))
+            loss = loss / accum_steps
+            torch._foreach_div_(tree_leaves(grads), accum_steps)
+        params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
+        return loss, params, opt_state
+
+    return step

@@ -1,14 +1,21 @@
-"""hetu_tpu_torch's BERT and transformer forward against the JAX package.
+"""hetu_tpu_torch's BERT and transformer, forward and training, against
+the JAX package.
 
 The same params (``hetu_tpu``'s init, carried across with
 ``interop.tree_from_numpy``) and the same batch (numpy, seeded) go through
 ``hetu_tpu.models.{bert,transformer}`` and ``hetu_tpu_torch.models``' at a
 small width, in f32. Attention runs ``flash`` on both sides (the JAX
-package's Pallas kernel in interpret mode, the port's plain version) and
-``dot``; the MLM and LM losses run fused (likewise) and unfused.
+package's Pallas kernels in interpret mode, the port's plain versions) and
+``dot``; the MLM and LM losses run fused (likewise) and unfused. The train
+steps start from the same params and AdamW state and take three steps.
 
 Tolerances: hidden states and logits atol 1e-4 (two layers of f32 matmuls
-summed in another order); losses rel 1e-5.
+summed in another order); losses rel 1e-5. After three AdamW steps at lr
+1e-3: params atol 5e-5, a twentieth of one step (AdamW divides each
+gradient by its own running RMS, so an element whose gradient is near 0
+turns a 1e-7 difference in it into a visible part of its step; the worst
+element seen moved 2.5e-5); m atol 1e-6 and v atol 1e-9 (gradients up to
+~1 that agree to f32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -200,14 +207,19 @@ def test_unported_paths_raise(batch):
         tt.forward(p, tokens, plain, mesh=object())
     with pytest.raises(NotImplementedError, match="dropout_rng"):
         tt.forward(p, tokens, plain, dropout_rng=torch.Generator())
-    # the forward kernels have no backward yet: training raises
-    cfg = tb.BertConfig(dtype=torch.float32, fused_mlm_ce=True,
-                        attn_impl="flash", **SMALL)
-    params = tb.init_params(0, cfg, "cpu")
-    params["embed"].requires_grad_()
-    loss, _ = tb.pretrain_loss(params, _tb(batch), cfg)
-    with pytest.raises(NotImplementedError, match="pretraining slice"):
-        loss.backward()
+    # the train steps' options that wait for later slices
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tt.make_train_step(plain, mesh=object())
+    with pytest.raises(NotImplementedError, match="zero1"):
+        tt.make_train_step(plain, zero1=True)
+    drop = tt.TransformerConfig(dtype=torch.float32, dropout_rate=0.1, **LM)
+    with pytest.raises(NotImplementedError, match="dropout_rate"):
+        tt.make_train_step(drop)
+    cfg = tb.BertConfig(dtype=torch.float32, **SMALL)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tb.make_pretrain_step(cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tb.make_finetune_step(cfg, mesh=object())
 
 
 def test_auto_rules_and_batch_from_instances(batch):
@@ -259,3 +271,176 @@ def test_bert_forward_example_runs_on_the_cpu():
     assert [r["entry"] for r in res] == ["pretrain_loss", "classify_logits"]
     assert np.isfinite(res[0]["mlm"]) and res[1]["logits_shape"] == [2, 2]
     assert res[0]["launches"] == {} and res[1]["launches"] == {}
+
+
+# -- training -----------------------------------------------------------------
+TRAIN_LR = 1e-3
+PARAMS = dict(rtol=0, atol=5e-5)
+M_TOL = dict(rtol=0, atol=1e-6)
+V_TOL = dict(rtol=0, atol=1e-9)
+
+
+def _copy_jax(tree):
+    """A fresh copy for a JAX step, which donates its params and state."""
+    return jax.tree.map(jnp.array, tree)
+
+
+def _carry(jparams, like):
+    """The JAX params and a fresh AdamW state, carried to the port."""
+    jopt = jb.init_opt_state(jparams)
+    tp = tree_from_numpy(jax.tree.map(np.asarray, jparams), "cpu", like=like)
+    topt = tree_from_numpy(jax.tree.map(np.asarray, jopt), "cpu",
+                           like=tt.init_opt_state(like))
+    return jopt, tp, topt
+
+
+def _assert_tree_close(got, want, tol, path=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_tree_close(got[k], want[k], tol, f"{path}/{k}")
+        return
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               err_msg=path, **tol)
+
+
+def _assert_state_close(tp, topt, jp, jopt):
+    _assert_tree_close(tp, jp, PARAMS, "params")
+    _assert_tree_close(topt["m"], jopt["m"], M_TOL, "m")
+    _assert_tree_close(topt["v"], jopt["v"], V_TOL, "v")
+    assert topt["t"].shape == () and float(topt["t"]) == float(jopt["t"])
+
+
+def test_opt_state_carries_across(bert_pair):
+    """tree_from_numpy carries an AdamW state {m, v, t}: two params-shaped
+    trees and a 0-d f32 step count."""
+    _, jp, tp = bert_pair
+    jopt = jax.tree.map(lambda x: x + 0.5, jb.init_opt_state(jp))
+    topt = tree_from_numpy(jax.tree.map(np.asarray, jopt), "cpu",
+                           like=tb.init_opt_state(tp))
+    assert topt["t"].shape == () and topt["t"].dtype == torch.float32
+    assert float(topt["t"]) == 0.5
+    _assert_tree_close(topt, jopt, dict(rtol=0, atol=0))
+
+
+def test_pretrain_step_matches_jax(bert_pair, batch):
+    """Three steps of make_pretrain_step through the flash and fused-CE
+    backward, in the pre-LN and hf() dialects."""
+    hf, jp, tp0 = bert_pair
+    jc, tc = _configs(hf, attn_impl="flash", fused_mlm_ce=True)
+    jopt, tp, topt = _carry(jp, tp0)
+    jp = _copy_jax(jp)
+    jstep = jb.make_pretrain_step(jc, lr=TRAIN_LR)
+    tstep = tb.make_pretrain_step(tc, lr=TRAIN_LR)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    for _ in range(3):
+        jl, (jm, jn), jp, jopt = jstep(jp, jopt, jbatch)
+        tl, (tm, tn), tp, topt = tstep(tp, topt, _tb(batch))
+        np.testing.assert_allclose([float(tl), float(tm), float(tn)],
+                                   [float(jl), float(jm), float(jn)], **LOSS)
+    _assert_state_close(tp, topt, jp, jopt)
+
+
+def test_finetune_step_matches_jax(bert_pair, batch):
+    hf, jp, tp = bert_pair
+    jc, tc = _configs(hf, attn_impl="flash")
+    jcp = jb.init_classifier_params(jax.random.PRNGKey(1), jc, 3,
+                                    pretrained=jp)
+    jopt, tcp, topt = _carry(
+        jcp, tb.init_classifier_params(1, tc, 3, pretrained=tp))
+    jstep = jb.make_finetune_step(jc, lr=TRAIN_LR)
+    tstep = tb.make_finetune_step(tc, lr=TRAIN_LR)
+    keys = ("input_ids", "segment_ids", "input_mask")
+    fb = dict({k: batch[k] for k in keys},
+              label=np.array([0, 2, 1, 2], np.int32))
+    jfb = {k: jnp.asarray(v) for k, v in fb.items()}
+    for _ in range(3):
+        jl, ja, jcp, jopt = jstep(jcp, jopt, jfb)
+        tl, ta, tcp, topt = tstep(tcp, topt, _tb(fb))
+        np.testing.assert_allclose(float(tl), float(jl), **LOSS)
+        assert float(ta) == float(ja)
+    _assert_state_close(tcp, topt, jcp, jopt)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("tied", [False, True], ids=["dv_head", "vd_tied"])
+def test_lm_train_step_matches_jax(tied, accum):
+    """transformer.make_train_step with the fused LM loss in both head
+    layouts, with and without gradient accumulation."""
+    kw = dict(LM, tied_head=tied, fused_lm_ce=True, attn_impl="flash")
+    jc = jt.TransformerConfig(dtype=jnp.float32, **kw)
+    tc = tt.TransformerConfig(dtype=torch.float32, **kw)
+    jp = jt.init_params(jax.random.PRNGKey(4), jc)
+    jopt, tp, topt = _carry(jp, tt.init_params(0, tc, "cpu"))
+    rng = np.random.RandomState(5)
+    shape = (accum, 2, T) if accum > 1 else (2, T)
+    tokens = rng.randint(0, 101, shape).astype(np.int32)
+    targets = rng.randint(0, 101, shape).astype(np.int32)
+    jstep = jt.make_train_step(jc, lr=TRAIN_LR, accum_steps=accum)
+    tstep = tt.make_train_step(tc, lr=TRAIN_LR, accum_steps=accum)
+    for _ in range(3):
+        jl, jp, jopt = jstep(jp, jopt, jnp.asarray(tokens),
+                             jnp.asarray(targets))
+        tl, tp, topt = tstep(tp, topt, torch.from_numpy(tokens),
+                             torch.from_numpy(targets))
+        np.testing.assert_allclose(float(tl), float(jl), **LOSS)
+    _assert_state_close(tp, topt, jp, jopt)
+
+
+def test_remat_gives_the_same_gradients(batch):
+    """cfg.remat recomputes each block in the backward: the same loss and
+    gradients as keeping the activations, and the recompute runs the
+    forward kernels again (2 layers: 4 flash forwards, 2 backwards)."""
+    out = {}
+    for remat in (False, True):
+        cfg = tb.BertConfig(dtype=torch.float32, attn_impl="flash",
+                            fused_mlm_ce=True, **dict(SMALL, remat=remat))
+        registry.reset_stats()
+        out[remat] = tt.value_and_grad(tb.pretrain_loss,
+                                       tb.init_params(0, cfg, "cpu"),
+                                       _tb(batch), cfg, has_aux=True)
+        stats = registry.dispatch_stats()
+        assert stats[("flash_attention_fwd", "plain")] == (4 if remat else 2)
+        assert stats[("flash_attention_bwd", "plain")] == 2
+    (loss, _), grads = out[True]
+    (want_loss, _), want = out[False]
+    assert float(loss) == float(want_loss)
+    for g, w in zip(tt.tree_leaves(grads), tt.tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_train_step_updates_in_place_under_the_callers_mode(batch):
+    """The step returns the params and state it was given, updated in
+    place; a step under kernels='off' dispatches every kernel call,
+    backward and remat recompute included, to the plain versions."""
+    cfg = tb.BertConfig(dtype=torch.float32, attn_impl="flash",
+                        fused_mlm_ce=True, **dict(SMALL, remat=True))
+    params = tb.init_params(0, cfg, "cpu")
+    opt = tb.init_opt_state(params)
+    embed = params["embed"]
+    before = embed.clone()
+    step = tb.make_pretrain_step(cfg)
+    registry.reset_stats()
+    with registry.active("off"):
+        loss, _, new_params, new_opt = step(params, opt, _tb(batch))
+    assert new_params is params and new_opt["m"] is opt["m"]
+    assert new_params["embed"] is embed and not torch.equal(embed, before)
+    assert float(new_opt["t"]) == 1.0 and torch.isfinite(loss)
+    assert registry.dispatch_stats() == {
+        ("flash_attention_fwd", "off"): 4, ("flash_attention_bwd", "off"): 2,
+        ("fused_linear_nll_fwd", "off"): 1,
+        ("fused_linear_nll_bwd", "off"): 1}
+
+
+def test_bert_pretrain_example_runs_on_the_cpu():
+    from hetu_tpu_torch.examples import bert_pretrain
+    cfg = tb.BertConfig(dtype=torch.float32, attn_impl="flash",
+                        fused_mlm_ce=True, **dict(SMALL, vocab_size=1100))
+    res = list(bert_pretrain.run("cpu", steps=4, batch_size=4, seq_len=32,
+                                 n_pred=5, lr=1e-3, cfg=cfg))
+    steps, summary = res[:-1], res[-1]
+    assert [r["step"] for r in steps] == [0, 1, 2, 3]
+    assert steps[-1]["loss"] < steps[0]["loss"]
+    assert all(r["launches"] == {} for r in steps)
+    assert summary["summary"] == "bert_pretrain" and summary["steps"] == 4
+    assert summary["launches_same_every_step"] and summary["step_ms"] > 0

@@ -3,7 +3,8 @@
 on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances as in chip_smoke.py: SGD rtol 1e-6 / atol 1e-7, Adam rtol 1e-5
-/ atol 1e-6 (powf in the kernel against torch.pow in beta**t).
+/ atol 1e-6 (powf in the kernel against torch.pow in beta**t); the
+attention and CE kernels' below.
 """
 import numpy as np
 import pytest
@@ -210,3 +211,150 @@ def test_bert_forward_on_the_card_matches_the_cpu(dev):
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+# -- flash_attention_bwd and fused_linear_nll_bwd ---------------------------
+# Tolerances as in chip_smoke.py: bf16 gradients rtol/atol 2e-2 (one bf16
+# rounding of each output), f32 rtol/atol 2e-5 (f32 sums in another order),
+# db atol 1e-3 (an f32 sum over up to 1000 rows).
+
+@pytest.mark.parametrize("s,d,causal,dtype,full_pad", [
+    (128, 64, False, torch.bfloat16, False),    # BERT-base layer
+    (512, 64, True, torch.bfloat16, False),
+    (256, 128, True, torch.float32, True),
+    (96, 16, True, torch.float32, True),
+])
+def test_flash_bwd_kernel_matches_plain(dev, s, d, causal, dtype, full_pad):
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    q, k, v, kb = _bert_attention(dev, s=s, d=d, dtype=dtype, seed=3)
+    if full_pad:
+        kb[0] = -1e30
+    do = _rand(q.shape, 4, dev).to(dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
+              block_k=min(128, s))
+    o, lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
+    want = fa._flash_bwd_plain(q, k, v, o, lse, do, kb, **kw)
+    with registry.active("auto"):
+        got = registry.dispatch("flash_attention_bwd", q, k, v, o, lse, do,
+                                kb, **kw)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=2e-5, atol=2e-5)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+    assert registry.launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("n,v,d,layout,dtype", [
+    (640, 30522, 768, "vd", torch.bfloat16),    # BERT-base MLM
+    (1000, 50257, 768, "dv", torch.bfloat16),
+    (33, 517, 48, "vd", torch.float32),
+    (20, 300, 1100, "dv", torch.float32),       # D not a multiple of 64
+    (40, 3000, 16, "vd", torch.float32),        # dh split along the chunk
+])
+def test_fused_ce_bwd_kernel_matches_plain(dev, n, v, d, layout, dtype):
+    from hetu_tpu_torch.kernels import fused_ce as ce
+    rng = np.random.RandomState(5)
+    h = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.randn(v, d).astype(np.float32) * 0.05).to(
+        dev, dtype)
+    if layout == "dv":
+        w = w.t().contiguous()
+    b = torch.from_numpy(rng.randn(v).astype(np.float32) * 0.1).to(dev)
+    t = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(dev)
+    ct = torch.from_numpy(rng.rand(n).astype(np.float32) / n).to(dev)
+    kw = dict(block_n=128, block_v=512, w_dv=layout == "dv")
+    lse, _ = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
+    want = ce._linear_nll_bwd_plain(h, w, b, t, lse, ct, **kw)
+    with registry.active("auto"):
+        got = registry.dispatch("fused_linear_nll_bwd", h, w, b, t, lse, ct,
+                                **kw)
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=2e-5, atol=2e-5)
+    for name, g, ww in zip(("dh", "dW", "db"), got, want):
+        assert g.dtype == ww.dtype, name
+        torch.testing.assert_close(
+            g.float(), ww.float(),
+            **(dict(rtol=0, atol=1e-3) if name == "db" else tol))
+    assert registry.launch_counts()["fused_linear_nll_bwd"] == 1
+
+
+def test_ineligible_backward_calls_raise(dev):
+    from hetu_tpu_torch.kernels import flash_attention as fa, fused_ce as ce
+    q, k, v, kb = _bert_attention(dev, b=2, s=128)
+    o, lse = fa._flash_fwd_plain(q, k, v, kb, scale=0.125, causal=False,
+                                 block_q=128, block_k=128)
+    kw = dict(scale=0.125, causal=False, block_q=128, block_k=128)
+    bad = [((q, k, v, o, lse, q.float(), kb), "do must match"),
+           ((q, k, v, o, lse.double(), q, kb), "lse must be"),
+           ((q, k, v, o.transpose(2, 3).contiguous().transpose(2, 3), lse, q,
+             kb), "o is not contiguous")]
+    for args, why in bad:
+        with pytest.raises(registry.KernelEligibilityError, match=why):
+            registry.dispatch("flash_attention_bwd", *args, **kw)
+    h = torch.zeros((8, 16), device=dev)
+    w = torch.zeros((40, 16), device=dev)
+    b = torch.zeros((40,), device=dev)
+    t = torch.zeros((8,), dtype=torch.int32, device=dev)
+    lse, ct = torch.zeros(8, device=dev), torch.ones(8, device=dev)
+    kw = dict(block_n=128, block_v=512, w_dv=False)
+    bad = [((h, w, b, t, lse[:4], ct), "lse must be"),
+           ((h, w, b, t, lse, ct.cpu()), "ct must be"),
+           ((h, w, b, t, lse, ct.double()), "ct must be")]
+    for args, why in bad:
+        with pytest.raises(registry.KernelEligibilityError, match=why):
+            registry.dispatch("fused_linear_nll_bwd", *args, **kw)
+    assert registry.launch_counts()["flash_attention_bwd"] == 0
+    assert registry.launch_counts()["fused_linear_nll_bwd"] == 0
+
+
+def _narrow_bert(dev):
+    from hetu_tpu_torch.models import bert
+    cfg = bert.BertConfig(vocab_size=1000, d_model=128, n_heads=2,
+                          n_layers=2, d_ff=256, max_seq_len=128,
+                          dtype=torch.float32)
+    rng = np.random.RandomState(6)
+    rows = [(rng.randint(0, 1000, 128), (np.arange(128) < 100 + i)
+             .astype(np.int32), np.zeros(128, np.int32),
+             rng.randint(1, 100, 5), rng.randint(0, 1000, 5), i % 2)
+            for i in range(4)]
+    return bert, cfg, bert.batch_from_instances(rows, dev)
+
+
+def test_bert_train_step_on_the_card_matches_the_cpu(dev):
+    """Two pretraining steps of a narrow BERT in f32, remat on: the card
+    (all four kernels) against the port on the CPU ("auto" takes the
+    unfused dot attention and CE there), losses rel 1e-4: the second loss
+    follows an AdamW step, which turns f32 sums in another order into
+    parameter differences of up to a few hundredths of a step."""
+    bert, cfg, batch = _narrow_bert(dev)
+    cpu_batch = {k: x.cpu() for k, x in batch.items()}
+    losses = {}
+    for where, b in (("cpu", cpu_batch), ("cuda", batch)):
+        params = bert.init_params(0, cfg, where)
+        opt = bert.init_opt_state(params)
+        step = bert.make_pretrain_step(cfg, lr=1e-3)
+        registry.reset_launch_counts()
+        losses[where] = [float(step(params, opt, b)[0]) for _ in range(2)]
+        counts = registry.launch_counts()
+    assert counts["flash_attention_fwd"] == 8      # 2 steps x (2 + 2 remat)
+    assert counts["flash_attention_bwd"] == 4
+    assert counts["fused_linear_nll_fwd"] == 2
+    assert counts["fused_linear_nll_bwd"] == 2
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_bert_train_step_with_kernels_off_launches_nothing(dev):
+    """Under kernels='off' the step's forward, remat recompute and
+    backward (the last two on PyTorch's backward thread) take the plain
+    versions: no launch."""
+    bert, cfg, batch = _narrow_bert(dev)
+    params = bert.init_params(0, cfg, dev)
+    opt = bert.init_opt_state(params)
+    step = bert.make_pretrain_step(cfg, lr=1e-3)
+    registry.reset_launch_counts()
+    with registry.active("off"):
+        loss, _, _, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert sum(registry.launch_counts().values()) == 0

@@ -1,18 +1,22 @@
-"""hetu_tpu_torch's flash attention forward against the JAX package.
+"""hetu_tpu_torch's flash attention, forward and backward, against the
+JAX package.
 
-The port's plain version (what a CPU tensor runs) is held against
-``hetu_tpu.kernels.flash_attention``'s Pallas forward ``_fwd_pallas`` in
-interpret mode, as tests/test_attention.py runs it, for ``o`` and ``lse``,
-and against the unfused ``mha_reference``. The CUDA kernel itself runs
+The port's plain versions (what a CPU tensor runs) are held against
+``hetu_tpu.kernels.flash_attention``'s Pallas kernels in interpret mode,
+as tests/test_attention.py runs them: the forward ``_fwd_pallas`` for
+``o`` and ``lse``, the backward ``_bwd_pallas`` for ``dq``, ``dk`` and
+``dv``, including a fully padded row; and against the unfused
+``mha_reference`` and ``jax.grad`` of it. The CUDA kernels themselves run
 only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 
-Tolerances: f32 rtol/atol 2e-5 (the same online softmax, summed in another
-order); bf16 rtol/atol 2e-2 (one bf16 rounding of o on each side).
+Tolerances: f32 rtol/atol 2e-5 (the same sums in another order); bf16
+rtol/atol 2e-2 (one bf16 rounding of each output on each side).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from hetu_tpu.kernels import flash_attention as jfa
@@ -111,11 +115,111 @@ def test_blocks_resolve_as_the_reference():
                             block_q=64)
 
 
+def _jax_res(q, k, v, kb, scale, causal, block_q, block_k, dtype=jnp.float32):
+    """The reference's residuals ``(q, k, v, o, lse, k_bias)`` from its
+    Pallas forward in interpret mode."""
+    jq, jk, jv = (_j(x, dtype) for x in (q, k, v))
+    o, lse = jfa._fwd_pallas(jq, jk, jv, _j(kb), scale, causal, block_q,
+                             block_k, interpret=True)
+    return (jq, jk, jv, o, lse, _j(kb))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", ["none", "padding", "full_pad"])
+@pytest.mark.parametrize("block_q,block_k", [(32, 64), (64, 32)])
+def test_plain_backward_matches_jax_pallas_backward(causal, bias, block_q,
+                                                    block_k):
+    """The fully padded row (``full_pad``) has s = lse = -1e30, so both
+    backwards take p = exp(0) = 1 for every key they visit."""
+    q, k, v = _qkv(6)
+    do = np.random.RandomState(7).randn(*q.shape).astype(np.float32)
+    kb = _bias(bias)
+    kw = dict(scale=0.25, causal=causal, block_q=block_q, block_k=block_k)
+    res = _jax_res(q, k, v, kb, **kw)
+    want = jfa._bwd_pallas(res, _j(do), interpret=True, **kw)
+    o, lse = (torch.from_numpy(np.array(x)) for x in res[3:5])
+    got = tfa._flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), _t(kb),
+                               **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (2, 2, 128, 16)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bias", ["none", "padding"])
+def test_autograd_matches_jax_grad_of_the_reference(causal, bias):
+    """``torch.autograd`` through the port's ``flash_attention`` against
+    ``jax.grad`` of the unfused ``mha_reference`` and of the JAX package's
+    ``flash_attention``, for a random cotangent."""
+    q, k, v = _qkv(8, s=64, d=32)
+    kb = _bias(bias, s=64)
+    ct = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+
+    def jloss(fn):
+        return lambda q, k, v: jnp.vdot(fn(q, k, v, causal, k_bias=_j(kb)),
+                                        _j(ct))
+
+    want_ref = jax.grad(jloss(jfa.mha_reference), argnums=(0, 1, 2))(
+        _j(q), _j(k), _j(v))
+    want_flash = jax.grad(jloss(jfa.flash_attention), argnums=(0, 1, 2))(
+        _j(q), _j(k), _j(v))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, causal, k_bias=_t(kb))
+    (o * _t(ct)).sum().backward()
+    for g, wr, wf in zip((tq.grad, tk.grad, tv.grad), want_ref, want_flash):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wr), **F32)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wf), **F32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_backward_matches_jax(causal):
+    q, k, v = _qkv(10, s=64)
+    do = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+    kb = _bias("padding", s=64)
+    kw = dict(scale=0.25, causal=causal, block_q=32, block_k=32)
+    res = _jax_res(q, k, v, kb, dtype=jnp.bfloat16, **kw)
+    want = jfa._bwd_pallas(res, _j(do, jnp.bfloat16), interpret=True, **kw)
+    o = torch.from_numpy(np.array(res[3].astype(jnp.float32))).to(
+        torch.bfloat16)
+    lse = torch.from_numpy(np.array(res[4]))
+    got = tfa._flash_bwd_plain(
+        _t(q, torch.bfloat16), _t(k, torch.bfloat16), _t(v, torch.bfloat16),
+        o, lse, _t(do, torch.bfloat16), _t(kb), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)), **BF16)
+
+
 def test_backward_is_not_ported():
+    """The part of the reference's backward that stays unported: k_bias
+    gets no gradient (the reference returns zeros for it), and lse is not
+    differentiable. q, k and v get theirs through flash_attention_bwd."""
+    registry.reset_stats()
     q, k, v = (_t(x).requires_grad_() for x in _qkv(4, s=32))
-    o = tfa.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="pretraining slice"):
+    kb = _t(_bias("padding", s=32)).requires_grad_()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, k_bias=kb)
+    assert not lse.requires_grad
+    o.sum().backward()
+    assert kb.grad is None
+    for x in (q, k, v):
+        assert x.grad.shape == x.shape and x.grad.dtype == x.dtype
+    assert registry.dispatch_stats() == {("flash_attention_fwd", "plain"): 1,
+                                         ("flash_attention_bwd", "plain"): 1}
+
+
+def test_backward_runs_under_the_forwards_mode():
+    """The mode is thread-local, and PyTorch runs a CUDA backward on its
+    own thread: the forward records its mode and the backward re-enters
+    it, here with backward() called outside the forward's scope."""
+    registry.reset_stats()
+    q, k, v = (_t(x).requires_grad_() for x in _qkv(12, s=32))
+    with registry.active("off"):
+        o = tfa.flash_attention(q, k, v)
+    with registry.active("auto"):
         o.sum().backward()
+    assert registry.dispatch_stats() == {("flash_attention_fwd", "off"): 1,
+                                         ("flash_attention_bwd", "off"): 1}
 
 
 def test_cpu_takes_the_plain_version_and_force_raises():

@@ -112,6 +112,40 @@ def test_a_cpu_bert_forward_loads_neither_jax_nor_hetu_tpu():
     assert "LOADED []" in p.stdout, p.stdout
 
 
+def test_a_cpu_bert_train_step_loads_neither_jax_nor_hetu_tpu():
+    """Two BERT pretraining steps (flash and fused-CE backward through the
+    dispatch, remat on, AdamW) on the CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from hetu_tpu_torch.models import bert
+        cfg = bert.BertConfig(vocab_size=50, d_model=32, n_heads=2,
+                              n_layers=1, d_ff=64, max_seq_len=16,
+                              dtype=torch.float32, attn_impl="flash",
+                              fused_mlm_ce=True)
+        params = bert.init_params(0, cfg, "cpu")
+        opt = bert.init_opt_state(params)
+        rng = np.random.RandomState(0)
+        rows = [(rng.randint(0, 50, 16), np.ones(16, np.int32),
+                 np.zeros(16, np.int32), np.array([3, 5, 0]),
+                 rng.randint(0, 50, 3), i % 2) for i in range(2)]
+        batch = bert.batch_from_instances(rows, "cpu")
+        step = bert.make_pretrain_step(cfg, lr=1e-3)
+        l0, _, params, opt = step(params, opt, batch)
+        l1, _, params, opt = step(params, opt, batch)
+        assert float(l1) < float(l0), (float(l0), float(l1))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
 def test_executor_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = ht.init.zeros((3,), name="w")
