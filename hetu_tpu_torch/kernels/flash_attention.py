@@ -23,10 +23,8 @@ kernels do their products in f32 on the CUDA cores, so they are bound by
 their own arithmetic; they never write an (S, S) tensor (the source's
 header has the design).
 
-``flash_attention`` is a ``torch.autograd.Function``. Its forward records
-the dispatch mode it ran under, and its backward dispatches under that
-mode: PyTorch runs a CUDA backward on its own thread, where the caller's
-(thread-local) ``registry.active`` scope does not reach.
+``flash_attention`` is a ``torch.autograd.Function`` whose backward
+dispatches under the mode its forward ran under (``registry.bind``).
 
 ``_flash_fwd_plain`` is ``_fwd_kernel``'s online softmax as a blockwise
 PyTorch loop over the same (block_q, block_k) tiles, and
@@ -281,7 +279,7 @@ class _FlashFwd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, k_bias, causal, scale, block_q, block_k):
-        ctx.mode = registry.current_mode()
+        ctx.dispatch = registry.bind(registry.dispatch)
         o, lse = registry.dispatch("flash_attention_fwd", q, k, v, k_bias,
                                    scale=scale, causal=causal,
                                    block_q=block_q, block_k=block_k)
@@ -294,11 +292,9 @@ class _FlashFwd(torch.autograd.Function):
     def backward(ctx, do, dlse):
         q, k, v, o, lse, k_bias = ctx.saved_tensors
         causal, scale, block_q, block_k = ctx.blocks
-        with registry.active(ctx.mode):
-            dq, dk, dv = registry.dispatch(
-                "flash_attention_bwd", q, k, v, o, lse, do.contiguous(),
-                k_bias, scale=scale, causal=causal, block_q=block_q,
-                block_k=block_k)
+        dq, dk, dv = ctx.dispatch(
+            "flash_attention_bwd", q, k, v, o, lse, do.contiguous(), k_bias,
+            scale=scale, causal=causal, block_q=block_q, block_k=block_k)
         return dq, dk, dv, None, None, None, None, None
 
 

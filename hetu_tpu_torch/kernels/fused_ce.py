@@ -27,10 +27,8 @@ an N × chunk slab of g (at most 16 MB) that its dh and dW products read
 (the source's header has the design). Each wrapper counts its CUDA
 kernels as one launch.
 
-The forward records the dispatch mode it ran under, and the backward
-dispatches under that mode: PyTorch runs a CUDA backward on its own
-thread, where the caller's (thread-local) ``registry.active`` scope does
-not reach.
+The backward dispatches under the mode the forward ran under
+(``registry.bind``).
 
 ``_linear_nll_fwd_plain`` is ``_fwd_kernel``'s online logsumexp as a
 PyTorch loop over the same vocab tiles, and ``_linear_nll_bwd_plain`` the
@@ -260,7 +258,7 @@ class _FusedLinearNll(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, b, targets, block_n, block_v, w_dv):
-        ctx.mode = registry.current_mode()
+        ctx.dispatch = registry.bind(registry.dispatch)
         lse, tl = registry.dispatch("fused_linear_nll_fwd", h, w, b, targets,
                                     block_n=block_n, block_v=block_v,
                                     w_dv=w_dv)
@@ -272,11 +270,10 @@ class _FusedLinearNll(torch.autograd.Function):
     def backward(ctx, dnll):
         h, w, b, targets, lse = ctx.saved_tensors
         block_n, block_v, w_dv = ctx.blocks
-        with registry.active(ctx.mode):
-            dh, dw, db = registry.dispatch(
-                "fused_linear_nll_bwd", h, w, b, targets, lse,
-                dnll.float().contiguous(), block_n=block_n, block_v=block_v,
-                w_dv=w_dv)
+        dh, dw, db = ctx.dispatch(
+            "fused_linear_nll_bwd", h, w, b, targets, lse,
+            dnll.float().contiguous(), block_n=block_n, block_v=block_v,
+            w_dv=w_dv)
         return dh, dw, db, None, None, None, None
 
 

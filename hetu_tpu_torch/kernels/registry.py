@@ -110,6 +110,20 @@ def current_mode() -> str:
     return resolve_mode(None)
 
 
+def bind(fn: Callable) -> Callable:
+    """``fn`` bound to the mode current now: each later call runs under that
+    mode, on whichever thread it runs. Autograd backwards and the
+    recompute of a checkpointed block take it, because PyTorch runs a CUDA
+    backward on its own thread, which the caller's (thread-local)
+    :class:`active` scope does not reach."""
+    mode = current_mode()
+
+    def bound(*args, **kwargs):
+        with active(mode):
+            return fn(*args, **kwargs)
+    return bound
+
+
 def _count(kernel: str, path: str) -> None:
     with _stats_lock:
         key = (kernel, path)

@@ -406,8 +406,7 @@ def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
     ``attn_bias`` (a padding mask) is the same for every layer. With
     ``cfg.remat`` and gradients enabled, each block keeps only its inputs
     and is recomputed in the backward, under the kernel mode of this call
-    (the recompute runs on PyTorch's backward thread, which the caller's
-    ``registry.active`` scope does not reach)."""
+    (``registry.bind``)."""
     _no_mesh(mesh)
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     # one unbind per stacked tensor: its backward stacks the L layer
@@ -416,12 +415,9 @@ def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
     names = list(params["blocks"])
     layers = zip(*(params["blocks"][n].unbind(0) for n in names))
     remat = cfg.remat and torch.is_grad_enabled()
-    mode = registry.current_mode()
-
-    def block(h, layer_params):
-        with registry.active(mode):
-            return _block(h, layer_params, cfg, mesh, attn_bias=attn_bias,
-                          dropout_rng=dropout_rng)
+    block = registry.bind(lambda h, layer_params: _block(
+        h, layer_params, cfg, mesh, attn_bias=attn_bias,
+        dropout_rng=dropout_rng))
 
     for layer in layers:
         layer_params = dict(zip(names, layer))
@@ -478,14 +474,18 @@ def loss_fn(params, tokens, targets, cfg: TransformerConfig, mesh=None,
 
 def count_params(params) -> int:
     """Total parameter count of a (nested dict) params tree."""
-    return sum(int(p.numel()) for p in tree_leaves(params))
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return int(params.numel())
 
 
-def tree_leaves(tree) -> list:
-    """The tensors of a nested dict, in key order."""
+def tree_leaves(tree, with_paths=False, _prefix="") -> list:
+    """The tensors of a nested dict, in key order; with ``with_paths``,
+    ``(path, tensor)`` pairs, the path as ``/blocks/wq``."""
     if isinstance(tree, dict):
-        return [x for k in tree for x in tree_leaves(tree[k])]
-    return [tree]
+        return [x for k in tree for x in tree_leaves(tree[k], with_paths,
+                                                      f"{_prefix}/{k}")]
+    return [(_prefix, tree) if with_paths else tree]
 
 
 def tree_map(fn, tree, *rest):

@@ -11,6 +11,8 @@ Tolerances: SGD rtol 1e-6 / atol 1e-7 (one multiply and one subtract per
 element, rounded alike); Adam rtol 1e-5 / atol 1e-6, because beta**t and
 sqrt may differ by an ulp between XLA:CPU and ATen.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -144,6 +146,22 @@ def test_registry_modes():
         treg.resolve_mode("sometimes")
     with pytest.raises(KeyError):
         treg.dispatch("no_such_kernel", p)
+
+
+def test_bind_carries_the_mode_to_another_thread():
+    """A function bound under a mode runs under it on any thread, as an
+    autograd backward does; the thread's own mode is left as it was."""
+    default = treg.current_mode()
+    assert default != "off"
+    with treg.active("off"):
+        bound = treg.bind(treg.current_mode)
+    seen = []
+    th = threading.Thread(target=lambda: seen.extend(
+        [bound(), treg.current_mode()]))
+    th.start()
+    th.join()
+    assert seen == ["off", default]
+    assert treg.current_mode() == default
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
