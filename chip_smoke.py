@@ -9,8 +9,12 @@ pretraining loss without gradient on a synthetic phase-1 batch (32 x 128)
 and the classifier on 8 requests; then trains BERT-base with
 ``make_pretrain_step`` for 20 steps on that batch, checks its first step's
 gradients against ``kernels="off"``, and fine-tunes the classifier for 5
-steps with ``make_finetune_step``. Each path is checked to have gone
-through its kernels.
+steps with ``make_finetune_step``; then trains the full-width GCN of
+``examples/gnn`` (``dense_model``, 128 -> 256 -> 40) for 30 epochs on a
+synthetic graph at ogbn-arxiv's size through ``Executor.run``, checks its
+first epoch's loss and gradients against ``kernels="off"``, and runs one
+``csrmv_op`` program. Each path is checked to have gone through its
+kernels.
 
     python3 chip_smoke.py
 
@@ -121,6 +125,21 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR, GRAD_REL, FIRST_LOSS_TOL = (
     20, 3, 1e-4, 2e-2, 0.5)
 BF16_EXCESS = 2.0
 FINETUNE_STEPS, FINETUNE_LR = 5, 2e-5
+# CSR products on the GCN's adjacency (the arxiv-sized graph), at the main
+# path's shapes: A·X at F = 128 (layer 1), A·H at F = 256 (layer 2), Aᵀ·dZ
+# at F = 256 (layer 2's backward), and the vector product on A. Kernel and
+# plain version sum each row in CSR order with one f32 accumulator, each
+# product rounded before the add (-fmad=false): bit-equal expected, each
+# output held by its relative L2 error.
+CSR_CASES = [("A", 128), ("A", 256), ("A^T", 256)]
+TOL.update({"csr_spmm": {"rel_l2": 1e-6}, "csr_spmv": {"rel_l2": 1e-6}})
+# The GCN (run_single's dense_model at ogbn-arxiv's widths, hidden 256,
+# SGD lr 0.5): per epoch 3 csr_spmm (2 forward, 1 backward) and 4
+# fused_sgd launches. The first epoch's loss and gradients with the
+# kernels against kernels="off", in f32: the sparse products are bit-equal
+# and the dense ones are cuBLAS's on both sides, so rel L2 <= GCN_REL.
+GCN_EPOCHS, GCN_LR, GCN_REL = 30, 0.5, 1e-5
+GCN_LAUNCHES = {"csr_spmm": 3, "fused_sgd": 4}
 
 # Peak rates for the bound, by card name: device-memory bytes/s, float32
 # (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
@@ -538,6 +557,138 @@ def ce_bwd_phase(ce, dev, bw, bf16):
     return cases
 
 
+def csr_check(kind, a, dense, kernel, plain, library, registry, what, bw,
+              f32):
+    """One csr_spmm/csr_spmv case: the kernel against its plain version on
+    the same inputs, then timed."""
+    got, want = kernel(a, dense), plain(a, dense)
+    torch.cuda.synchronize()
+    rel = rel_l2(got, want)
+    check(rel <= TOL[kind]["rel_l2"], f"{kind} {what} differs from the plain "
+          f"version by rel L2 {rel}")
+    f = dense.shape[1] if dense.ndim == 2 else 1
+    case = {"matrix": what, "shape": [a.nrow, a.ncol, a.nnz, f],
+            "bit_equal": bool(torch.equal(got, want)),
+            "max_abs_err": float((got - want).abs().max()), "rel_l2": rel,
+            # read rowptr, col and values once and each dense row once
+            # (the least; a row's neighbours may fetch it again), write the
+            # output once; one multiply and one add per entry and column
+            "bound": bound(8 * a.nnz + 4 * (a.nrow + 1) + 4 * a.ncol * f
+                           + 4 * a.nrow * f, 2 * a.nnz * f, bw, f32),
+            "ms": graph_ms(lambda: kernel(a, dense)),
+            # through the registry gate, one call at a time
+            "launched_ms": time_ms(lambda: registry.dispatch(kind, a, dense)),
+            "plain_ms": graph_ms(lambda: plain(a, dense), iters=3)}
+    try:        # cuSPARSE, a yardstick only
+        case["library_ms"] = time_ms(library, iters=50)
+    except RuntimeError as e:
+        case.update(library_ms=None, library_error=str(e)[:200])
+    return case
+
+
+def csr_phase(cs, registry, adj, dev, bw, f32):
+    """csr_spmm and csr_spmv against their plain versions on the GCN's
+    adjacency at CSR_CASES and on A·x; timed at each."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    forms = {"A": adj.csr, "A^T": adj.csr_t}
+    lib = {k: torch.sparse_csr_tensor(c.rowptr, c.col, c.val,
+                                      (c.nrow, c.ncol), check_invariants=False)
+           for k, c in forms.items()}
+    spmm = []
+    for form, f in CSR_CASES:
+        a = forms[form]
+        b = torch.randn((a.ncol, f), generator=gen, device=dev)
+        spmm.append(csr_check(
+            "csr_spmm", a, b, cs._spmm_kernel, cs._spmm_plain,
+            lambda: torch.sparse.mm(lib[form], b), registry, form, bw, f32))
+    x = torch.randn((adj.ncol,), generator=gen, device=dev)
+    spmv = [csr_check("csr_spmv", adj.csr, x, cs._spmv_kernel,
+                      cs._spmv_plain, lambda: torch.mv(lib["A"], x),
+                      registry, "A", bw, f32)]
+    return spmm, spmv
+
+
+def gcn_phase(ht, gnn_main, cs, registry, counted, dev, bw, f32):
+    """The GCN on the arxiv-sized graph: the CSR kernels against their
+    plain versions on its adjacency; the first epoch's loss and gradients
+    against kernels="off"; one csrmv_op program; then GCN_EPOCHS epochs
+    through Executor.run, each with the launch counts zeroed just before
+    it and read just after."""
+    data = gnn_main.load_graph("arxiv")
+    tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR, data=data)
+    spmm, spmv = csr_phase(cs, registry, tr.adj, dev, bw, f32)
+    emit("csr_spmm_checked", tolerance=TOL["csr_spmm"], cases=spmm + spmv)
+
+    # -- the first epoch's gradients against the plain versions -----------
+    off = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR, kernels="off",
+                           data=data)
+    for n_k, n_o in zip(tr.ex.param_nodes, off.ex.param_nodes):
+        check(torch.equal(tr.ex.state["params"][id(n_k)],
+                          off.ex.state["params"][id(n_o)]),
+              f"initial {n_k.name} differs between the two executors")
+    (loss_k, g_k), counts = counted(tr.gradients)
+    check(counts == {"csr_spmm": 3}, f"the gradient launched {counts}, "
+          "expected 3 csr_spmm")
+    (loss_o, g_o), off_counts = counted(off.gradients)
+    check(off_counts == {}, f"kernels='off' launched {off_counts}")
+    loss_rel = abs(float(loss_k) - float(loss_o)) / abs(float(loss_o))
+    grad_rel = rel_errs(sorted(g_k), [g_k[k] for k in sorted(g_k)],
+                        [g_o[k] for k in sorted(g_k)], GCN_REL,
+                        "GCN first-epoch gradient")
+    check(loss_rel <= GCN_REL, f"GCN first loss {float(loss_k)} vs "
+          f"kernels='off' {float(loss_o)}")
+    (_, _), off_epoch = counted(off.epoch)
+    check(off_epoch == {}, f"a kernels='off' epoch launched {off_epoch}")
+    emit("gcn_grad_check", loss=float(loss_k), off_loss=float(loss_o),
+         loss_rel=loss_rel, grad_rel_l2=grad_rel, tolerance=GCN_REL,
+         launches=counts)
+    del off, g_k, g_o
+
+    # -- csrmv_op through Executor.run, with and without the kernels ------
+    adj_ = ht.Variable(name="adj", trainable=False)
+    x_ = ht.Variable(name="x", trainable=False)
+    z, zt = ht.csrmv_op(adj_, x_), ht.csrmv_op(adj_, x_, trans=True)
+    x = torch.randn((tr.adj.ncol,), generator=torch.Generator(
+        device=dev).manual_seed(6), device=dev)
+    mv = {}
+    for kernels in (None, "off"):
+        ex = ht.Executor([z, zt], ctx=ht.gpu(dev.index or 0),
+                         kernels=kernels)
+        mv[kernels] = counted(lambda: [r.handle for r in ex.run(
+            "default", feed_dict={adj_: tr.adj, x_: x})])
+    check(mv[None][1] == {"csr_spmv": 2} and mv["off"][1] == {},
+          f"csrmv_op launched {mv[None][1]}, under off {mv['off'][1]}")
+    mv_rel = rel_errs(("A x", "A^T x"), mv[None][0], mv["off"][0],
+                      TOL["csr_spmv"]["rel_l2"], "csrmv_op")
+    emit("csrmv_program", nodes=tr.adj.nrow, entries=tr.adj.csr.nnz,
+         rel_l2=mv_rel, launches=mv[None][1])
+
+    # -- the main path: GCN_EPOCHS epochs with the kernels ----------------
+    del tr
+    rows = list(gnn_main.run(dev, "gcn", "arxiv", epochs=GCN_EPOCHS,
+                             lr=GCN_LR, data=data))
+    epochs, summary = rows[:-1], rows[-1]
+    losses = [r["train_loss"] for r in epochs]
+    for r in epochs:
+        check(r["launches"] == GCN_LAUNCHES, f"epoch {r['epoch']} launched "
+              f"{r['launches']}, expected {GCN_LAUNCHES}")
+    check(np.isfinite(losses).all(), f"losses {losses}")
+    check(abs(losses[0] - float(loss_k)) / losses[0] < 1e-6,
+          "the first epoch's loss differs from the gradient check's")
+    check(losses[-1] < 0.5 * losses[0], f"GCN loss {losses[0]} -> "
+          f"{losses[-1]} did not halve in {GCN_EPOCHS} epochs")
+    emit("gcn_train", arch="gcn", graph="arxiv", lr=GCN_LR,
+         epochs=GCN_EPOCHS, **{k: summary[k] for k in (
+             "nodes", "entries", "features", "hidden", "classes",
+             "csr_build_ms", "epoch_ms", "launches_per_epoch")},
+         losses=losses, test_acc=[r["test_acc"] for r in epochs],
+         epoch_ms_each=[r["ms"] for r in epochs])
+    launches = {k: sum(r["launches"].get(k, 0) for r in epochs)
+                for k in GCN_LAUNCHES}
+    return spmm, spmv, {"csr_spmm": launches["csr_spmm"],
+                        "csr_spmv": mv[None][1]["csr_spmv"]}
+
+
 def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
     """BERT-base pretraining: the first step's gradients with the kernels
     against kernels="off", then TRAIN_STEPS steps of make_pretrain_step,
@@ -780,19 +931,22 @@ def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
     return losses, step_ms, val
 
 
-def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, launches):
+def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, launches):
     """The ``kernels`` JSON object: one entry per ported kernel."""
     replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
                 "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
                 "flash_attention_fwd": "hetu_tpu/kernels/flash_attention.py:111",
                 "fused_linear_nll_fwd": "hetu_tpu/kernels/fused_ce.py:223",
                 "flash_attention_bwd": "hetu_tpu/kernels/flash_attention.py:240",
-                "fused_linear_nll_bwd": "hetu_tpu/kernels/fused_ce.py:252"}
+                "fused_linear_nll_bwd": "hetu_tpu/kernels/fused_ce.py:252",
+                "csr_spmm": "hetu_tpu/kernels/csr_spmm.py:78",
+                "csr_spmv": "hetu_tpu/kernels/csr_spmm.py:142"}
     sources = {"fused_sgd": "fused_opt.cu", "fused_adam": "fused_opt.cu",
                "flash_attention_fwd": "flash_attention.cu",
                "fused_linear_nll_fwd": "fused_ce.cu",
                "flash_attention_bwd": "flash_attention.cu",
-               "fused_linear_nll_bwd": "fused_ce.cu"}
+               "fused_linear_nll_bwd": "fused_ce.cu",
+               "csr_spmm": "csr_spmm.cu", "csr_spmv": "csr_spmm.cu"}
     # the BERT kernels' entries are timed at the main path's shapes (their
     # first cases); max_abs_err is the largest over all their cases
     kern = dict(kern)
@@ -804,6 +958,11 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, launches):
         c["max_abs_err"] for c in attn_bwd))
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
         c["max_abs_err"] for c in ce_bwd))
+    # csr_spmm at layer 2's forward (F = 256); epoch_ms sums the three
+    # shapes an epoch launches
+    kern["csr_spmm"] = dict(spmm[1], max_abs_err=max(
+        c["max_abs_err"] for c in spmm), epoch_ms=sum(c["ms"] for c in spmm))
+    kern["csr_spmv"] = spmv[0]
     return {"kernels": [dict(
         name=k, route="cuda", source="hetu_tpu_torch/csrc/" + sources[k],
         replaces=replaces[k], launches=launches[k],
@@ -811,15 +970,17 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, launches):
         plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
         bound_by=v["bound"][1], library_ms=v["library_ms"],
         **{f: v[f] for f in ("launched_ms", "plain_launched_ms",
-                             "library_launched_ms", "shape") if f in v})
+                             "library_launched_ms", "shape", "epoch_ms")
+           if f in v})
         for k, v in kern.items()]}
 
 
 def main():
     import hetu_tpu_torch as ht
-    from hetu_tpu_torch.examples import bert_forward, bert_pretrain, cnn_main
-    from hetu_tpu_torch.kernels import (_build, flash_attention, fused_ce,
-                                        fused_opt, registry)
+    from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
+                                         cnn_main, gnn_main)
+    from hetu_tpu_torch.kernels import (_build, csr_spmm, flash_attention,
+                                        fused_ce, fused_opt, registry)
     from hetu_tpu_torch.models import bert, transformer
 
     # -- 1. device --------------------------------------------------------
@@ -915,8 +1076,13 @@ def main():
     launches.update(bert_train_phase(bert, transformer, bert_forward,
                                      bert_pretrain, registry, dev))
 
-    print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd,
-                                  launches)), flush=True)
+    # -- 8. the GCN on an arxiv-sized graph, and csrmv_op ------------------
+    spmm, spmv, csr_launches = gcn_phase(ht, gnn_main, csr_spmm, registry,
+                                         bert_forward.counted, dev, bw, f32)
+    launches.update(csr_launches)
+
+    print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm,
+                                  spmv, launches)), flush=True)
     print(json.dumps({"phase": "done",
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

@@ -19,7 +19,8 @@ from .graph.executor import Executor, HetuConfig, SubExecutor
 from .context import context, get_current_context, DeviceGroup
 from .dataloader import dataloader_op, Dataloader, DataloaderOp
 from .ndarray import (
-    cpu, gpu, tpu, array, empty, is_gpu_ctx, is_tpu_ctx, NDArray, DLContext,
+    cpu, gpu, tpu, array, empty, sparse_array, is_gpu_ctx, is_tpu_ctx,
+    NDArray, ND_Sparse_Array, DLContext,
 )
 from . import optimizer as optim
 from . import initializers as init

@@ -116,6 +116,14 @@ def kernel_group(name):
         return "fused_linear_nll_bwd"
     if "linear_nll" in name:
         return "fused_linear_nll_fwd"
+    if "spmm_kernel" in name:
+        return "csr_spmm"
+    if "spmv_kernel" in name:
+        return "csr_spmv"
+    if "sgd_kernel" in name:
+        return "fused_sgd"
+    if "adam_kernel" in name:
+        return "fused_adam"
     if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "dense_matmul"
     if "multi_tensor_apply" in name or "foreach" in name:

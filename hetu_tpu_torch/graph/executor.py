@@ -27,7 +27,7 @@ import torch
 
 from ..context import DeviceGroup
 from ..kernels import registry
-from ..ndarray import NDArray
+from ..ndarray import NDArray, ND_Sparse_Array
 from .node import Op, find_topo_sort
 
 
@@ -146,6 +146,7 @@ class SubExecutor:
                              if id(n) in self.resident_dl]
 
     def _leaf(self, node: Op, value):
+        # a fed ND_Sparse_Array is no tensor: it never requires grad
         if id(node) in self.grad_x_ids and isinstance(value, torch.Tensor) \
                 and value.is_floating_point():
             return value.detach().requires_grad_()
@@ -272,7 +273,10 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _prepare_input(self, value) -> torch.Tensor:
-        """Stage one host value onto the executor's device."""
+        """Stage one host value onto the executor's device. A sparse array
+        moves only from another device, once (``ND_Sparse_Array.to``)."""
+        if isinstance(value, ND_Sparse_Array):
+            return value.to(self.config.device)
         if isinstance(value, NDArray):
             value = value.handle
         if isinstance(value, torch.Tensor):

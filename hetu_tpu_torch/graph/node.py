@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..context import get_current_context, DeviceGroup
+from ..ndarray import ND_Sparse_Array
 
 _id_counter = itertools.count()
 
@@ -24,7 +25,10 @@ def _as_meta(x) -> torch.Tensor:
     """A shape tuple / array / tensor as a tensor on the ``meta`` device.
 
     Bare shape tuples keep the historical ``infer_shape`` contract of
-    assuming float32 inputs (reference Node.py:95 is shape-only)."""
+    assuming float32 inputs (reference Node.py:95 is shape-only). A sparse
+    array passes through: the sparse ops read only its shape."""
+    if isinstance(x, ND_Sparse_Array):
+        return x
     if isinstance(x, torch.Tensor):
         return torch.empty(tuple(x.shape), dtype=x.dtype, device="meta")
     if hasattr(x, "shape") and hasattr(x, "dtype"):

@@ -14,7 +14,11 @@ from .shape import (
     broadcastto_op, broadcast_shape_op,
     reduce_sum_op, reduce_mean_op, reducesumaxiszero_op, one_hot_op,
 )
-from .matmul import matmul_op, batch_matmul_op, matrix_dot_op
+from .matmul import (
+    matmul_op, batch_matmul_op, matrix_dot_op, SparseInputOp, csrmv_op,
+    csrmm_op,
+)
+from .gnn import distgcn_15d_op
 from .losses import (
     softmaxcrossentropy_op, softmaxcrossentropy_gradient_op,
     binarycrossentropy_op, binarycrossentropy_gradient_op,

@@ -5,11 +5,14 @@ kernel module registers itself with :mod:`.registry` on import.
 Ported so far: ``fused_sgd`` and ``fused_adam`` (:mod:`.fused_opt`), one
 launch per parameter; ``flash_attention_fwd`` and ``flash_attention_bwd``
 (:mod:`.flash_attention`); ``fused_linear_nll_fwd`` and
-``fused_linear_nll_bwd`` (:mod:`.fused_ce`).
+``fused_linear_nll_bwd`` (:mod:`.fused_ce`); ``csr_spmm`` and ``csr_spmv``
+(:mod:`.csr_spmm`).
 """
 from . import registry
 from . import fused_opt
 from . import flash_attention
 from . import fused_ce
+from . import csr_spmm
 
-__all__ = ["registry", "fused_opt", "flash_attention", "fused_ce"]
+__all__ = ["registry", "fused_opt", "flash_attention", "fused_ce",
+           "csr_spmm"]

@@ -155,7 +155,7 @@ def reset_launch_counts() -> None:
 
 def dispatch(name: str, *args, **kwargs):
     """Serve one kernel call through the mode/device/eligibility gate. The
-    device is that of the first argument (a tensor)."""
+    device is that of the first argument (a tensor, or a CSR matrix)."""
     spec = _REGISTRY.get(name)
     if spec is None:
         raise KeyError(f"no kernel {name!r} registered "

@@ -3,8 +3,10 @@
 A ``DLContext`` names a device (``cpu(0)``, ``gpu(i)``); ``torch_device()``
 resolves it to a ``torch.device``. ``gpu(i)`` is ``cuda:i``; ``tpu(i)`` is
 kept as an alias of ``gpu(i)`` so model code written against ``hetu_tpu``
-runs unchanged. An ``NDArray`` is a thin handle over a ``torch.Tensor``.
-Sparse arrays and ``IndexedSlices`` arrive with the CTR slice.
+runs unchanged. An ``NDArray`` is a thin handle over a ``torch.Tensor``;
+an ``ND_Sparse_Array`` is a COO matrix that also holds its CSR form and
+that of its transpose (``CSRMatrix``), built once on its device.
+``IndexedSlices`` arrive with the CTR slice.
 """
 from __future__ import annotations
 
@@ -125,3 +127,109 @@ def array(arr, ctx: DLContext | None = None, dtype=None) -> NDArray:
 def empty(shape, ctx: DLContext | None = None, dtype=np.float32) -> NDArray:
     """Allocate an array (zero-filled, as ``hetu_tpu.empty`` is)."""
     return array(np.zeros(tuple(shape), dtype), ctx=ctx, dtype=dtype)
+
+
+class CSRMatrix:
+    """One CSR form of a sparse matrix on one device: ``rowptr`` (nrow + 1)
+    int32, ``col`` (nnz) int32 and ``val`` (nnz) float32, the entries of
+    each row in the order of the COO input (a stable sort by row).
+    ``plan`` is a cache the plain spmm fills at its first call
+    (``kernels/csr_spmm.py``)."""
+
+    __slots__ = ("rowptr", "col", "val", "nrow", "ncol", "plan")
+
+    def __init__(self, rowptr, col, val, nrow: int, ncol: int):
+        self.rowptr, self.col, self.val = rowptr, col, val
+        self.nrow, self.ncol = int(nrow), int(ncol)
+        self.plan = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.val.device
+
+    @property
+    def nnz(self) -> int:
+        return int(self.val.shape[0])
+
+    @classmethod
+    def from_coo(cls, values, rows, cols, nrow: int, ncol: int):
+        """CSR of the COO (values, rows, cols), a stable sort by row, on
+        their device: duplicates stay separate entries in input order."""
+        order = torch.sort(rows, stable=True).indices
+        rowptr = torch.zeros(nrow + 1, dtype=torch.int32, device=rows.device)
+        rowptr[1:] = torch.cumsum(
+            torch.bincount(rows.long(), minlength=nrow), 0)
+        return cls(rowptr, cols[order].contiguous(),
+                   values[order].contiguous(), nrow, ncol)
+
+
+class ND_Sparse_Array:
+    """A sparse matrix fed to ``csrmv_op``/``csrmm_op`` (reference
+    ``hetu_tpu/ndarray.py:173``): the COO fields ``data`` (f32), ``row``
+    and ``col`` (int32), ``nrow`` and ``ncol``, as tensors on one device,
+    plus ``csr`` (a stable sort by row) and ``csr_t`` (the transpose's, a
+    stable sort by col), built once here. Duplicates, unsorted entries,
+    empty rows and nnz = 0 are legal. ``to(device)`` keeps one copy per
+    other device, so an adjacency fed every step is uploaded once."""
+
+    __slots__ = ("data", "row", "col", "nrow", "ncol", "ctx", "csr",
+                 "csr_t", "_copies")
+
+    def __init__(self, data, row, col, nrow, ncol, ctx=None):
+        self.data, self.row, self.col = data, row, col
+        self.nrow, self.ncol = int(nrow), int(ncol)
+        self.ctx = ctx
+        nnz = int(data.shape[0])
+        if not (row.shape == col.shape == (nnz,)):
+            raise ValueError(f"values, rows and cols must be 1-D of one "
+                             f"length, got {tuple(data.shape)}, "
+                             f"{tuple(row.shape)}, {tuple(col.shape)}")
+        if nnz and (int(row.min()) < 0 or int(row.max()) >= self.nrow
+                    or int(col.min()) < 0 or int(col.max()) >= self.ncol):
+            raise ValueError(f"an index lies outside the {self.nrow} x "
+                             f"{self.ncol} matrix")
+        self.csr = CSRMatrix.from_coo(data, row, col, self.nrow, self.ncol)
+        self.csr_t = CSRMatrix.from_coo(data, col, row, self.ncol, self.nrow)
+        self._copies = {}
+
+    @property
+    def shape(self):
+        return (self.nrow, self.ncol)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def to(self, device) -> "ND_Sparse_Array":
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.device:
+            return self
+        copy = self._copies.get(device)
+        if copy is None:
+            copy = self._copies[device] = ND_Sparse_Array(
+                self.data.to(device), self.row.to(device),
+                self.col.to(device), self.nrow, self.ncol)
+        return copy
+
+    def __repr__(self):
+        return (f"ND_Sparse_Array(shape={self.shape}, "
+                f"nnz={int(self.data.shape[0])}, device={self.device})")
+
+
+def sparse_array(values, indices, shape, ctx=None) -> ND_Sparse_Array:
+    """A sparse matrix from COO ``(values, (row, col))`` of ``shape``
+    (reference ``hetu_tpu/ndarray.py:190``), on ``ctx``: ``None`` is
+    ``cuda:0``, as for every entry point of the port."""
+    row, col = indices
+    dev = resolve_device(ctx)
+
+    def put(a, dtype):
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.detach().to(dev, dtype).contiguous()
+
+    return ND_Sparse_Array(put(values, torch.float32), put(row, torch.int32),
+                           put(col, torch.int32), int(shape[0]),
+                           int(shape[1]), ctx)

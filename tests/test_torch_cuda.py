@@ -381,3 +381,126 @@ def test_bert_train_step_with_kernels_off_launches_nothing(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert sum(registry.launch_counts().values()) == 0
+
+
+# -- csr_spmm and csr_spmv ---------------------------------------------------
+# Kernel and plain version sum each row in CSR order with one f32
+# accumulator, each product rounded before the add (-fmad=false), so they
+# agree bit for bit; the relative L2 error (at most 1e-6) is reported too.
+
+def _csr_case(case, dev):
+    """(ND_Sparse_Array on dev, F) of a named case."""
+    from hetu_tpu_torch.examples import gnn_model
+    rng = np.random.RandomState(0)
+    if case == "arxiv":
+        rows, cols, _, _ = gnn_model.arxiv_graph()
+        n = gnn_model.ARXIV["n_nodes"]
+        vals = gnn_model.normalize_adj(rows, cols, n)
+        return ht.sparse_array(vals, (rows, cols), (n, n), ctx=ht.gpu(0)), 256
+    nrow, k, nnz, f = {"random": (5000, 5000, 60000, 256),
+                       "nnz0": (300, 200, 0, 128),
+                       "one_row": (1, 700, 900, 200),
+                       "degree_5000": (100, 6000, 1000, 96)}[case]
+    rows, cols = rng.randint(0, nrow, nnz), rng.randint(0, k, nnz)
+    if case == "degree_5000":       # row 7 holds 5,000 entries
+        rows = np.concatenate([rows, np.full(5000, 7)])
+        cols = np.concatenate([cols, rng.randint(0, k, 5000)])
+    vals = rng.randn(rows.size).astype(np.float32)
+    return ht.sparse_array(vals, (rows, cols), (nrow, k), ctx=ht.gpu(0)), f
+
+
+def _bit_equal(got, want, what):
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    den = float(torch.linalg.vector_norm(want))
+    rel = float(torch.linalg.vector_norm(got - want)) / (den or 1.0)
+    print(f"{what}: max abs {err}, rel L2 {rel}")
+    assert rel <= 1e-6, (what, err, rel)
+    assert torch.equal(got, want), (what, err, rel)
+
+
+@pytest.mark.parametrize("case", ["random", "arxiv", "nnz0", "one_row",
+                                  "degree_5000"])
+def test_csr_kernels_match_plain(dev, case):
+    from hetu_tpu_torch.kernels import csr_spmm as cs
+    a, f = _csr_case(case, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for csr, what in ((a.csr, "A"), (a.csr_t, "A^T")):
+        b = torch.randn((csr.ncol, f), generator=g, device=dev)
+        x = torch.randn((csr.ncol,), generator=g, device=dev)
+        registry.reset_launch_counts()
+        z = registry.dispatch("csr_spmm", csr, b)
+        zv = registry.dispatch("csr_spmv", csr, x)
+        torch.cuda.synchronize()
+        assert registry.launch_counts()["csr_spmm"] == 1
+        assert registry.launch_counts()["csr_spmv"] == 1
+        assert z.shape == (csr.nrow, f) and zv.shape == (csr.nrow,)
+        _bit_equal(z, cs._spmm_plain(csr, b), f"{case} spmm {what}")
+        _bit_equal(zv, cs._spmv_plain(csr, x), f"{case} spmv {what}")
+
+
+def test_csr_gradient_on_the_card_matches_plain(dev):
+    """dB = Aᵀ·dZ through the autograd Function: the kernel over the
+    transposed CSR, bit-equal to kernels='off'."""
+    from hetu_tpu_torch.kernels import csr_spmm as cs
+    a, f = _csr_case("random", dev)
+    b = torch.randn((a.ncol, f), device=dev, requires_grad=True)
+    w = torch.randn((a.nrow, f), device=dev)
+    grads = {}
+    for mode in ("auto", "off"):
+        registry.reset_launch_counts()
+        with registry.active(mode):
+            (grads[mode],) = torch.autograd.grad((cs.matmat(a, b) * w).sum(),
+                                                 b)
+        torch.cuda.synchronize()
+        assert registry.launch_counts()["csr_spmm"] == (2 if mode == "auto"
+                                                        else 0)
+    _bit_equal(grads["auto"], grads["off"], "dB")
+
+
+def test_ineligible_csr_calls_raise(dev):
+    from hetu_tpu_torch.ndarray import CSRMatrix
+    a, f = _csr_case("random", dev)
+    b = torch.randn((a.ncol, f), device=dev)
+    c = a.csr
+    bad = [((c, b.double()), "float32"),
+           ((c, b.to(torch.bfloat16)), "float32"),
+           ((c, b.t().contiguous()), "shape"),
+           ((c, b[:, ::2]), "contiguous"),
+           ((c, b.cpu()), "cpu"),
+           ((c, b[1:]), "shape"),
+           ((CSRMatrix(c.rowptr.long(), c.col, c.val, c.nrow, c.ncol), b),
+            "int32"),
+           ((CSRMatrix(c.rowptr, c.col, c.val.double(), c.nrow, c.ncol), b),
+            "float32")]
+    for args, why in bad:
+        with pytest.raises(registry.KernelEligibilityError, match=why):
+            registry.dispatch("csr_spmm", *args)
+    with pytest.raises(registry.KernelEligibilityError, match="float32"):
+        registry.dispatch("csr_spmv", c, b[:, 0].contiguous().half())
+    assert registry.launch_counts()["csr_spmm"] == 0
+    assert registry.launch_counts()["csr_spmv"] == 0
+
+
+def test_gcn_on_the_card_matches_the_cpu(dev):
+    """run_single's GCN (256 nodes, hidden 32, 30 epochs) on the card: 3
+    csr_spmm and 4 fused_sgd launches an epoch, none under kernels='off';
+    losses within rel 1e-4 of the port on the CPU (f32 sums of the dense
+    products in another order, compounded over 30 updates). A sparse array
+    made on the CPU is moved to the card once."""
+    from hetu_tpu_torch.examples import gnn_main
+    losses = {}
+    for where in ("cpu", "cuda"):
+        rows = list(gnn_main.run(where, "gcn", "small", epochs=30))
+        losses[where] = np.array([r["train_loss"] for r in rows[:-1]])
+        if where == "cuda":
+            assert all(r["launches"] == {"csr_spmm": 3, "fused_sgd": 4}
+                       for r in rows[:-1])
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    rows = list(gnn_main.run(dev, "sage", "small", epochs=2, kernels="off"))
+    assert all(r["launches"] == {} for r in rows[:-1])
+    tr = gnn_main.Trainer(dev, "gcn", "small")
+    sp = ht.sparse_array(tr.adj.data.cpu(), (tr.adj.row.cpu(),
+                                             tr.adj.col.cpu()),
+                         tr.adj.shape, ctx=ht.cpu(0))
+    moved = tr.ex._prepare_input(sp)
+    assert moved.device == dev and tr.ex._prepare_input(sp) is moved

@@ -118,7 +118,7 @@ def test_adam_five_steps_match_jax(shape, case):
 # every kernel the port registers (hetu_tpu_torch.kernels imports them all)
 KERNELS = ["fused_sgd", "fused_adam", "flash_attention_fwd",
            "fused_linear_nll_fwd", "flash_attention_bwd",
-           "fused_linear_nll_bwd"]
+           "fused_linear_nll_bwd", "csr_spmm", "csr_spmv"]
 
 
 def test_cpu_calls_take_the_plain_version_and_launch_nothing():

@@ -178,11 +178,12 @@ def test_build_reports_nvcc_stderr(monkeypatch, tmp_path):
 
 
 def test_every_source_is_built_and_keyed_by_its_content():
-    assert _build.sources() == ["flash_attention", "fused_ce", "fused_opt"]
+    assert _build.sources() == ["csr_spmm", "flash_attention", "fused_ce",
+                                "fused_opt"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR)
         assert path == _build.library_path(name)
-    assert len({_build.library_path(n) for n in _build.sources()}) == 3
+    assert len({_build.library_path(n) for n in _build.sources()}) == 4
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
