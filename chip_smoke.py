@@ -13,7 +13,12 @@ steps with ``make_finetune_step``; then trains the full-width GCN of
 ``examples/gnn`` (``dense_model``, 128 -> 256 -> 40) for 30 epochs on a
 synthetic graph at ogbn-arxiv's size through ``Executor.run``, checks its
 first epoch's loss and gradients against ``kernels="off"``, and runs one
-``csrmv_op`` program. Each path is checked to have gone through its
+``csrmv_op`` program; then trains WDL-Criteo (``examples/ctr``) at its
+published widths and the full Criteo-Kaggle vocabulary (33,762,577 rows)
+for 30 steps through ``Executor.run``, checks its first step's loss and
+gradients against ``kernels="off"`` and that the rows no step looked up
+kept their bits, and runs one ``embedding_lookup_gradient_op`` program in
+dense and in rows mode. Each path is checked to have gone through its
 kernels.
 
     python3 chip_smoke.py
@@ -140,6 +145,30 @@ TOL.update({"csr_spmm": {"rel_l2": 1e-6}, "csr_spmv": {"rel_l2": 1e-6}})
 # and the dense ones are cuBLAS's on both sides, so rel L2 <= GCN_REL.
 GCN_EPOCHS, GCN_LR, GCN_REL = 30, 0.5, 1e-5
 GCN_LAUNCHES = {"csr_spmm": 3, "fused_sgd": 4}
+# The embedding gradient's segment sum (fused_embed_grad): at the main
+# path's shape, WDL-Criteo's step (the first batch's 128 x 26 ids over the
+# full vocabulary, d = 128), and at the other shapes the CTR models and the
+# edge cases give it: one id 3,328 times (one long run), d = 1 (DeepFM's
+# first-order table), d = 8 (Deep Crossing, WDL-Adult) and one row. Kernel
+# and plain version add each id's rows in sorted order into one f32
+# accumulator: bit-equal expected, each output held by its relative L2
+# error.
+EMBED_CASES = [("wdl", 128), ("single_id", 128), ("d1", 1), ("d8", 8),
+               ("n1", 128)]
+TOL["fused_embed_grad"] = {"rel_l2": 1e-6}
+# WDL-Criteo (examples/ctr/models/wdl_criteo.py) at its published widths
+# and the full Criteo-Kaggle vocabulary (its own default): 26 slots x 128
+# over 33,762,577 rows (17.3 GB of f32), MLP 13-256-256-256, joint layer
+# 3,584 -> 1, SGD lr 0.01, batch 128, 30 steps through Executor.run. Per
+# step 1 fused_embed_grad (the table's gradient) and 5 fused_sgd launches.
+# The first step's loss and gradients against kernels="off": the segment
+# sums are bit-equal and the dense products are cuBLAS's on both sides, so
+# rel L2 <= CTR_REL. Rows no step looks up (a seeded sample of CTR_SAMPLE
+# rows) must keep their initial bits; the rows looked up must move.
+CTR_VOCAB, CTR_DIM, CTR_BATCH, CTR_STEPS, CTR_REL = (33762577, 128, 128, 30,
+                                                      1e-6)
+CTR_LAUNCHES = {"fused_embed_grad": 1, "fused_sgd": 5}
+CTR_SAMPLE, CTR_PROFILE_STEPS, CTR_OFF_VOCAB = 10**6, 3, 100000
 
 # Peak rates for the bound, by card name: device-memory bytes/s, float32
 # (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
@@ -689,6 +718,254 @@ def gcn_phase(ht, gnn_main, cs, registry, counted, dev, bw, f32):
                         "csr_spmv": mv[None][1]["csr_spmv"]}
 
 
+def _embed_inputs(case, d, first_ids, gen, dev):
+    """(vec, idx) of one EMBED_CASES case; ids as float32, as fed."""
+    ids = first_ids.reshape(-1)
+    idx = {"wdl": first_ids, "n1": ids[:1],
+           "single_id": torch.full_like(ids, 4321.0)}.get(case, ids)
+    return torch.randn((idx.numel(), d), generator=gen, device=dev), idx
+
+
+def embed_grad_phase(eg, registry, first_ids, dev, bw, f32):
+    """fused_embed_grad against its plain version on the same sorted rows
+    at EMBED_CASES, each timed: replayed (``ms``), launched through the
+    registry one call at a time, and eagerly the plain version and
+    torch.segment_reduce (the library's sorted segment sum, a yardstick
+    only), all after the prep the path runs first."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = []
+    for case, d in EMBED_CASES:
+        vec, idx = _embed_inputs(case, d, first_ids, gen, dev)
+        sv, _, _, count, offs = eg._prep(vec, idx, CTR_VOCAB)
+        got, want = eg._segsum_kernel(sv, offs), eg._segsum_plain(sv, offs)
+        torch.cuda.synchronize()
+        rel = rel_l2(got, want)
+        check(rel <= TOL["fused_embed_grad"]["rel_l2"], f"fused_embed_grad "
+              f"{case} differs from the plain version by rel L2 {rel}")
+        n = sv.shape[0]
+        lengths = (offs[1:] - offs[:-1]).long()
+
+        def library():
+            return torch.segment_reduce(sv, "sum", lengths=lengths,
+                                        unsafe=True)
+
+        lib = library()
+        c = {"case": case, "shape": [n, d], "unique": int(count),
+             "longest": int(lengths.max()),
+             "bit_equal": bool(torch.equal(got, want)),
+             "max_abs_err": float((got - want).abs().max()), "rel_l2": rel,
+             "library_rel_l2": rel_l2(lib, want),
+             # read sv and the offsets once, write out once; at most one
+             # add per element of sv
+             "bound": bound(8 * n * d + 4 * (n + 1), n * d, bw, f32),
+             "ms": graph_ms(lambda: eg._segsum_kernel(sv, offs)),
+             "launched_ms": time_ms(lambda: registry.dispatch(
+                 "fused_embed_grad", sv, offs)),
+             "plain_ms": time_ms(lambda: eg._segsum_plain(sv, offs),
+                                 iters=10, warmup=2),
+             # eagerly: a capture that fails on a host sync inside the
+             # library would leave the stream unusable
+             "library_ms": time_ms(library, iters=50)}
+        cases.append(c)
+    return cases
+
+
+def _table_probe(g, rows):
+    """What is kept of a (vocab, d) table gradient, so that no second one
+    is held: its rows ``rows``, its norm, and whether it is zero in every
+    other row (``g`` is the caller's to spend: those rows are zeroed in
+    place, then its least and largest elements read, with no temporary of
+    its size)."""
+    kept = {"rows": g.index_select(0, rows),
+            "norm": float(torch.linalg.vector_norm(g))}
+    g.index_fill_(0, rows, 0.0)
+    kept["zero_elsewhere"] = float(g.min()) == 0.0 == float(g.max())
+    return kept
+
+
+def _peak_gb(dev):
+    """Peak device memory since the last reset, in GB; resets it."""
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+def ctr_grad_check(tr, counted, rows0):
+    """The first step's loss and five gradients with the kernels against
+    kernels="off", on one executor (one table on the card)."""
+    table = tr.tables[0].name
+    probes = {}
+    for kernels in (None, "off"):
+        (loss, grads), counts = counted(lambda: tr.gradients(kernels))
+        probes[kernels] = (loss, _table_probe(grads.pop(table), rows0),
+                           grads, counts)
+    (loss_k, t_k, g_k, counts), (loss_o, t_o, g_o, off_counts) = (
+        probes[None], probes["off"])
+    check(counts == {"fused_embed_grad": 1}, f"the gradient launched "
+          f"{counts}, expected 1 fused_embed_grad")
+    check(off_counts == {}, f"kernels='off' launched {off_counts}")
+    check(len(g_k) == 4, f"gradients {sorted(g_k)} besides the table")
+    check(t_k["zero_elsewhere"] and t_o["zero_elsewhere"],
+          "the table gradient is nonzero outside the looked-up rows")
+    names = sorted(g_k)
+    grad_rel = rel_errs(names + [table + " (looked-up rows)"],
+                        [g_k[k] for k in names] + [t_k["rows"]],
+                        [g_o[k] for k in names] + [t_o["rows"]], CTR_REL,
+                        "WDL-Criteo first-step gradient")
+    loss_rel = abs(float(loss_k) - float(loss_o)) / abs(float(loss_o))
+    norm_rel = abs(t_k["norm"] - t_o["norm"]) / t_o["norm"]
+    check(loss_rel <= CTR_REL and norm_rel <= CTR_REL,
+          f"first loss {float(loss_k)} vs kernels='off' {float(loss_o)}, "
+          f"table gradient norm {t_k['norm']} vs {t_o['norm']}")
+    emit("ctr_grad_check", loss=float(loss_k), off_loss=float(loss_o),
+         loss_rel=loss_rel, grad_rel_l2=grad_rel, table_norm=t_k["norm"],
+         table_norm_rel=norm_rel, tolerance=CTR_REL, launches=counts)
+    return float(loss_k)
+
+
+def ctr_program(ht, counted, first_ids, rows0, dev):
+    """The explicit embedding_lookup_gradient_op through Executor.run, in
+    dense and in rows mode, with the kernels and with kernels="off"."""
+    vec_ = ht.Variable(name="vec", trainable=False)
+    idx_ = ht.Variable(name="idx", trainable=False)
+    g = ht.embedding_lookup_gradient_op(vec_, idx_, (CTR_VOCAB, CTR_DIM))
+    vec = torch.randn(tuple(first_ids.shape) + (CTR_DIM,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(10))
+    out = {}
+    for mode in ("dense", "rows"):
+        (g.to_rows if mode == "rows" else g.to_dense)()
+        for kernels in (None, "off"):
+            ex = ht.Executor([g], ctx=ht.gpu(dev.index or 0),
+                             kernels=kernels)
+            res, counts = counted(lambda: ex.run(
+                feed_dict={vec_: vec, idx_: first_ids})[0])
+            if mode == "dense":
+                kept = _table_probe(res.handle, rows0)
+            else:
+                kept = {"rows": res.rows.handle, "grads": res.grads.handle}
+            del res
+            check(counts == ({} if kernels else {"fused_embed_grad": 1}),
+                  f"the {mode} program launched {counts} under "
+                  f"kernels={kernels}")
+            out[mode, kernels] = kept
+    dense, dense_off = out["dense", None], out["dense", "off"]
+    rows, rows_off = out["rows", None], out["rows", "off"]
+    k = rows0.numel()
+    check(dense["zero_elsewhere"] and dense_off["zero_elsewhere"]
+          and torch.equal(rows["rows"], rows_off["rows"])
+          and torch.equal(rows["rows"][:k].long(), rows0),
+          "the programs' rows differ")
+    rel = rel_errs(["dense", "rows"], [dense["rows"], rows["grads"]],
+                   [dense_off["rows"], rows_off["grads"]], CTR_REL,
+                   "embedding_lookup_gradient_op")
+    check(torch.equal(dense["rows"], rows["grads"][:k]),
+          "dense mode's looked-up rows differ from rows mode's sums")
+    emit("ctr_gradient_program", ids=int(first_ids.numel()), unique=k,
+         vocab=CTR_VOCAB, dim=CTR_DIM, rel_l2=rel,
+         launches={"fused_embed_grad": 1})
+
+
+def ctr_off_step(ctr_main, counted, dev):
+    """One training step with the kernels and one with kernels="off" from
+    the same initial values, at the reference's default vocabulary
+    (CTR_OFF_VOCAB rows: at the full one, the plain SGD's two table-sized
+    temporaries do not fit beside the table and its gradient). No launch
+    under off; every parameter the same after the step."""
+    data = ctr_main.load_data("wdl_criteo", CTR_OFF_VOCAB)
+    params, counts = {}, {}
+    for kernels in (None, "off"):
+        tr = ctr_main.Trainer(dev, "wdl_criteo", CTR_BATCH, CTR_OFF_VOCAB,
+                              data=data, kernels=kernels)
+        _, counts[kernels] = counted(tr.step)
+        params[kernels] = {p.name: tr.param(p) for p in tr.params}
+    check(counts[None] == CTR_LAUNCHES and counts["off"] == {},
+          f"a step launched {counts[None]}, under kernels='off' "
+          f"{counts['off']}")
+    names = sorted(params[None])
+    rel = rel_errs(names, [params[None][k] for k in names],
+                   [params["off"][k] for k in names], CTR_REL,
+                   "WDL-Criteo parameters after one step")
+    emit("ctr_off_step", vocab=CTR_OFF_VOCAB, param_rel_l2=rel,
+         launches=counts[None], off_launches=counts["off"])
+
+
+def ctr_phase(ht, ctr_main, eg, registry, counted, dev, bw, f32):
+    """WDL-Criteo at the full Criteo vocabulary: fused_embed_grad against
+    its plain version; the first step's gradients against kernels="off";
+    CTR_STEPS steps through Executor.run (ctr_main.run), the launch counts
+    zeroed just before each step and read just after; the rows no step
+    looked up unchanged; the step profiled; then the explicit gradient
+    op, and a whole step against kernels="off" at a cut vocabulary."""
+    import tempfile
+    data = ctr_main.load_data("wdl_criteo", CTR_VOCAB)
+    first_ids = torch.from_numpy(data[0][1][:CTR_BATCH]).to(dev)
+    rows0 = torch.unique(first_ids.long())
+    embed = embed_grad_phase(eg, registry, first_ids, dev, bw, f32)
+    emit("fused_embed_grad_checked", tolerance=TOL["fused_embed_grad"],
+         cases=embed)
+
+    torch.cuda.empty_cache()
+    _peak_gb(dev)
+    tr = ctr_main.Trainer(dev, "wdl_criteo", CTR_BATCH, CTR_VOCAB, data=data)
+    table = tr.param(tr.tables[0])
+    check(table.device == dev and tuple(table.shape) == (CTR_VOCAB, CTR_DIM),
+          f"the table is {tuple(table.shape)} on {table.device}")
+    peak_gb = {"init": _peak_gb(dev)}
+    first_loss = ctr_grad_check(tr, counted, rows0)
+    peak_gb["grad_check"] = _peak_gb(dev)
+
+    # rows that no training step looks up, and rows that some step does
+    looked = np.unique(data[0][1][:CTR_STEPS * CTR_BATCH].astype(np.int64))
+    sample = np.setdiff1d(np.random.RandomState(9).randint(
+        0, CTR_VOCAB, CTR_SAMPLE), looked)
+    sample, looked = (torch.from_numpy(a).to(dev) for a in (sample, looked))
+    before, before_looked = (table.index_select(0, sample),
+                             table.index_select(0, looked))
+    with tempfile.TemporaryDirectory() as prof:
+        it = ctr_main.run(dev, trainer=tr, steps=CTR_STEPS, profile_dir=prof,
+                          profile_iters=CTR_PROFILE_STEPS)
+        epoch = next(it)
+        peak_gb["train"] = _peak_gb(dev)
+        untouched = bool(torch.equal(table.index_select(0, sample), before))
+        moved = int((table.index_select(0, looked) != before_looked)
+                    .any(1).sum())
+        summary = next(it)              # the profile's steps train on
+    losses = epoch["losses"]
+    check(epoch["launches_per_step"] == CTR_LAUNCHES
+          and epoch["launches_same_every_step"],
+          f"a step launched {epoch['launches_per_step']}, expected "
+          f"{CTR_LAUNCHES} every step")
+    check(epoch["launches"] == {k: CTR_STEPS * v
+                                for k, v in CTR_LAUNCHES.items()},
+          f"{CTR_STEPS} steps launched {epoch['launches']}")
+    check(np.isfinite(losses).all(), f"losses {losses}")
+    check(abs(losses[0] - first_loss) / first_loss < 1e-6,
+          "the first step's loss differs from the gradient check's")
+    check(untouched, "a row no step looked up changed")
+    check(moved == looked.numel(), f"{looked.numel() - moved} looked-up rows "
+          "did not move")
+    prof = summary["profile"]
+    emit("ctr_train", model="wdl_criteo", vocab=CTR_VOCAB, dim=CTR_DIM,
+         batch=CTR_BATCH, ids_per_step=CTR_BATCH * 26, params=tr.n_params,
+         table_gb=table.numel() * 4 / 1e9, steps=CTR_STEPS,
+         init_s=tr.init_ms / 1e3, step_ms=summary["step_ms"],
+         samples_per_s=summary["samples_per_s"],
+         device_ms=prof["device_ms"],
+         device_busy_share=prof["device_busy_share"],
+         groups_us=prof["groups_us"], losses=losses,
+         train_acc=epoch["train_acc"], train_auc=epoch["train_auc"],
+         sampled_untouched_rows=int(sample.numel()), untouched=untouched,
+         looked_up_rows=int(looked.numel()), moved=moved,
+         launches_per_step=epoch["launches_per_step"])
+    del tr, table, before, before_looked
+    torch.cuda.empty_cache()
+    ctr_program(ht, counted, first_ids, rows0, dev)
+    peak_gb["program"] = _peak_gb(dev)
+    emit("ctr_memory", peak_gb=peak_gb)
+    ctr_off_step(ctr_main, counted, dev)
+    return embed, {"fused_embed_grad": epoch["launches"]["fused_embed_grad"]}
+
+
 def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
     """BERT-base pretraining: the first step's gradients with the kernels
     against kernels="off", then TRAIN_STEPS steps of make_pretrain_step,
@@ -931,7 +1208,8 @@ def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
     return losses, step_ms, val
 
 
-def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, launches):
+def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
+                 launches):
     """The ``kernels`` JSON object: one entry per ported kernel."""
     replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
                 "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
@@ -940,13 +1218,15 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, launches):
                 "flash_attention_bwd": "hetu_tpu/kernels/flash_attention.py:240",
                 "fused_linear_nll_bwd": "hetu_tpu/kernels/fused_ce.py:252",
                 "csr_spmm": "hetu_tpu/kernels/csr_spmm.py:78",
-                "csr_spmv": "hetu_tpu/kernels/csr_spmm.py:142"}
+                "csr_spmv": "hetu_tpu/kernels/csr_spmm.py:142",
+                "fused_embed_grad": "hetu_tpu/kernels/embed_grad.py:108"}
     sources = {"fused_sgd": "fused_opt.cu", "fused_adam": "fused_opt.cu",
                "flash_attention_fwd": "flash_attention.cu",
                "fused_linear_nll_fwd": "fused_ce.cu",
                "flash_attention_bwd": "flash_attention.cu",
                "fused_linear_nll_bwd": "fused_ce.cu",
-               "csr_spmm": "csr_spmm.cu", "csr_spmv": "csr_spmm.cu"}
+               "csr_spmm": "csr_spmm.cu", "csr_spmv": "csr_spmm.cu",
+               "fused_embed_grad": "embed_grad.cu"}
     # the BERT kernels' entries are timed at the main path's shapes (their
     # first cases); max_abs_err is the largest over all their cases
     kern = dict(kern)
@@ -963,6 +1243,9 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, launches):
     kern["csr_spmm"] = dict(spmm[1], max_abs_err=max(
         c["max_abs_err"] for c in spmm), epoch_ms=sum(c["ms"] for c in spmm))
     kern["csr_spmv"] = spmv[0]
+    # fused_embed_grad at WDL-Criteo's step, the first case
+    kern["fused_embed_grad"] = dict(embed[0], max_abs_err=max(
+        c["max_abs_err"] for c in embed))
     return {"kernels": [dict(
         name=k, route="cuda", source="hetu_tpu_torch/csrc/" + sources[k],
         replaces=replaces[k], launches=launches[k],
@@ -978,9 +1261,10 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, launches):
 def main():
     import hetu_tpu_torch as ht
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
-                                         cnn_main, gnn_main)
-    from hetu_tpu_torch.kernels import (_build, csr_spmm, flash_attention,
-                                        fused_ce, fused_opt, registry)
+                                         cnn_main, ctr_main, gnn_main)
+    from hetu_tpu_torch.kernels import (_build, csr_spmm, embed_grad,
+                                        flash_attention, fused_ce, fused_opt,
+                                        registry)
     from hetu_tpu_torch.models import bert, transformer
 
     # -- 1. device --------------------------------------------------------
@@ -1081,8 +1365,14 @@ def main():
                                          bert_forward.counted, dev, bw, f32)
     launches.update(csr_launches)
 
+    # -- 9. WDL-Criteo at the full Criteo vocabulary -----------------------
+    torch.cuda.empty_cache()
+    embed, ctr_launches = ctr_phase(ht, ctr_main, embed_grad, registry,
+                                    bert_forward.counted, dev, bw, f32)
+    launches.update(ctr_launches)
+
     print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm,
-                                  spmv, launches)), flush=True)
+                                  spmv, embed, launches)), flush=True)
     print(json.dumps({"phase": "done",
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

@@ -25,6 +25,7 @@ from .ndarray import (
 from . import optimizer as optim
 from . import initializers as init
 from . import data
+from . import metrics
 from . import interop
 from . import kernels
 from . import models

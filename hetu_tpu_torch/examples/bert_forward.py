@@ -120,6 +120,8 @@ def kernel_group(name):
         return "csr_spmm"
     if "spmv_kernel" in name:
         return "csr_spmv"
+    if "segsum_kernel" in name:
+        return "fused_embed_grad"
     if "sgd_kernel" in name:
         return "fused_sgd"
     if "adam_kernel" in name:

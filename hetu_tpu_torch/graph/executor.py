@@ -13,8 +13,11 @@ reference's, so checkpoints move between the two packages.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``ctx=None`` is ``cuda:0``, and without CUDA it raises rather than fall
-back. Lint, plan, telemetry, watch, pilot, elastic, PS and mesh arrive
-with later slices; so does capturing the step in a CUDA graph.
+back. Every parameter lives on the executor's device: a Variable's own
+``ctx`` (``ctx=ht.cpu(0)`` on the CTR models' tables) is a placement hint
+for the PS modes, which local mode ignores, as the JAX executor does.
+Lint, plan, telemetry, watch, pilot, elastic, PS and mesh arrive with
+later slices; so does capturing the step in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from ..context import DeviceGroup
 from ..kernels import registry
 from ..ndarray import NDArray, ND_Sparse_Array
 from .node import Op, find_topo_sort
+from .ops.embedding import IndexedRows
 
 
 def _resolve_device(ctx) -> torch.device:
@@ -214,12 +218,24 @@ class SubExecutor:
                     f"Node {node.name!r} is not among subexecutor "
                     f"{self.name!r}'s eval nodes; include it in the "
                     "eval_node_dict at Executor construction")
-            v = env[id(node)].detach()
-            if v.untyped_storage().data_ptr() in param_ptrs:
-                v = v.clone()
-            results.append(v.cpu().numpy() if convert_to_numpy_ret_vals
-                           else NDArray(v))
+            v = env[id(node)]
+            if isinstance(v, IndexedRows):   # a rows-mode gradient: the pair
+                results.append(IndexedRows(*(
+                    _output(t, param_ptrs, convert_to_numpy_ret_vals)
+                    for t in v)))
+            else:
+                results.append(_output(v, param_ptrs,
+                                       convert_to_numpy_ret_vals))
         return results
+
+
+def _output(v: torch.Tensor, param_ptrs: set, to_numpy: bool):
+    """One eval result, detached; a copy where it shares a parameter's
+    storage (training updates parameters in place)."""
+    v = v.detach()
+    if v.untyped_storage().data_ptr() in param_ptrs:
+        v = v.clone()
+    return v.cpu().numpy() if to_numpy else NDArray(v)
 
 
 def _tree_map(fn, tree):

@@ -19,6 +19,9 @@ from .matmul import (
     csrmm_op,
 )
 from .gnn import distgcn_15d_op
+from .embedding import (
+    IndexedRows, embedding_lookup_op, embedding_lookup_gradient_op,
+)
 from .losses import (
     softmaxcrossentropy_op, softmaxcrossentropy_gradient_op,
     binarycrossentropy_op, binarycrossentropy_gradient_op,

@@ -76,7 +76,10 @@ class NormalInit(BaseInit):
 
     def init(self, generator, dtype=np.float32):
         z = torch.randn(self.shape, generator=generator, dtype=torch.float32)
-        return (self.mean + self.stddev * z).to(_torch_dtype(dtype))
+        # mean + stddev * z in place: the same roundings in the same order,
+        # without two temporaries of the table's size (17.3 GB at full
+        # Criteo)
+        return z.mul_(self.stddev).add_(self.mean).to(_torch_dtype(dtype))
 
 
 class TruncatedNormalInit(BaseInit):
@@ -89,7 +92,7 @@ class TruncatedNormalInit(BaseInit):
         z = torch.empty(self.shape, dtype=torch.float32)
         torch.nn.init.trunc_normal_(z, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
-        return (self.mean + self.stddev * z).to(_torch_dtype(dtype))
+        return z.mul_(self.stddev).add_(self.mean).to(_torch_dtype(dtype))
 
 
 class GeneralizedXavierUniformInit(UniformInit):

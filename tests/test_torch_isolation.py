@@ -26,8 +26,10 @@ def _port_sources():
 
 
 def _forbidden(module: str) -> bool:
+    # the JAX package, and the example zoos it imports by their bare names
+    # (examples/ctr/models as ``models``)
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "hetu_tpu")
+    return top in ("jax", "jaxlib", "hetu_tpu", "models", "examples")
 
 
 def test_no_jax_or_hetu_tpu_import_in_the_port():
@@ -178,12 +180,12 @@ def test_build_reports_nvcc_stderr(monkeypatch, tmp_path):
 
 
 def test_every_source_is_built_and_keyed_by_its_content():
-    assert _build.sources() == ["csr_spmm", "flash_attention", "fused_ce",
-                                "fused_opt"]
+    assert _build.sources() == ["csr_spmm", "embed_grad", "flash_attention",
+                                "fused_ce", "fused_opt"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR)
         assert path == _build.library_path(name)
-    assert len({_build.library_path(n) for n in _build.sources()}) == 4
+    assert len({_build.library_path(n) for n in _build.sources()}) == 5
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
