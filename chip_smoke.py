@@ -3,7 +3,11 @@
 CUDA kernels from this checkout and holds each against its plain PyTorch
 version on the card; trains the full-width MLP of
 ``examples/cnn/models/MLP.py`` (3072-256-256-10, synthetic CIFAR10, batch
-128) through ``hetu_tpu_torch.Executor``; runs the BERT-base forward
+128) through ``hetu_tpu_torch.Executor``, then trains it data-parallel
+(``comm_mode="AllReduce"``) at world size 1 over NCCL with an explicit
+one-rank dp mesh, under ``comm_quant`` off, int8 and fp8, after holding
+the quantized all-reduce's quantize and dequantize kernels against their
+plain versions bit for bit; runs the BERT-base forward
 (``hetu_tpu_torch.models.bert``, random weights from a seed): the
 pretraining loss without gradient on a synthetic phase-1 batch (32 x 128)
 and the classifier on 8 requests; then trains BERT-base with
@@ -169,6 +173,36 @@ CTR_VOCAB, CTR_DIM, CTR_BATCH, CTR_STEPS, CTR_REL = (33762577, 128, 128, 30,
                                                       1e-6)
 CTR_LAUNCHES = {"fused_embed_grad": 1, "fused_sgd": 5}
 CTR_SAMPLE, CTR_PROFILE_STEPS, CTR_OFF_VOCAB = 10**6, 3, 100000
+# The quantized all-reduce's blockwise quantize (quant_blocks) and
+# dequantize (dequant_blocks), in int8 and fp8 at blocks 256 (the default
+# and the main path's), 128, 64 and 7, at: the MLP's three quantized
+# gradients (fc1-fc3 weights, as world size 1 gives them to the kernels),
+# an edge vector (a ragged tail, an all-zero block, a NaN, an infinity,
+# exact .5 ties, -0.0) and a BERT-base-sized vector of 110 M elements,
+# past 65,535 blocks. The payload crosses the wire: kernel and plain
+# version must agree bit for bit (q and the scales by their bits, NaN by
+# position). Timed at the main path's shapes, the three launches of one
+# step.
+QUANT_MODES, QUANT_BLOCKS = ("int8", "fp8"), (256, 128, 64, 7)
+QUANT_SIZES = [("fc1", 786432), ("fc2", 65536), ("fc3", 2560),
+               ("edge", 6 * 7 * 256 + 1001), ("bert_base", 110_000_000)]
+TOL.update({"quant_blocks": "bit-equal", "dequant_blocks": "bit-equal"})
+# Data-parallel training of the same MLP (comm_mode="AllReduce") at world
+# size 1 over NCCL, with an explicit one-rank dp mesh so the quantized
+# all-reduce runs (the JAX package's rule: an explicit mesh of any size is
+# taken as given), under comm_quant off, int8 and fp8, SGD and Adam, the
+# steps of the MLP phase. Per step 6 fused_sgd/fused_adam launches and,
+# quantized, 3 quant_blocks and 3 dequant_blocks (the fc1-fc3 weights;
+# the biases are below min_size). The first DP_CHECK_STEPS quantized steps
+# against kernels="off": losses and parameters bit-equal under SGD, within
+# TOL["fused_adam"] under Adam. DP off against local mode: bit-equal. The
+# quantized loss curves against off: |l_q - l_off| <= DP_CURVE_TOL[mode] *
+# max(1, l_off) over the first DP_CURVE_STEPS steps (one quantization step
+# is scale/2 per element: 0.4 % of a block's largest gradient in int8,
+# 6 % in fp8, partly carried by the error feedback).
+DP_MODES, DP_CHECK_STEPS, DP_CURVE_STEPS = ("off", "int8", "fp8"), 5, 20
+DP_CURVE_TOL = {"int8": 2e-2, "fp8": 1e-1}
+DP_LAUNCHES = {"quant_blocks": 3, "dequant_blocks": 3}
 
 # Peak rates for the bound, by card name: device-memory bytes/s, float32
 # (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
@@ -1176,13 +1210,195 @@ def bert_phase(bert, bert_forward, registry, dev):
     return pre_counts
 
 
+def same_bits(a, b):
+    """Bit-equal tensors, NaN (float32 only) compared by position."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                               b[~nb].view(torch.int32))
+
+
+def _quant_input(name, n, gen, dev):
+    x = torch.randn(n, generator=gen, device=dev) * 3
+    if name == "edge":
+        x[7 * 256:8 * 256 + 64] = 0.0
+        x[100] = float("nan")
+        x[3 * 7 * 256 + 5] = float("inf")
+        x[3 * 7 * 256 + 9] = -0.0
+        t0 = 4 * 7 * 256        # x / scale = x * 8 in this 7 * 64 block:
+        x[t0] = 127.0 / 8       # int8's ties at k + 0.5
+        x[t0 + 1:t0 + 7 * 64] = (torch.arange(7 * 64 - 1, device=dev) % 9
+                                 - 3.5) / 8
+    return x
+
+
+def quant_phase(qc, registry, dev, bw, f32):
+    """quant_blocks and dequant_blocks against their plain versions at
+    every QUANT_SIZES x QUANT_MODES x QUANT_BLOCKS case, bit for bit; timed
+    at the main path's shapes (one step's three launches at block 256)."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    inputs = {name: _quant_input(name, n, gen, dev) for name, n in QUANT_SIZES}
+    cases = []
+    for mode in QUANT_MODES:
+        for block in QUANT_BLOCKS:
+            for name, n in QUANT_SIZES:
+                x = inputs[name]
+                qk, sk, nk = qc._quant_kernel(x, block=block, mode=mode)
+                qp, sp, npl = qc._quant_plain(x, block=block, mode=mode)
+                dk = qc._dequant_kernel(qk, sk, n=nk, block=block)
+                dp = qc._dequant_plain(qp, sp, n=npl, block=block)
+                torch.cuda.synchronize()
+                ok = {"q": same_bits(qk, qp), "scales": same_bits(sk, sp),
+                      "dequantized": same_bits(dk, dp)}
+                check(all(ok.values()) and nk == npl == n,
+                      f"quant_comm {mode} block {block} {name}: kernel and "
+                      f"plain version differ: {ok}")
+                cases.append({"mode": mode, "block": block, "shape": name,
+                              "n": n, "blocks": sk.numel(),
+                              "nan_scales": int(torch.isnan(sk).sum())})
+                del qk, sk, qp, sp, dk, dp
+    mlp = [inputs[name] for name, _ in QUANT_SIZES[:3]]
+    n = sum(x.numel() for x in mlp)
+    nb = sum(-(-x.numel() // 256) for x in mlp)
+    out = {}
+    for mode in QUANT_MODES:
+        qs = [qc._quant_kernel(x, block=256, mode=mode) for x in mlp]
+        timed = {
+            # read x once, write q and the scales; abs, max, divide, round
+            "quant_blocks": (
+                bound(5 * n + 4 * nb, 4 * n, bw, f32),
+                lambda: [qc._quant_kernel(x, block=256, mode=mode)
+                         for x in mlp],
+                lambda: [qc._quant_plain(x, block=256, mode=mode)
+                         for x in mlp],
+                lambda: [registry.dispatch("quant_blocks", x, block=256,
+                                           mode=mode) for x in mlp]),
+            # read q and the scales, write n floats; one multiply each
+            "dequant_blocks": (
+                bound(n + 4 * nb + 4 * n, n, bw, f32),
+                lambda: [qc._dequant_kernel(q, s, n=k, block=256)
+                         for q, s, k in qs],
+                lambda: [qc._dequant_plain(q, s, n=k, block=256)
+                         for q, s, k in qs],
+                lambda: [registry.dispatch("dequant_blocks", q, s, n=k,
+                                           block=256) for q, s, k in qs])}
+        for k, (bnd, kern, plain, launched) in timed.items():
+            out.setdefault(k, {})[mode] = {
+                "bound": bnd, "ms": graph_ms(kern),
+                "launched_ms": time_ms(launched),
+                "plain_ms": graph_ms(plain),
+                # no single PyTorch call quantizes blockwise
+                "library_ms": None}
+    big = inputs["bert_base"]
+    nbig, nbbig = big.numel(), -(-big.numel() // 256)
+    bert = {"quant_ms": graph_ms(lambda: qc._quant_kernel(
+                big, block=256, mode="int8"), iters=20),
+            "quant_bound_ms": bound(5 * nbig + 4 * nbbig, 4 * nbig, bw,
+                                    f32)[0]}
+    qb, sb, _ = qc._quant_kernel(big, block=256, mode="int8")
+    bert.update(dequant_ms=graph_ms(lambda: qc._dequant_kernel(
+        qb, sb, n=nbig, block=256), iters=20),
+        dequant_bound_ms=bound(5 * nbig + 4 * nbbig, nbig, bw, f32)[0])
+    return cases, out, bert
+
+
+def dp_phase(ht, cnn_main, multihost, registry, data, dev, local):
+    """The MLP data-parallel at world size 1 over NCCL with an explicit dp
+    mesh, under DP_MODES, SGD and Adam; returns the launches of the runs
+    with the kernels. ``local``: {opt: (losses, step ms)} of local mode."""
+    import shutil
+    import tempfile
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    launches = dict.fromkeys(("quant_blocks", "dequant_blocks"), 0)
+    try:
+        multihost.initialize("file://" + os.path.join(store, "rendezvous"),
+                             world_size=1, rank=0, device=dev)
+        mesh = multihost.global_mesh(1)
+        for opt, lr, steps, loss_max in (
+                ("sgd", SGD_LR, SGD_STEPS, SGD_LOSS_MAX),
+                ("adam", ADAM_LR, ADAM_STEPS, ADAM_LOSS_MAX)):
+            kname = "fused_sgd" if opt == "sgd" else "fused_adam"
+            curves, rows = {}, {}
+            for mode in DP_MODES:
+                registry.reset_launch_counts()
+                losses, step_ms, _, ex = train(
+                    ht, cnn_main, data, opt, lr, steps, comm_mode="AllReduce",
+                    mesh=mesh, comm_quant=mode)
+                counts = registry.launch_counts()
+                want = {kname: 6 * steps}
+                if mode != "off":
+                    want.update({k: v * steps for k, v in DP_LAUNCHES.items()})
+                    for k in launches:
+                        launches[k] += counts[k]
+                check({k: v for k, v in counts.items() if v} == want,
+                      f"dp {opt} {mode}: launches {counts}, expected {want}")
+                check(np.all(np.isfinite(losses)), f"dp {opt} {mode}: "
+                      "non-finite loss")
+                last = float(np.mean(losses[-10:]))
+                check(last < loss_max, f"dp {opt} {mode}: mean loss of the "
+                      f"last 10 steps {last} is not below {loss_max}")
+                curves[mode] = losses
+                rows[mode] = dict(step_ms=step_ms, first_loss=float(losses[0]),
+                                  mean_last10=last,
+                                  launches={k: v for k, v in counts.items()
+                                            if v},
+                                  report=ex.comm_quant_report)
+            off = curves["off"]
+            # DP off at world size 1 is local mode, bit for bit
+            check(np.array_equal(off, local[opt][0]), f"dp {opt} off: the "
+                  "losses differ from local mode's")
+            for mode in DP_MODES[1:]:
+                k = DP_CURVE_STEPS
+                dev_ = np.abs(curves[mode][:k] - off[:k]) / np.maximum(
+                    1.0, np.abs(off[:k]))
+                rows[mode]["curve_max_rel_vs_off"] = float(dev_.max())
+                check(dev_.max() <= DP_CURVE_TOL[mode], f"dp {opt} {mode}: "
+                      f"the loss is {dev_.max()} from off's, above "
+                      f"{DP_CURVE_TOL[mode]}")
+                # the first steps against kernels="off"
+                got = train(ht, cnn_main, data, opt, lr, DP_CHECK_STEPS,
+                            comm_mode="AllReduce", mesh=mesh, comm_quant=mode)
+                n_before = registry.launch_counts()
+                want = train(ht, cnn_main, data, opt, lr, DP_CHECK_STEPS,
+                             kernels="off", comm_mode="AllReduce", mesh=mesh,
+                             comm_quant=mode)
+                check(registry.launch_counts() == n_before,
+                      "kernels='off' launched a kernel")
+                pg = [got[3].state["params"][id(n)] for n in got[3].param_nodes]
+                pw = [want[3].state["params"][id(n)]
+                      for n in want[3].param_nodes]
+                if opt == "sgd":
+                    check(np.array_equal(got[0], want[0])
+                          and all(torch.equal(a, b) for a, b in zip(pg, pw)),
+                          f"dp sgd {mode}: the first {DP_CHECK_STEPS} steps "
+                          "differ from kernels='off'")
+                else:
+                    np.testing.assert_allclose(got[0], want[0],
+                                               **TOL["fused_adam"])
+                    for a, b in zip(pg, pw):
+                        torch.testing.assert_close(a, b, **TOL["fused_adam"])
+                rows[mode]["vs_off_max_abs"] = max(
+                    float((a - b).abs().max()) for a, b in zip(pg, pw))
+            emit("dp_train", opt=opt, lr=lr, steps=steps, batch=BATCH,
+                 world_size=1, backend="nccl", local_step_ms=local[opt][1],
+                 **rows)
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
 def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
-          validate=False):
-    """One fresh executor on the MLP: (losses, step ms, validation)."""
+          validate=False, **ex_kw):
+    """One fresh executor on the MLP (``ex_kw``: more Executor options):
+    (losses, step ms, validation, the executor)."""
     loss, y, y_, train_op = cnn_main.build("mlp", "CIFAR10", BATCH, opt, lr,
                                            data=data)
     ex = ht.Executor({"train": [loss, y, train_op], "validate": [loss, y, y_]},
-                     ctx=ctx, seed=0, kernels=kernels)
+                     ctx=ctx, seed=0, kernels=kernels, **ex_kw)
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "the executor must keep f32 matmuls in full f32")
     losses = []
@@ -1205,11 +1421,11 @@ def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
             vl.append(float(l))
             correct.extend(np.argmax(yp, 1) == np.argmax(yt, 1))
         val = {"loss": float(np.mean(vl)), "acc": float(np.mean(correct))}
-    return losses, step_ms, val
+    return losses, step_ms, val, ex
 
 
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
-                 launches):
+                 quant, launches):
     """The ``kernels`` JSON object: one entry per ported kernel."""
     replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
                 "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
@@ -1219,14 +1435,18 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                 "fused_linear_nll_bwd": "hetu_tpu/kernels/fused_ce.py:252",
                 "csr_spmm": "hetu_tpu/kernels/csr_spmm.py:78",
                 "csr_spmv": "hetu_tpu/kernels/csr_spmm.py:142",
-                "fused_embed_grad": "hetu_tpu/kernels/embed_grad.py:108"}
+                "fused_embed_grad": "hetu_tpu/kernels/embed_grad.py:108",
+                "quant_blocks": "hetu_tpu/kernels/quant_comm.py:73",
+                "dequant_blocks": "hetu_tpu/kernels/quant_comm.py:116"}
     sources = {"fused_sgd": "fused_opt.cu", "fused_adam": "fused_opt.cu",
                "flash_attention_fwd": "flash_attention.cu",
                "fused_linear_nll_fwd": "fused_ce.cu",
                "flash_attention_bwd": "flash_attention.cu",
                "fused_linear_nll_bwd": "fused_ce.cu",
                "csr_spmm": "csr_spmm.cu", "csr_spmv": "csr_spmm.cu",
-               "fused_embed_grad": "embed_grad.cu"}
+               "fused_embed_grad": "embed_grad.cu",
+               "quant_blocks": "quant_comm.cu",
+               "dequant_blocks": "quant_comm.cu"}
     # the BERT kernels' entries are timed at the main path's shapes (their
     # first cases); max_abs_err is the largest over all their cases
     kern = dict(kern)
@@ -1246,6 +1466,10 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
     # fused_embed_grad at WDL-Criteo's step, the first case
     kern["fused_embed_grad"] = dict(embed[0], max_abs_err=max(
         c["max_abs_err"] for c in embed))
+    # the quantized all-reduce's legs at one int8 step of the DP MLP (fp8
+    # in the quant_comm_checked line); bit-equal at every case, so 0
+    for k in ("quant_blocks", "dequant_blocks"):
+        kern[k] = dict(quant[k]["int8"], max_abs_err=0.0)
     return {"kernels": [dict(
         name=k, route="cuda", source="hetu_tpu_torch/csrc/" + sources[k],
         replaces=replaces[k], launches=launches[k],
@@ -1264,7 +1488,8 @@ def main():
                                          cnn_main, ctr_main, gnn_main)
     from hetu_tpu_torch.kernels import (_build, csr_spmm, embed_grad,
                                         flash_attention, fused_ce, fused_opt,
-                                        registry)
+                                        quant_comm, registry)
+    from hetu_tpu_torch.parallel import multihost
     from hetu_tpu_torch.models import bert, transformer
 
     # -- 1. device --------------------------------------------------------
@@ -1310,15 +1535,16 @@ def main():
     # -- 4. train the full-width MLP through the executor ------------------
     data = cnn_main.load_dataset("CIFAR10")
     n_params = sum(int(np.prod(s)) for s in MLP_SHAPES)
-    launches = {}
+    launches, local = {}, {}
     for opt, lr, steps, loss_max in (("sgd", SGD_LR, SGD_STEPS, SGD_LOSS_MAX),
                                      ("adam", ADAM_LR, ADAM_STEPS, ADAM_LOSS_MAX)):
         kname = "fused_sgd" if opt == "sgd" else "fused_adam"
         registry.reset_launch_counts()
-        losses, step_ms, val = train(ht, cnn_main, data, opt, lr, steps,
+        losses, step_ms, val, _ = train(ht, cnn_main, data, opt, lr, steps,
                                      validate=True)
         counts = registry.launch_counts()
         launches[kname] = counts[kname]
+        local[opt] = (losses, step_ms)
         check(np.all(np.isfinite(losses)), f"{opt}: non-finite loss")
         last = float(np.mean(losses[-10:]))
         check(last < loss_max, f"{opt}: mean loss of the last 10 steps "
@@ -1328,7 +1554,7 @@ def main():
               f"steps, expected {6 * steps}")
         check(sum(counts.values()) == counts[kname],
               f"{opt}: unexpected launches {counts}")
-        off, _, _ = train(ht, cnn_main, data, opt, lr, 5, kernels="off")
+        off, _, _, _ = train(ht, cnn_main, data, opt, lr, 5, kernels="off")
         check(registry.launch_counts()[kname] == counts[kname],
               "kernels='off' launched a kernel")
         np.testing.assert_allclose(losses[:5], off, rtol=1e-5)
@@ -1343,12 +1569,24 @@ def main():
     small = (data[0][:1024, :64], data[1][:1024], data[2][:256, :64],
              data[3][:256], 64, 10)
     for opt, lr in (("sgd", SGD_LR), ("adam", ADAM_LR)):
-        gpu_l, _, _ = train(ht, cnn_main, small, opt, lr, 8)
-        cpu_l, _, _ = train(ht, cnn_main, small, opt, lr, 8, ctx=ht.cpu(0))
+        gpu_l, _, _, _ = train(ht, cnn_main, small, opt, lr, 8)
+        cpu_l, _, _, _ = train(ht, cnn_main, small, opt, lr, 8,
+                               ctx=ht.cpu(0))
         # matmul sums run in another order on the card than on the CPU
         np.testing.assert_allclose(gpu_l, cpu_l, rtol=1e-4)
         emit("parity_cpu", opt=opt, steps=8,
              max_rel=float(np.max(np.abs(gpu_l - cpu_l) / np.abs(cpu_l))))
+
+    # -- 5b. the quantized all-reduce's kernels; data-parallel training ----
+    quant_cases, quant, quant_bert = quant_phase(quant_comm, registry, dev,
+                                                 bw, f32)
+    emit("quant_comm_checked", tolerance="bit-equal",
+         cases=len(quant_cases), modes=list(QUANT_MODES),
+         blocks=list(QUANT_BLOCKS), shapes=dict(QUANT_SIZES),
+         nan_scale_cases=sum(c["nan_scales"] > 0 for c in quant_cases),
+         timings=quant, bert_base=quant_bert)
+    launches.update(dp_phase(ht, cnn_main, multihost, registry, data, dev,
+                             local))
 
     # -- 6. the BERT-base forward ------------------------------------------
     forward_launches = bert_phase(bert, bert_forward, registry, dev)
@@ -1372,7 +1610,7 @@ def main():
     launches.update(ctr_launches)
 
     print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm,
-                                  spmv, embed, launches)), flush=True)
+                                  spmv, embed, quant, launches)), flush=True)
     print(json.dumps({"phase": "done",
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

@@ -15,7 +15,10 @@ This package imports torch, never jax, and nothing of ``hetu_tpu``.
 from .graph.ops import *  # noqa: F401,F403 — the ported op registry
 from .graph.node import Variable, placeholder_op, Op, find_topo_sort
 from .graph.gradients import gradients
-from .graph.executor import Executor, HetuConfig, SubExecutor
+from .graph.executor import (
+    Executor, HetuConfig, SubExecutor,
+    wrapped_mpi_nccl_init, mpi_nccl_init, mpi_nccl_finish, new_group_comm,
+)
 from .context import context, get_current_context, DeviceGroup
 from .dataloader import dataloader_op, Dataloader, DataloaderOp
 from .ndarray import (
@@ -27,6 +30,8 @@ from . import initializers as init
 from . import data
 from . import metrics
 from . import interop
+from . import comm_quant
+from . import parallel
 from . import kernels
 from . import models
 

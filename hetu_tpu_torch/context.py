@@ -1,9 +1,10 @@
 """Device placement language: DeviceGroup + ``with ht.context(...)`` scoping
 (counterpart of ``hetu_tpu/context.py``).
 
-This slice runs on one device: a group resolves to its first context. The
-placement of model-parallel tuples onto several cards arrives with the
-data- and tensor-parallel slices.
+The port runs one process per device: a group of several devices is the
+data-parallel ranks' devices, one per rank (the executor takes its own).
+The placement of model-parallel tuples onto several cards arrives with
+the tensor-parallel slice.
 """
 from __future__ import annotations
 

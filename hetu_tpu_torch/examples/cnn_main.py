@@ -4,6 +4,16 @@ for the models this slice supports: ``mlp`` and ``logreg``.
 Usage:
     python -m hetu_tpu_torch.examples.cnn_main --model mlp --dataset CIFAR10
     python -m hetu_tpu_torch.examples.cnn_main --model logreg --dataset MNIST --gpu -1
+    python -m hetu_tpu_torch.runner -w 2 \
+        python -m hetu_tpu_torch.examples.cnn_main --model mlp \
+        --dataset CIFAR10 --comm-mode AllReduce --gpu -1
+
+``--comm-mode AllReduce`` trains data-parallel, one process per device,
+under ``hetu_tpu_torch.runner`` (gloo on the CPU with ``--gpu -1``, NCCL
+on the cards otherwise, one card per worker); ``HETU_COMM_QUANT`` (int8,
+fp8) quantizes the gradient all-reduce of the large parameters, as in the
+JAX example. Only rank 0 logs; the loss and accuracy it logs are the
+global batch's.
 """
 import argparse
 import logging
@@ -103,20 +113,37 @@ def main(argv=None):
                         help='device id; -1 means cpu')
     parser.add_argument('--validate', action='store_true')
     parser.add_argument('--timing', action='store_true')
+    parser.add_argument('--comm-mode', default=None)
+    parser.add_argument('--steps', type=int, default=None,
+                        help='training steps per epoch (default: every batch)')
+    parser.add_argument('--seed', type=int, default=None,
+                        help='parameter seed (default: a random one)')
     args = parser.parse_args(argv)
 
-    executor_ctx = ht.cpu(0) if args.gpu == -1 else ht.gpu(args.gpu)
-    logger.info("Training %s on hetu_tpu_torch (ctx=%s)", args.model, executor_ctx)
+    device_id = 0
+    if args.comm_mode in ('AllReduce', 'Hybrid'):
+        comm, device_id = ht.mpi_nccl_init(init_nccl=args.gpu >= 0)
+        executor_ctx = ht.gpu(comm.local_rank()) if args.gpu >= 0 else ht.cpu(0)
+    else:
+        executor_ctx = ht.cpu(0) if args.gpu == -1 else ht.gpu(args.gpu)
+    log = logger.info if device_id == 0 else (lambda *a: None)
+    log("Training %s on hetu_tpu_torch (ctx=%s)", args.model, executor_ctx)
     loss, y, y_, train_op = build(args.model, args.dataset, args.batch_size,
                                   args.opt, args.learning_rate)
     eval_nodes = {'train': [loss, y, y_, train_op], 'validate': [loss, y, y_]}
-    executor = ht.Executor(eval_nodes, ctx=executor_ctx)
+    executor = ht.Executor(eval_nodes, ctx=executor_ctx, seed=args.seed,
+                           comm_mode=args.comm_mode)
+    if executor.comm_quant_report is not None:
+        log("comm_quant %s: %s", executor.config.comm_quant_policy,
+            executor.comm_quant_report)
     n_train_batches = executor.get_batch_num('train')
+    if args.steps is not None:
+        n_train_batches = min(n_train_batches, args.steps)
     n_valid_batches = executor.get_batch_num('validate')
 
     running_time = 0
     for i in range(args.num_epochs + 1):
-        logger.info("Epoch %d", i)
+        log("Epoch %d", i)
         loss_all = 0
         correct_predictions = []
         start = time()
@@ -127,11 +154,11 @@ def main(argv=None):
             correct_predictions.extend(
                 np.equal(np.argmax(y_val.asnumpy(), 1),
                          np.argmax(predict_y.asnumpy(), 1)).astype(float))
-        logger.info("Train loss = %f", loss_all / n_train_batches)
-        logger.info("Train accuracy = %f", np.mean(correct_predictions))
+        log("Train loss = %f", loss_all / n_train_batches)
+        log("Train accuracy = %f", np.mean(correct_predictions))
         if args.timing:
             during_time = time() - start
-            logger.info("Running time of current epoch = %fs", during_time)
+            log("Running time of current epoch = %fs", during_time)
             if i != 0:
                 running_time += during_time
         if args.validate:
@@ -144,10 +171,12 @@ def main(argv=None):
                 correct_predictions.extend(
                     np.equal(np.argmax(y_val, 1),
                              np.argmax(valid_y_predicted, 1)).astype(float))
-            logger.info("Validation loss = %f", val_loss_all / n_valid_batches)
-            logger.info("Validation accuracy = %f", np.mean(correct_predictions))
-    logger.info("Running time of total %d epoch = %fs", args.num_epochs,
-                running_time)
+            log("Validation loss = %f", val_loss_all / n_valid_batches)
+            log("Validation accuracy = %f", np.mean(correct_predictions))
+    log("Running time of total %d epoch = %fs", args.num_epochs,
+        running_time)
+    if args.comm_mode in ('AllReduce', 'Hybrid'):
+        ht.mpi_nccl_finish(comm)
 
 
 if __name__ == "__main__":

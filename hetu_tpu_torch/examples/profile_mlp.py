@@ -4,6 +4,7 @@ CIFAR10, batch 128, SGD at lr 0.1 and Adam at lr 1e-3), profiled with
 ``torch.profiler`` over a steady window.
 
     python -m hetu_tpu_torch.examples.profile_mlp [--steps 50] [--out DIR]
+        [--dp off int8 fp8]
 
 Prints one JSON line per optimizer: the step time without the profiler,
 the device time per step summed over kernels, the device's busy share
@@ -11,11 +12,16 @@ the device time per step summed over kernels, the device's busy share
 (kernel events only; the aten rows that launched them are not counted
 twice). The
 full ``key_averages`` tables go to ``DIR/profile_mlp_<opt>.txt``. Needs a
-CUDA card.
+CUDA card. ``--dp MODE ...`` profiles the data-parallel step as well
+(``comm_mode="AllReduce"``), once per ``comm_quant`` mode, at world size 1
+over NCCL with an explicit one-rank dp mesh, so that the quantized
+all-reduce runs on one card.
 """
 import argparse
 import json
 import os
+import shutil
+import tempfile
 import time
 
 import torch
@@ -35,10 +41,10 @@ def _step_ms(ex, steps):
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def profile(data, opt, lr, steps, out_dir):
+def profile(data, opt, lr, steps, out_dir, tag="", **ex_kw):
     loss, _, _, train_op = cnn_main.build("mlp", "CIFAR10", 128, opt, lr,
                                           data=data)
-    ex = ht.Executor({"train": [loss, train_op]}, seed=0)
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, **ex_kw)
     _step_ms(ex, WARMUP)
     step_ms = _step_ms(ex, steps)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -54,11 +60,13 @@ def profile(data, opt, lr, steps, out_dir):
                      key=lambda r: -r[1])
     device_us = sum(us for _, us, _ in kernels)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_mlp_{opt}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_mlp_{opt}{tag}.txt"),
+              "w") as f:
         f.write(table.table(sort_by="self_device_time_total", row_limit=40))
         f.write("\n")
         f.write(table.table(sort_by="self_cpu_time_total", row_limit=40))
-    return {"opt": opt, "steps": steps, "step_ms": step_ms,
+    return {"opt": opt, "dp": tag[1:] or None, "steps": steps,
+            "step_ms": step_ms,
             "device_ms_per_step": device_us / 1e3,
             "device_busy_share": device_us / 1e3 / step_ms,
             "kernels_us_per_step": [
@@ -70,6 +78,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--out", default="profile_mlp_out")
+    parser.add_argument("--dp", nargs="*", default=[],
+                        choices=["off", "int8", "fp8"],
+                        help="also the data-parallel step, per comm_quant")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_mlp needs a CUDA card")
@@ -78,6 +89,24 @@ def main(argv=None):
     for opt, lr in (("sgd", 0.1), ("adam", 1e-3)):
         print(json.dumps(profile(data, opt, lr, args.steps, args.out)),
               flush=True)
+    if not args.dp:
+        return
+    from hetu_tpu_torch.parallel import multihost
+    store = tempfile.mkdtemp(prefix="profile_mlp_dp_")
+    try:
+        multihost.initialize("file://" + os.path.join(store, "rendezvous"),
+                             world_size=1, rank=0,
+                             device=torch.device("cuda", 0))
+        mesh = multihost.global_mesh(1)
+        for opt, lr in (("sgd", 0.1), ("adam", 1e-3)):
+            for mode in args.dp:
+                print(json.dumps(profile(
+                    data, opt, lr, args.steps, args.out, tag="_" + mode,
+                    comm_mode="AllReduce", mesh=mesh, comm_quant=mode)),
+                    flush=True)
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -16,36 +16,84 @@ Entry points run on the card unless the caller asks for the CPU:
 back. Every parameter lives on the executor's device: a Variable's own
 ``ctx`` (``ctx=ht.cpu(0)`` on the CTR models' tables) is a placement hint
 for the PS modes, which local mode ignores, as the JAX executor does.
-Lint, plan, telemetry, watch, pilot, elastic, PS and mesh arrive with
-later slices; so does capturing the step in a CUDA graph.
+
+Data parallelism (``comm_mode="AllReduce"``) runs one process per device,
+as Hetu's own MPI ranks do, where the JAX package runs one controller
+over a GSPMD mesh; the results are the JAX executor's:
+
+- **Mesh.** ``HetuConfig(mesh=...)`` takes a ``DeviceMesh`` with a
+  ``dp_axis`` dimension, of any size, one rank included. Without one, a
+  mesh over the whole world is deduced for ``"AllReduce"`` when the
+  process group holds more than one process (the JAX rule: a mesh is
+  deduced only for more than one device). Without a mesh the all-reduce
+  is the identity, as local mode.
+- **Feeds.** Every rank is fed the global batch. A batch input (a fed
+  placeholder, unless ``Variable(..., batch=False)``, or a dataloader
+  batch) whose axis 0 dp divides is cut, and each rank takes its
+  contiguous share; otherwise it warns "not divisible by dp" and every
+  rank runs the whole batch, which gives the one-device result.
+- **Gradients.** Each ``AllReduceCommunicateOp`` sums the ranks'
+  gradients and divides by dp: the gradient of the global batch's mean.
+  Marked ops of large parameters go through the quantized all-reduce
+  (``comm_quant``), with this rank's shard of the error-feedback
+  residual in ``state["qresid"]``.
+- **Parameters** are drawn from the seed on every rank, then broadcast
+  from rank 0 once at build, so ranks cannot start apart.
+- **Fetched values** are the global batch's. A fetched batch input is
+  its global value. A value computed from a cut batch input is placed
+  by its shape: a 0-d value is taken for a batch mean, and is the mean
+  of the ranks' values; a value whose axis 0 is the share's length is
+  gathered along axis 0 in rank order. Any other value computed from a
+  cut input raises ``ValueError`` naming its node. Values that no cut
+  input reaches (parameters, the all-reduced gradients) are the same on
+  every rank and are returned as they are.
+
+Lint, plan, telemetry, watch, pilot, elastic and PS arrive with later
+slices; so does capturing the step in a CUDA graph.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import warnings
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import comm_quant as cq
 from ..context import DeviceGroup
 from ..kernels import registry
 from ..ndarray import NDArray, ND_Sparse_Array
+from ..parallel import multihost
 from .node import Op, find_topo_sort
+from .ops.comm import AllReduceCommunicateOp
 from .ops.embedding import IndexedRows
 
+COMM_MODES = (None, "AllReduce", "PS", "Hybrid")
 
-def _resolve_device(ctx) -> torch.device:
-    """The one device this slice runs on: ``ctx=None`` is ``cuda:0``."""
+
+def _resolve_device(ctx, mesh, dp_rank: int, dp: int) -> torch.device:
+    """This process's device. ``ctx=None`` is the device the process group
+    was joined on when there is a mesh, else ``cuda:0``. A group of several
+    devices is one device per dp rank: this rank takes its own."""
     if ctx is None:
-        dev = torch.device("cuda", 0)
+        dev = (multihost.device() if mesh is not None
+               else torch.device("cuda", 0))
     else:
         ctxs = (ctx if isinstance(ctx, DeviceGroup) else DeviceGroup(ctx)).flat()
-        if len(ctxs) != 1:
+        if len(ctxs) == 1:
+            dev = ctxs[0].torch_device()
+        elif mesh is not None and len(ctxs) == dp:
+            dev = ctxs[dp_rank].torch_device()
+        else:
             raise NotImplementedError(
-                f"ctx={ctx!r}: hetu_tpu_torch runs on one device in this "
-                "slice; pass one context such as ht.gpu(0) or ht.cpu(0)")
-        dev = ctxs[0].torch_device()
+                f"ctx={ctx!r}: hetu_tpu_torch runs one process per device; "
+                f"a group of {len(ctxs)} devices needs a dp mesh of as many "
+                "processes (python -m hetu_tpu_torch.runner -w N, "
+                "comm_mode='AllReduce'), and model parallelism arrives with "
+                "slice 8")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"the executor runs on {dev} (ctx={ctx!r}) but "
@@ -56,30 +104,77 @@ def _resolve_device(ctx) -> torch.device:
 
 class HetuConfig:
     """Execution configuration (reference executor.py:103): the device,
-    the seed and the kernel mode. Options of the reference that this slice
-    has not ported are refused."""
+    the seed, the comm mode with its dp mesh and quantization policy, and
+    the kernel mode. Options of the reference that the port has not yet
+    reached raise, naming their slice."""
 
     def __init__(self, eval_node_list, ctx=None, seed=None, comm_mode=None,
+                 mesh=None, dp_axis="dp", gpipe=False, comm_quant=None,
+                 comm_quant_block=None, comm_quant_min_size=None,
+                 comm_quant_error_feedback=None, comm_quant_force=(),
                  kernels=None):
         self.eval_node_list = eval_node_list
         self.ctx = ctx
         self.seed = seed if seed is not None else np.random.randint(0, 2**31 - 1)
+        if comm_mode not in COMM_MODES:
+            raise ValueError(f"comm_mode must be one of {COMM_MODES}, got "
+                             f"{comm_mode!r}")
         self.comm_mode = comm_mode
+        if gpipe:
+            raise NotImplementedError(
+                "gpipe=True: pipeline parallelism arrives with slice 8 (TP, "
+                "PP, ZeRO)")
+        self.dp_axis = dp_axis
+        # quantized communication (docs/COMM_QUANT.md of the JAX package):
+        # explicit arguments, then HETU_COMM_QUANT*, then off
+        self.comm_quant_policy = cq.resolve_policy(
+            comm_quant, comm_quant_block, comm_quant_min_size,
+            comm_quant_error_feedback, comm_quant_force)
+        self.comm_quant = self.comm_quant_policy.mode
         self.kernels = registry.resolve_mode(kernels)
-        self.device = _resolve_device(ctx)
+        if mesh is not None and dp_axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                f"mesh must be a torch.distributed DeviceMesh with a "
+                f"{dp_axis!r} dimension, got {mesh!r}")
+        if mesh is None and comm_mode == "AllReduce" \
+                and multihost.process_count() > 1:
+            mesh = multihost.global_mesh()
+        self.mesh = mesh
+        group = self.dp_group
+        self.dp_rank = dist.get_rank(group) if group is not None else 0
+        self.dp_size = dist.get_world_size(group) if group is not None else 1
+        self.device = _resolve_device(ctx, mesh, self.dp_rank, self.dp_size)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh is over {mesh.device_type!r} devices but this "
+                f"executor runs on {self.device}")
+
+    @property
+    def dp_group(self):
+        """The dp process group, or None without a mesh. Looked up on each
+        use and never stored: a group held past ``multihost.shutdown``
+        would be torn down at interpreter exit."""
+        return self.mesh.get_group(self.dp_axis) if self.mesh is not None \
+            else None
 
 
 class TraceContext:
     """Per-step services handed to ``Op.compute`` (the reference's per-trace
-    context): the step's values, the parameters, and autodiff."""
+    context): the step's values, the parameters, autodiff and the
+    gradient all-reduce."""
 
-    def __init__(self, training: bool, env: dict, params: dict,
-                 n_grad_contexts: int):
+    def __init__(self, config: HetuConfig, training: bool, env: dict,
+                 params: dict, n_grad_contexts: int, qresid_in: dict):
+        self.config = config
         self.training = training
         self.env = env
         self.params = params            # id(node) -> state tensor
         self.param_updates: dict[int, Any] = {}
         self.slot_updates: dict[int, Any] = {}
+        # error-feedback residuals by quantized AllReduce op id: this
+        # rank's shard of the previous step's error in, this step's out
+        self.qresid_in = qresid_in
+        self.qresid_updates: dict[int, Any] = {}
         self.grad_cache: dict[int, dict[int, Any]] = {}
         # one backward per GradientContext; the graph is kept for the next
         # context while any remains
@@ -101,6 +196,27 @@ class TraceContext:
                 id(n): torch.zeros_like(v) if g is None else g
                 for n, v, g in zip(gctx.xs, xs, grads)}
         return self.grad_cache[key][id(x)]
+
+    def allreduce(self, x, param_node=None, op=None):
+        """The mean of the dp ranks' ``x``; the identity without a mesh. An
+        op the executor marked takes the quantized all-reduce."""
+        cfg = self.config
+        group = cfg.dp_group
+        if group is None:
+            return x
+        with torch.no_grad():
+            if op is not None and op.comm_quant \
+                    and cfg.comm_quant_policy.active \
+                    and x.is_floating_point():
+                out, new_resid = cq.quantized_allreduce(
+                    x, self.qresid_in.get(id(op)), group,
+                    cfg.comm_quant_policy)
+                if new_resid is not None:
+                    self.qresid_updates[id(op)] = new_resid
+                return out
+            y = x.detach().clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+            return y.div_(cfg.dp_size)
 
 
 class SubExecutor:
@@ -149,6 +265,22 @@ class SubExecutor:
         self.res_dl_nodes = [n for n in self.dataloader_nodes
                              if id(n) in self.resident_dl]
 
+        # -- data parallelism: which batch inputs reach each node ----------
+        # (a fetched value computed from a cut input is placed by the rule
+        # in the module docstring; an all-reduce's output is every rank's)
+        self.batch_inputs = {id(n) for n in self.dataloader_nodes} | {
+            id(n) for n in self.feed_nodes if getattr(n, "batch", True)}
+        self.batch_deps: dict[int, frozenset] = {}
+        for n in self.topo:
+            if id(n) in self.batch_inputs:
+                deps = frozenset((id(n),))
+            elif isinstance(n, AllReduceCommunicateOp) or n.is_optimizer:
+                deps = frozenset()
+            else:
+                deps = frozenset().union(
+                    *(self.batch_deps[id(i)] for i in n.inputs))
+            self.batch_deps[id(n)] = deps
+
     def _leaf(self, node: Op, value):
         # a fed ND_Sparse_Array is no tensor: it never requires grad
         if id(node) in self.grad_x_ids and isinstance(value, torch.Tensor) \
@@ -156,29 +288,72 @@ class SubExecutor:
             return value.detach().requires_grad_()
         return value
 
+    def _enter(self, node: Op, value, cut: dict, whole: dict):
+        """One input's value for this step: a batch input cut to this dp
+        rank's share where dp divides its axis 0 (``cut``: its share's
+        length, ``whole``: its global value)."""
+        if id(node) in self.batch_inputs and self.config.dp_size > 1:
+            local = self.executor._split_batch(value)
+            if local is not value:
+                cut[id(node)] = local.shape[0]
+                whole[id(node)] = value
+                value = local
+        return self._leaf(node, value)
+
+    def _place(self, node: Op, v, cut: dict, whole: dict):
+        """A fetched value computed from a cut batch input, as the global
+        batch's (the rule in the module docstring)."""
+        if id(node) in whole:
+            return whole[id(node)]
+        cfg = self.config
+        lens = {cut[i] for i in self.batch_deps[id(node)] if i in cut}
+        if isinstance(v, torch.Tensor):
+            v = v.detach()
+            if v.ndim == 0:         # a batch mean: the mean of the ranks'
+                t = v.clone()
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=cfg.dp_group)
+                return t / cfg.dp_size
+            if len(lens) == 1 and v.shape[0] in lens:
+                out = v.new_empty((v.shape[0] * cfg.dp_size,) + v.shape[1:])
+                multihost.collective(dist.all_gather_into_tensor, out,
+                                     v.contiguous(), group=cfg.dp_group)
+                return out
+        shape = tuple(getattr(v, "shape", ()))
+        raise ValueError(
+            f"cannot fetch {node.name!r} under data parallelism: it is "
+            f"computed from this rank's share of the batch (shares of "
+            f"{sorted(lens)} rows), but it is neither 0-d (a batch mean) nor "
+            f"batch-major (shape {shape}); fetch a batch mean or per-sample "
+            "values instead")
+
     def run(self, feed_dict=None, convert_to_numpy_ret_vals=False,
             eval_node_list=None):
         ex = self.executor
         feed_dict = feed_dict or {}
         params = ex.state["params"]
         env: dict[int, Any] = {}
+        cut: dict[int, int] = {}
+        whole: dict[int, Any] = {}
         for node in self.param_nodes:
             env[id(node)] = self._leaf(node, params[id(node)])
         for node in self.feed_nodes:
             if node not in feed_dict:
                 raise ValueError(f"Missing feed for placeholder {node.name!r}")
-            env[id(node)] = self._leaf(node, ex._prepare_input(feed_dict[node]))
+            env[id(node)] = self._enter(
+                node, ex._prepare_input(feed_dict[node]), cut, whole)
         for node in self.host_dl_nodes:
-            env[id(node)] = self._leaf(
-                node, ex._prepare_input(node.get_batch(self.name)))
+            env[id(node)] = self._enter(
+                node, ex._prepare_input(node.get_batch(self.name)), cut, whole)
         for node in self.res_dl_nodes:
             data, bs, bnum = self.resident_dl[id(node)]
             cur = self._dl_cursor.get(id(node), 0)
             self._dl_cursor[id(node)] = cur + 1
             start = (cur % bnum) * bs
-            env[id(node)] = self._leaf(node, data[start:start + bs])
+            env[id(node)] = self._enter(node, data[start:start + bs], cut,
+                                        whole)
 
-        tc = TraceContext(self.training, env, params, self.n_grad_contexts)
+        tc = TraceContext(self.config, self.training, env, params,
+                          self.n_grad_contexts, ex.state["qresid"])
         slots_in = {id(n): ex.state["slots"][id(n)] for n in self.optimizer_nodes}
         with registry.active(self.config.kernels), \
                 torch.set_grad_enabled(self.n_grad_contexts > 0):
@@ -199,6 +374,7 @@ class SubExecutor:
                 params[id(node)] = tc.param_updates.get(id(node), params[id(node)])
             for node in self.optimizer_nodes:
                 ex.state["slots"][id(node)] = tc.slot_updates[id(node)]
+            ex.state["qresid"].update(tc.qresid_updates)
             ex.state["step"] += 1
 
         # an output that shares storage with a parameter (the parameter
@@ -219,6 +395,8 @@ class SubExecutor:
                     f"{self.name!r}'s eval nodes; include it in the "
                     "eval_node_dict at Executor construction")
             v = env[id(node)]
+            if self.batch_deps[id(node)] & cut.keys():
+                v = self._place(node, v, cut, whole)
             if isinstance(v, IndexedRows):   # a rows-mode gradient: the pair
                 results.append(IndexedRows(*(
                     _output(t, param_ptrs, convert_to_numpy_ret_vals)
@@ -250,13 +428,13 @@ class Executor:
     """User-facing executor (reference executor.py:301)."""
 
     def __init__(self, eval_node_dict, ctx=None, seed=None, comm_mode=None,
-                 kernels=None):
+                 **kwargs):
         if isinstance(eval_node_dict, (list, tuple)):
             eval_node_dict = {"default": list(eval_node_dict)}
         self.eval_node_dict = {k: list(v) for k, v in eval_node_dict.items()}
         all_nodes = [n for nodes in self.eval_node_dict.values() for n in nodes]
         config = self.config = HetuConfig(all_nodes, ctx=ctx, seed=seed,
-                                          comm_mode=comm_mode, kernels=kernels)
+                                          comm_mode=comm_mode, **kwargs)
         self.comm_mode = config.comm_mode
         # float32 matrix products in full float32 (the PyTorch default,
         # stated here: TF32 would keep about three decimal digits)
@@ -266,6 +444,7 @@ class Executor:
         for node in full_topo:
             if node.is_optimizer:
                 node.insert_comm_ops(config)
+        full_topo = find_topo_sort(all_nodes)   # with the comm ops
         self.param_nodes = [n for n in full_topo
                             if n.is_placeholder and not getattr(n, "is_feed", True)]
 
@@ -277,12 +456,49 @@ class Executor:
                 1, np.uint64)[0]
             gen = torch.Generator().manual_seed(int(seed_i))
             params[id(node)] = self._place_param(node, node.instantiate(gen))
+        if config.dp_group is not None:
+            # every rank drew the same values; rank 0's are the ones kept
+            src = dist.get_global_rank(config.dp_group, 0)
+            for p in params.values():
+                dist.broadcast(p, src=src, group=config.dp_group)
+
+        # -- quantized all-reduce: which ops, and their residuals ----------
+        # (reference executor.py:1862-1907) The mark is reset first: graph
+        # nodes are shared between executors, and a mark left by an earlier
+        # quantized executor must not reach this one.
+        qpol = config.comm_quant_policy
+        self.qar_ops = []
+        qresid = {}
+        for node in full_topo:
+            if not isinstance(node, AllReduceCommunicateOp):
+                continue
+            node.comm_quant = False
+            if not qpol.active or config.mesh is None:
+                continue
+            pn = node.param_node
+            val = params.get(id(pn)) if pn is not None else None
+            if val is None or not val.is_floating_point():
+                continue
+            if qpol.applies(pn, val.numel()):
+                node.comm_quant = True
+                self.qar_ops.append(node)
+                if qpol.error_feedback:
+                    qresid[id(node)] = torch.zeros(
+                        cq.shard_size(val.numel(), config.dp_size, qpol.block),
+                        dtype=torch.float32, device=config.device)
+        self.comm_quant_report = None
+        if self.qar_ops:
+            self.comm_quant_report = cq.allreduce_wire_report(
+                {n.param_node.name: params[id(n.param_node)].numel()
+                 for n in self.qar_ops}, qpol, config.dp_size)
+
         slots = {}
         for node in full_topo:
             if node.is_optimizer:
                 slots[id(node)] = node.init_slots(
                     {id(v): params[id(v)] for v in node.vars})
-        self.state = {"params": params, "slots": slots, "step": 0}
+        self.state = {"params": params, "slots": slots, "qresid": qresid,
+                      "step": 0}
 
         self.subexecutors = {name: SubExecutor(name, nodes, self)
                              for name, nodes in self.eval_node_dict.items()}
@@ -301,6 +517,22 @@ class Executor:
         if arr.dtype == np.float64:
             arr = arr.astype(np.float32)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.config.device)
+
+    def _split_batch(self, value):
+        """This dp rank's contiguous share of ``value``'s axis 0, or
+        ``value`` itself, with a warning, where dp does not divide it."""
+        dp = self.config.dp_size
+        if not isinstance(value, torch.Tensor) or value.ndim == 0:
+            return value
+        b = value.shape[0]
+        if b % dp:
+            warnings.warn(
+                f"batch dim {b} is not divisible by dp={dp}: the feed is "
+                "REPLICATED across the dp axis instead of sharded (correct "
+                "but slow) — pad the batch or use drop_last", stacklevel=4)
+            return value
+        k = b // dp
+        return value[self.config.dp_rank * k:(self.config.dp_rank + 1) * k]
 
     def _place_param(self, node, value) -> torch.Tensor:
         """A host value as this parameter's device-resident tensor (the same
@@ -347,21 +579,51 @@ class Executor:
     # -- checkpoint in the reference's on-disk format (executor.py:2289) --
     def save(self, file_path: str):
         """One ``<param>.npy`` per parameter plus ``executor_state.pkl``
-        with ``step`` and ``slots`` — what ``hetu_tpu``'s ``load`` reads."""
-        os.makedirs(file_path, exist_ok=True)
-        for node, fname in zip(self.param_nodes, self._param_file_names()):
-            np.save(os.path.join(file_path, fname + ".npy"),
-                    self.state["params"][id(node)].detach().cpu().numpy())
-        aux = {
-            "step": self.state["step"],
-            "slots": {str(i): _tree_map(lambda t: t.detach().cpu().numpy(),
-                                        self.state["slots"][id(n)])
-                      for i, n in enumerate(self._opt_nodes())},
-            "op_state": {},
-            "qresid": {},
-        }
-        with open(os.path.join(file_path, "executor_state.pkl"), "wb") as f:
-            pickle.dump(aux, f)
+        with ``step``, ``slots`` and the error-feedback residuals
+        ``qresid`` (each in its parameter's full shape, float32) — what
+        ``hetu_tpu``'s ``load`` reads. Under data parallelism every rank
+        calls it (the residuals are gathered from their shards) and dp
+        rank 0 writes."""
+        qresid = {str(i): self._full_qresid(n)
+                  for i, n in enumerate(self._qresid_ordered())}
+        if self.config.dp_rank == 0:
+            os.makedirs(file_path, exist_ok=True)
+            for node, fname in zip(self.param_nodes,
+                                   self._param_file_names()):
+                np.save(os.path.join(file_path, fname + ".npy"),
+                        self.state["params"][id(node)].detach().cpu().numpy())
+            aux = {
+                "step": self.state["step"],
+                "slots": {str(i): _tree_map(
+                    lambda t: t.detach().cpu().numpy(),
+                    self.state["slots"][id(n)])
+                    for i, n in enumerate(self._opt_nodes())},
+                "op_state": {},
+                "qresid": qresid,
+            }
+            with open(os.path.join(file_path, "executor_state.pkl"),
+                      "wb") as f:
+                pickle.dump(aux, f)
+        if self.config.dp_group is not None:
+            dist.barrier(group=self.config.dp_group)
+
+    def _qresid_ordered(self):
+        """The quantized all-reduce ops that hold a residual, in the order
+        the checkpoint numbers them (the marking's scan order)."""
+        return [n for n in self.qar_ops if id(n) in self.state["qresid"]]
+
+    def _full_qresid(self, op) -> np.ndarray:
+        """An op's residual in its parameter's shape, gathered from the dp
+        ranks' shards."""
+        shard = self.state["qresid"][id(op)]
+        cfg = self.config
+        if cfg.dp_group is not None:
+            full = shard.new_empty(shard.numel() * cfg.dp_size)
+            multihost.collective(dist.all_gather_into_tensor, full, shard,
+                                 group=cfg.dp_group)
+            shard = full
+        param = self.state["params"][id(op.param_node)]
+        return shard[:param.numel()].reshape(param.shape).cpu().numpy()
 
     def load(self, file_path: str):
         """Read a directory written by ``save`` here or by ``hetu_tpu``'s
@@ -382,3 +644,61 @@ class Executor:
                         lambda a: torch.from_numpy(np.array(a)).to(
                             self.config.device),
                         aux["slots"][str(i)])
+            # each residual in full shape, cut to this dp rank's shard
+            for i, n in enumerate(self._qresid_ordered()):
+                if str(i) in aux.get("qresid", {}):
+                    shard = self.state["qresid"][id(n)]
+                    flat = np.zeros(shard.numel() * self.config.dp_size,
+                                    np.float32)
+                    full = np.asarray(aux["qresid"][str(i)], np.float32)
+                    flat[:full.size] = full.reshape(-1)
+                    r = self.config.dp_rank
+                    self.state["qresid"][id(n)] = torch.from_numpy(
+                        flat[r * shard.numel():(r + 1) * shard.numel()]).to(
+                        self.config.device)
+
+
+# ---------------------------------------------------------------------------
+# distributed bootstrap shims (reference executor.py:2406-2431), so that the
+# reference's call sites (``comm, rank = ht.mpi_nccl_init()``) run unchanged
+# ---------------------------------------------------------------------------
+
+class _Comm:
+    """The reference's communicator handle: this process's rank and the
+    world's size."""
+
+    def __init__(self):
+        self.rank = multihost.process_index()
+        self.nrank = multihost.process_count()
+
+    def local_rank(self):
+        return int(os.environ.get("LOCAL_RANK", self.rank))
+
+
+def wrapped_mpi_nccl_init(init_nccl=True, devices=None):
+    """Join the process group that ``hetu_tpu_torch.runner`` set up in the
+    environment, over NCCL on ``cuda:LOCAL_RANK`` (``init_nccl=True``) or
+    over gloo on the CPU (``init_nccl=False``). Outside the runner it is a
+    world of one process and joins nothing."""
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    multihost.initialize(device=torch.device("cuda", local) if init_nccl
+                         else torch.device("cpu"))
+    return _Comm()
+
+
+def mpi_nccl_init(init_nccl=True):
+    comm = wrapped_mpi_nccl_init(init_nccl)
+    return comm, comm.rank
+
+
+def mpi_nccl_finish(comm=None):
+    multihost.shutdown()
+
+
+def new_group_comm(devices=None):
+    """The default group: sub-groups arrive with slice 8."""
+    if devices is not None:
+        raise NotImplementedError(
+            "new_group_comm(devices): sub-groups of pipeline stages arrive "
+            "with slice 8 (TP, PP, ZeRO)")
+    return None

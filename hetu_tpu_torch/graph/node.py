@@ -152,8 +152,10 @@ class PlaceholderOp(Op):
     def __init__(self, name, value=None, initializer=None, trainable=None,
                  dtype=np.float32, ctx=None, batch=None, **kwargs):
         super().__init__([], ctx, name)
-        # ``batch`` (dim 0 shards over data parallelism) and ``kwargs`` are
-        # accepted for API parity; one device has nothing to shard
+        # is dim 0 a batch dimension, cut over data parallelism? Fed
+        # placeholders: yes unless batch=False (a constant mask, say).
+        # ``kwargs`` are accepted for API parity.
+        self.batch = True if batch is None else bool(batch)
         self.initializer = initializer
         self.dtype = np.dtype(dtype)
         if value is not None and not isinstance(value, np.ndarray):

@@ -26,6 +26,11 @@ from .losses import (
     softmaxcrossentropy_op, softmaxcrossentropy_gradient_op,
     binarycrossentropy_op, binarycrossentropy_gradient_op,
 )
+from .comm import (
+    AllReduceCommunicateOp, allreduceCommunicate_op,
+    GroupAllReduceCommunicateOp, groupallreduceCommunicate_op,
+    datah2d_op, datad2h_op, dispatch,
+)
 from ..node import Variable, placeholder_op, Op, PlaceholderOp, find_topo_sort
 
 import types as _types

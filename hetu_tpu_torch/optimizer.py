@@ -5,9 +5,10 @@ SGD and Adam/AdamW apply through the hand-written CUDA kernels of
 ``kernels/fused_opt.py`` (registry-dispatched); Momentum and AdaGrad stay
 plain torch, as the JAX package keeps them plain ``jnp`` expressions.
 Every apply updates the parameter and its slots in place, under
-``torch.no_grad()``. This slice runs on one device without communication:
-``insert_comm_ops`` refuses any ``comm_mode``, and a learning-rate
-scheduler is refused until ``lr_scheduler.py`` is ported.
+``torch.no_grad()``. ``insert_comm_ops`` wraps every gradient in an
+all-reduce under ``comm_mode="AllReduce"`` (data parallelism); the PS and
+Hybrid modes arrive with slice 4b. A learning-rate scheduler is refused
+until ``lr_scheduler.py`` is ported.
 """
 from __future__ import annotations
 
@@ -164,12 +165,24 @@ class OptimizerOp(Op):
         self.optimizer = optimizer
         self.vars = list(var_list)
         self.name = f"Optimizer_{type(optimizer).__name__}_{self.id}"
+        self._comm_inserted = False
 
+    # -- comm strategy rewrite (reference backward_hook optimizer.py:125) ---
     def insert_comm_ops(self, config):
-        if config.comm_mode is not None:
+        """Under ``comm_mode="AllReduce"`` every gradient input becomes an
+        ``AllReduceCommunicateOp`` of its parameter; once per graph."""
+        mode = config.comm_mode
+        if mode is None or self._comm_inserted:
+            return
+        if mode in ("PS", "Hybrid"):
             raise NotImplementedError(
-                f"comm_mode={config.comm_mode!r}: hetu_tpu_torch runs on one "
-                "device in this slice; AllReduce/PS/Hybrid are not ported yet")
+                f"comm_mode={mode!r}: the parameter server arrives with "
+                "slice 4b; hetu_tpu_torch runs comm_mode=None and "
+                "'AllReduce'")
+        from .graph.ops.comm import allreduceCommunicate_op
+        self._comm_inserted = True
+        self.inputs = [allreduceCommunicate_op(grad, param_node=var)
+                       for var, grad in zip(self.vars, self.inputs)]
 
     # -- executor protocol --------------------------------------------------
     def init_slots(self, params_by_id):

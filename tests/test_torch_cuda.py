@@ -606,3 +606,117 @@ def test_wdl_step_on_the_card_matches_the_cpu(dev):
     rows = list(ctr_main.run(dev, "dfm_criteo", batch_size=32, dim=500,
                              steps=2, kernels="off"))
     assert rows[0]["launches"] == {}
+
+
+# -- the quantized all-reduce's quantize and dequantize ---------------------
+
+def _quant_input(n, dev, edge):
+    x = _rand((n,), 7, dev, 3.0)
+    if edge:
+        x[:300] = 0.0                       # all-zero blocks
+        x[400] = float("nan")
+        x[900] = float("inf")
+        x[1300] = -0.0
+        x[1800] = 127.0 / 8                 # x / scale = x * 8 here:
+        x[1801:1800 + 256] = (torch.arange(255, device=dev) % 9 - 3.5) / 8
+    return x
+
+
+def _same_bits(a, b):
+    if a.dtype != torch.float32:
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                               b[~nb].view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("block", [256, 128, 64, 7])
+@pytest.mark.parametrize("n,edge", [(786432, False), (2560, False),
+                                    (8 * 256 + 77, True), (1, False)])
+def test_quant_kernels_match_plain_bit_for_bit(dev, mode, block, n, edge):
+    """The payload crosses the wire: kernel and plain version agree bit for
+    bit (NaN scales and values by position)."""
+    from hetu_tpu_torch.kernels import quant_comm as qc
+    x = _quant_input(n, dev, edge)
+    q, s, k = qc.quantize_blocks(x, block, mode)
+    out = qc.dequantize_blocks(q, s, k, block)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["quant_blocks"] == 1
+    assert registry.launch_counts()["dequant_blocks"] == 1
+    qp, sp, kp = qc._quant_plain(x, block=block, mode=mode)
+    assert k == kp == n and q.dtype == qp.dtype
+    assert _same_bits(q, qp) and _same_bits(s, sp)
+    assert _same_bits(out, qc._dequant_plain(qp, sp, n=kp, block=block))
+
+
+def test_quant_kernel_past_65535_blocks_and_empty(dev):
+    from hetu_tpu_torch.kernels import quant_comm as qc
+    x = _rand((70000 * 64 + 5,), 8, dev)
+    q, s, n = qc.quantize_blocks(x, 64, "int8")
+    qp, sp, _ = qc._quant_plain(x, block=64, mode="int8")
+    assert s.numel() == 70001 and _same_bits(q, qp) and _same_bits(s, sp)
+    registry.reset_launch_counts()
+    q, s, n = qc.quantize_blocks(x[:0], 256, "fp8")
+    assert n == 0 and q.numel() == 0 and s.numel() == 0
+    assert qc.dequantize_blocks(q, s, 0, 256).numel() == 0
+    assert registry.launch_counts()["quant_blocks"] == 0   # n = 0: none
+
+
+def test_ineligible_quant_calls_raise(dev):
+    from hetu_tpu_torch.kernels import quant_comm as qc
+    x = _rand((1000,), 9, dev)
+    q, s, n = qc.quantize_blocks(x, 64, "int8")
+    with pytest.raises(registry.KernelEligibilityError, match="int8/fp8"):
+        registry.dispatch("quant_blocks", x, block=64, mode="int4")
+    with pytest.raises(registry.KernelEligibilityError, match="float"):
+        registry.dispatch("quant_blocks", x.int(), block=64, mode="int8")
+    bad = [((q.float(), s), "int8 or float8"), ((q, s.double()), "float32"),
+           ((q, s.cpu()), "cpu"), ((q[:-1], s), "blocks of"),
+           ((q[::2], s[::2]), "contiguous")]
+    for args, why in bad:
+        with pytest.raises(registry.KernelEligibilityError, match=why):
+            registry.dispatch("dequant_blocks", *args, n=n, block=64)
+    with pytest.raises(registry.KernelEligibilityError, match="outside"):
+        registry.dispatch("dequant_blocks", q, s, n=q.numel() + 1, block=64)
+
+
+def test_dp_mlp_on_the_card_world_of_one(dev, tmp_path):
+    """comm_mode='AllReduce' over NCCL at world size 1 with an explicit
+    mesh: int8 launches each leg once per quantized parameter and step,
+    equals kernels='off' bit for bit over 3 SGD steps, and 'off' equals
+    local mode bit for bit."""
+    from hetu_tpu_torch.examples import cnn_main
+    from hetu_tpu_torch.parallel import multihost
+    rng = np.random.RandomState(0)
+    data = (rng.randn(512, 64).astype(np.float32),
+            np.eye(10, dtype=np.float32)[rng.randint(0, 10, 512)],
+            rng.randn(128, 64).astype(np.float32),
+            np.eye(10, dtype=np.float32)[rng.randint(0, 10, 128)], 64, 10)
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, device=dev)
+    try:
+        mesh = multihost.global_mesh(1)
+
+        def run(**kw):
+            loss, y, y_, op = cnn_main.build("mlp", "CIFAR10", 128, "sgd",
+                                             0.1, data=data)
+            ex = ht.Executor({"train": [loss, op]}, seed=0, **kw)
+            registry.reset_launch_counts()
+            losses = [ex.run("train")[0].asnumpy() for _ in range(3)]
+            return (np.array(losses), registry.launch_counts(),
+                    [ex.state["params"][id(n)] for n in ex.param_nodes])
+
+        dp = dict(comm_mode="AllReduce", mesh=mesh, comm_quant="int8",
+                  comm_quant_min_size=1024)
+        l_q, c_q, p_q = run(**dp)
+        assert c_q["quant_blocks"] == c_q["dequant_blocks"] == 3 * 3
+        l_o, c_o, p_o = run(kernels="off", **dp)
+        assert sum(c_o.values()) == 0
+        assert np.array_equal(l_q, l_o)
+        assert all(torch.equal(a, b) for a, b in zip(p_q, p_o))
+        l_dp, _, p_dp = run(comm_mode="AllReduce", mesh=mesh)
+        l_loc, _, p_loc = run()
+        assert np.array_equal(l_dp, l_loc)
+        assert all(torch.equal(a, b) for a, b in zip(p_dp, p_loc))
+    finally:
+        multihost.shutdown()

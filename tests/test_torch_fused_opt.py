@@ -119,7 +119,7 @@ def test_adam_five_steps_match_jax(shape, case):
 KERNELS = ["fused_sgd", "fused_adam", "flash_attention_fwd",
            "fused_linear_nll_fwd", "flash_attention_bwd",
            "fused_linear_nll_bwd", "csr_spmm", "csr_spmv",
-           "fused_embed_grad"]
+           "fused_embed_grad", "quant_blocks", "dequant_blocks"]
 
 
 def test_cpu_calls_take_the_plain_version_and_launch_nothing():

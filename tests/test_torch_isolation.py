@@ -148,6 +148,54 @@ def test_a_cpu_bert_train_step_loads_neither_jax_nor_hetu_tpu():
     assert "LOADED []" in p.stdout, p.stdout
 
 
+def test_a_cpu_dp_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
+    """The data-parallel path on the CPU: the runner, the process group
+    (one gloo rank), an explicit dp mesh and the quantized all-reduce
+    (comm_quant, the quant_comm kernels' plain versions)."""
+    script = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import hetu_tpu_torch as ht
+        from hetu_tpu_torch import comm_quant, runner
+        from hetu_tpu_torch.parallel import multihost
+        multihost.initialize("file://{tmp_path}/store", 1, 0, device="cpu")
+        x = ht.Variable(name="x", trainable=False)
+        y_ = ht.Variable(name="y_", trainable=False)
+        w = ht.init.random_normal((64, 4), stddev=0.1, name="w")
+        loss = ht.reduce_mean_op(
+            ht.softmaxcrossentropy_op(ht.matmul_op(x, w), y_), [0])
+        train_op = ht.optim.SGDOptimizer(0.1).minimize(loss)
+        ex = ht.Executor({{"train": [loss, train_op]}}, ctx=ht.cpu(0),
+                         comm_mode="AllReduce", mesh=multihost.global_mesh(),
+                         comm_quant="fp8", comm_quant_min_size=256)
+        assert len(ex.qar_ops) == 1 and ex.state["qresid"]
+        feed = {{x: np.ones((8, 64), np.float32),
+                 y_: np.eye(4, dtype=np.float32)[np.arange(8) % 4]}}
+        l0 = ex.run("train", feed_dict=feed)[0].asnumpy()
+        l1 = ex.run("train", feed_dict=feed)[0].asnumpy()
+        assert l1 < l0, (l0, l1)
+        multihost.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
+def test_nccl_without_cuda_raises_instead_of_using_gloo(monkeypatch,
+                                                         tmp_path):
+    from hetu_tpu_torch.parallel import multihost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.initialize(f"file://{tmp_path}/store", 1, 0,
+                             device="cuda:0")
+    assert not multihost.is_initialized()
+
+
 def test_executor_without_cuda_raises_instead_of_using_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     w = ht.init.zeros((3,), name="w")
@@ -181,11 +229,11 @@ def test_build_reports_nvcc_stderr(monkeypatch, tmp_path):
 
 def test_every_source_is_built_and_keyed_by_its_content():
     assert _build.sources() == ["csr_spmm", "embed_grad", "flash_attention",
-                                "fused_ce", "fused_opt"]
+                                "fused_ce", "fused_opt", "quant_comm"]
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.startswith(_build.BUILD_DIR)
         assert path == _build.library_path(name)
-    assert len({_build.library_path(n) for n in _build.sources()}) == 5
+    assert len({_build.library_path(n) for n in _build.sources()}) == 6
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
