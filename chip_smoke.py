@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of hetu_tpu_torch, the PyTorch/CUDA port: builds the
-CUDA kernels from this checkout and holds each against its plain PyTorch
-version on the card; trains the full-width MLP of
+CUDA kernels from this checkout, checks from their SASS that the bf16
+backward kernels run on the tensor cores, and holds each kernel against
+its plain PyTorch version on the card; trains the full-width MLP of
 ``examples/cnn/models/MLP.py`` (3072-256-256-10, synthetic CIFAR10, batch
 128) through ``hetu_tpu_torch.Executor``, then trains it data-parallel
 (``comm_mode="AllReduce"``) at world size 1 over NCCL with an explicit
@@ -12,8 +13,9 @@ plain versions bit for bit; runs the BERT-base forward
 pretraining loss without gradient on a synthetic phase-1 batch (32 x 128)
 and the classifier on 8 requests; then trains BERT-base with
 ``make_pretrain_step`` for 20 steps on that batch, checks its first step's
-gradients against ``kernels="off"``, and fine-tunes the classifier for 5
-steps with ``make_finetune_step``; then trains the full-width GCN of
+gradients against ``kernels="off"``, does the same at the phase-2 shape
+(32 x 512, 76 MLM slots) for 6 steps with the device time of a step, and
+fine-tunes the classifier for 5 steps with ``make_finetune_step``; then trains the full-width GCN of
 ``examples/gnn`` (``dense_model``, 128 -> 256 -> 40) for 30 epochs on a
 synthetic graph at ogbn-arxiv's size through ``Executor.run``, checks its
 first epoch's loss and gradients against ``kernels="off"``, and runs one
@@ -26,13 +28,19 @@ dense and in rows mode. Each path is checked to have gone through its
 kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
 phase, then the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX or of the JAX package.
+Imports nothing of JAX or of the JAX package. ``--bert-kernels`` stops
+after the kernels of the BERT path (the optimizers', flash attention's and
+the fused CE's, forward and backward) are built, checked and timed, and
+prints no result line: a quick check of a kernel change.
 """
+import argparse
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -66,20 +74,23 @@ TOL = {"fused_sgd": dict(rtol=1e-6, atol=1e-7),
 SGD_LOSS_MAX, ADAM_LOSS_MAX = 1e-2, 1e-2
 
 # Attention checks (B, H, S, D, dtype, causal, key padding): the BERT-base
-# layer (the main path's shape; its times go into the kernels line), a long
-# causal sequence, and a small f32 case also held against the unfused
-# softmax(q k^T) v in f32.
+# layer (the main path's shape; its times go into the kernels line), the
+# phase-2 BERT-base layer (S = 512), a long causal sequence, and a small f32
+# case also held against the unfused softmax(q k^T) v in f32.
 ATTN_CASES = [(32, 12, 128, 64, torch.bfloat16, False, True),
+              (32, 12, 512, 64, torch.bfloat16, False, True),
               (8, 12, 512, 64, torch.bfloat16, True, False),
               (2, 4, 256, 128, torch.float32, True, True)]
 # Fused linear+CE checks (N, V, D, layout), bf16: BERT-base's MLM loss (32
 # rows x 20 slots against the tied (V, D) embedding, with the MLM bias; the
 # main path's shape) and a GPT-2 LM head ((D, V), N ragged against 64).
 CE_CASES = [(640, 30522, 768, "vd"), (1000, 50257, 768, "dv")]
-# The backward also at the MLM shape in f32, where no output rounding hides
-# dh's softmax term (~1e-4 of its onehot term, below a bf16 rounding).
+# The backward also at BERT-base's phase-2 MLM shape (32 rows x 76 slots),
+# and at the MLM shape in f32, where no output rounding hides dh's softmax
+# term (~1e-4 of its onehot term, below a bf16 rounding).
 CE_BWD_CASES = ([c + (torch.bfloat16,) for c in CE_CASES]
-                + [(640, 30522, 768, "vd", torch.float32)])
+                + [(2432, 30522, 768, "vd", torch.bfloat16),
+                   (640, 30522, 768, "vd", torch.float32)])
 # Kernel vs plain version: o in bf16 may differ by one bf16 rounding (the
 # same f32 sums in another order); f32 by summation order alone; lse, the
 # target logit and the NLL are f32 sums over 128 keys or 30k-50k logits.
@@ -113,6 +124,12 @@ TOL.update({
 # atol 2e-2, for bf16 activations rounded at other places over 12 layers.
 BERT_REL, LOGITS_ATOL = 5e-3, 2e-2
 BERT_BATCH, BERT_SEQ, BERT_PRED, BERT_REQUESTS, BERT_ITERS = 32, 128, 20, 8, 20
+# BERT-base's phase-2 shape (bench.py's BERT section, examples/
+# bert_pretrain.py --seq 512 --pred 76): the first step's gradients under
+# the phase-1 gates, then PHASE2_STEPS steps (bert_pretrain.WARMUP of them
+# warm-up for the step time) and a profile of PHASE2_PROFILE steps for the
+# device time.
+PHASE2_SEQ, PHASE2_PRED, PHASE2_STEPS, PHASE2_PROFILE = 512, 76, 6, 2
 # BERT-base pretraining: 20 AdamW steps at lr 1e-4 on the phase-1 batch,
 # 3 of them warm-up for the step time; the first loss within
 # FIRST_LOSS_TOL of ln V + ln 2, the loss at random init. The first step's
@@ -203,6 +220,11 @@ TOL.update({"quant_blocks": "bit-equal", "dequant_blocks": "bit-equal"})
 DP_MODES, DP_CHECK_STEPS, DP_CURVE_STEPS = ("off", "int8", "fp8"), 5, 20
 DP_CURVE_TOL = {"int8": 2e-2, "fp8": 1e-1}
 DP_LAUNCHES = {"quant_blocks": 3, "dequant_blocks": 3}
+
+# The bf16 backward kernels (the *_tc_kernel functions of each source) and
+# the SASS instruction each must hold: wgmma (HGMMA) in the fused CE's,
+# mma.sync (HMMA) in flash attention's.
+TC_SASS = {"fused_ce": "HGMMA", "flash_attention": "HMMA"}
 
 # Peak rates for the bound, by card name: device-memory bytes/s, float32
 # (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
@@ -296,6 +318,22 @@ def rel_errs(names, got, want, limit, what):
         check(e <= limit, f"{what}: {n} differs from the plain version by "
               f"rel L2 {e} > {limit}")
     return errs
+
+
+def tensor_core_phase(build):
+    """The bf16 backward kernels run on the tensor cores: each one's SASS
+    holds its tensor-core instruction (TC_SASS), read with its registers
+    and spills from a second compile of its source."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(TC_SASS)) as pool:
+        found = dict(zip(TC_SASS, pool.map(build.resources, TC_SASS)))
+    kernels = []
+    for src, op in TC_SASS.items():
+        tc = [k for k in found[src] if "_tc_kernel" in k["kernel"]]
+        check(tc and all(k.get(op, 0) > 0 for k in tc),
+              f"csrc/{src}.cu: a bf16 backward kernel without {op}: {tc}")
+        kernels += [{"source": src, **k} for k in tc]
+    emit("tensor_cores", seconds=time.perf_counter() - t0, kernels=kernels)
 
 
 def kernel_phase(fused_opt, dev, bw, flops):
@@ -487,12 +525,15 @@ def attention_bwd_phase(fa, dev, bw, f32, bf16):
         o, lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
         args = (q, k, v, o, lse, do, kb)
         got = fa._flash_bwd_kernel(*args, **kw)
+        again = fa._flash_bwd_kernel(*args, **kw)
         want = fa._flash_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {[b, h, s, d]}: two runs differ")
         bf = dtype == torch.bfloat16
         g_tol = tol["bf16"] if bf else tol["f32"]
         case = {"shape": [b, h, s, d], "dtype": str(dtype)[6:],
-                "causal": causal, "key_padding": pad,
+                "causal": causal, "key_padding": pad, "rerun_bit_equal": True,
                 "max_abs_err": max(max_err(g.float(), w.float(), g_tol)
                                    for g, w in zip(got, want)),
                 "rel_l2": rel_errs(
@@ -564,8 +605,11 @@ def ce_bwd_phase(ce, dev, bw, bf16):
         lse, _ = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
         args = (h, w, b, t, lse, ct)
         got = ce._linear_nll_bwd_kernel(*args, **kw)
+        again = ce._linear_nll_bwd_kernel(*args, **kw)
         want = ce._linear_nll_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"fused_linear_nll_bwd {[n, v, d]} {layout}: two runs differ")
         check(got[0].dtype == h.dtype and got[1].dtype == w.dtype
               and got[2].dtype == torch.float32, "fused CE grad dtypes")
         g_tol = tol["dh_dw_bf16"] if bf else tol["dh_dw_f32"]
@@ -587,7 +631,8 @@ def ce_bwd_phase(ce, dev, bw, bf16):
             (vocab_major(got[1])[free], got[2][free]),
             (vocab_major(want[1])[free], want[2][free]), limit, what))
         case = {"shape": [n, v, d], "layout": layout,
-                "dtype": str(dtype)[6:], "max_abs_err": err, "rel_l2": rel,
+                "dtype": str(dtype)[6:], "rerun_bit_equal": True,
+                "max_abs_err": err, "rel_l2": rel,
                 "absmax": {nm: float(x.float().abs().max()) for nm, x in
                            zip(("dh", "dW", "db"), want)}}
         if not bf:
@@ -1000,32 +1045,24 @@ def ctr_phase(ht, ctr_main, eg, registry, counted, dev, bw, f32):
     return embed, {"fused_embed_grad": epoch["launches"]["fused_embed_grad"]}
 
 
-def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
-    """BERT-base pretraining: the first step's gradients with the kernels
-    against kernels="off", then TRAIN_STEPS steps of make_pretrain_step,
-    each with the launch counts zeroed just before it and read just after;
-    then FINETUNE_STEPS steps of make_finetune_step on the requests."""
-    cfg = bert.BERT_BASE
-    want = {"flash_attention_fwd": 2 * cfg.n_layers,   # forward + remat
-            "flash_attention_bwd": cfg.n_layers,
-            "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1}
-    params = bert.init_params(0, cfg, dev)
-    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
-                                      seed=0, device=dev)
+def bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, batch,
+                   want, phase):
+    """The first step's gradients with the kernels against kernels="off",
+    f32 then bf16 (GRAD_REL, BF16_EXCESS): one bert_grad_check line per
+    dtype. Returns ``(first bf16 loss, its kernels="off" loss)``."""
 
     def grads(c):
         return bert_forward.counted(lambda: tfm.value_and_grad(
             bert.pretrain_loss, params, batch, c, has_aux=True))
 
-    # -- the first step's gradients against the plain versions -------------
     # f32 first: its gradient with the kernels, held per tensor to
     # kernels="off", is the reference both bf16 gradients are measured from
     agree, ref = {}, None
     for name, c in (("float32", dataclasses.replace(cfg, dtype=torch.float32)),
                     ("bfloat16", cfg)):
         ((loss_k, _), g_k), counts = grads(c)
-        check(counts == want, f"{name} pretrain gradient launched {counts}, "
-              f"expected {want}")
+        check(counts == want, f"{phase} {name} pretrain gradient launched "
+              f"{counts}, expected {want}")
         with registry.active("off"):
             ((loss_o, _), g_o), off_counts = grads(c)
         check(off_counts == {}, f"kernels='off' launched {off_counts}")
@@ -1056,25 +1093,44 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
                 vs_f32_all=k_all, off_vs_f32_all=o_all, vs_f32=vs_k,
                 off_vs_f32=vs_o, excess_limit=BF16_EXCESS,
                 worst_share_of_limit=use[worst_x], worst=worst_x)
-            first_loss = float(loss_k)
-        emit("bert_grad_check", dtype=name, grad_rel_l2_tol=GRAD_REL,
+        emit("bert_grad_check", bert_phase=phase, dtype=name,
+             batch=list(batch["input_ids"].shape),
+             mlm_slots=batch["mlm_ids"].shape[1], grad_rel_l2_tol=GRAD_REL,
              **agree[name])
-        check(agree[name]["loss_rel"] < BERT_REL, f"{name} first loss "
-              f"{float(loss_k)} vs kernels='off' {float(loss_o)}")
-        check(agree[name]["grad_rel_l2_all"] < GRAD_REL, f"{name} gradients "
-              f"differ from kernels='off': {agree[name]}")
+        check(agree[name]["loss_rel"] < BERT_REL, f"{phase} {name} first "
+              f"loss {float(loss_k)} vs kernels='off' {float(loss_o)}")
+        check(agree[name]["grad_rel_l2_all"] < GRAD_REL, f"{phase} {name} "
+              f"gradients differ from kernels='off': {agree[name]}")
         if name == "float32":
-            check(per[worst] < GRAD_REL, f"float32 gradient of {worst} "
-                  f"differs from kernels='off' by rel L2 {per[worst]}")
+            check(per[worst] < GRAD_REL, f"{phase} float32 gradient of "
+                  f"{worst} differs from kernels='off' by rel L2 {per[worst]}")
             ref = flat_k
         else:
-            check(k_all <= BF16_EXCESS * o_all, f"bfloat16 gradients are rel "
-                  f"L2 {k_all} from the f32 ones, kernels='off' {o_all}")
-            check(use[worst_x] <= 1, f"bfloat16 gradient of {worst_x} is "
-                  f"rel L2 {vs_k[worst_x]} from the f32 one, above "
-                  f"{limit[worst_x]} (kernels='off' {vs_o[worst_x]})")
+            check(k_all <= BF16_EXCESS * o_all, f"{phase} bfloat16 gradients "
+                  f"are rel L2 {k_all} from the f32 ones, kernels='off' "
+                  f"{o_all}")
+            check(use[worst_x] <= 1, f"{phase} bfloat16 gradient of "
+                  f"{worst_x} is rel L2 {vs_k[worst_x]} from the f32 one, "
+                  f"above {limit[worst_x]} (kernels='off' {vs_o[worst_x]})")
         del g_k, g_o, flat_k, flat_o
-    del ref
+    return agree["bfloat16"]["loss"], agree["bfloat16"]["off_loss"]
+
+
+def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
+    """BERT-base pretraining: the first step's gradients with the kernels
+    against kernels="off", then TRAIN_STEPS steps of make_pretrain_step,
+    each with the launch counts zeroed just before it and read just after;
+    then the same at the phase-2 shape (bert_phase2), and FINETUNE_STEPS
+    steps of make_finetune_step on the requests."""
+    cfg = bert.BERT_BASE
+    want = {"flash_attention_fwd": 2 * cfg.n_layers,   # forward + remat
+            "flash_attention_bwd": cfg.n_layers,
+            "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1}
+    params = bert.init_params(0, cfg, dev)
+    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
+                                      seed=0, device=dev)
+    first_loss, off_loss = bert_grad_gate(
+        bert, tfm, bert_forward, registry, cfg, params, batch, want, "phase1")
     # the off step itself launches nothing (on copies: a step updates in
     # place)
     copy = tfm.tree_map(torch.clone, params)
@@ -1084,7 +1140,7 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
             lambda: step_off(copy, bert.init_opt_state(copy), batch))
     check(off_step_counts == {}, f"kernels='off' step launched "
           f"{off_step_counts}")
-    check(float(off_step_loss) == agree["bfloat16"]["off_loss"],
+    check(float(off_step_loss) == off_loss,
           "the off step's loss differs from the off gradient's")
     del copy, params
 
@@ -1114,6 +1170,9 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
          tokens_per_s=summary["tokens_per_s"],
          launches_per_step=summary["launches_per_step"])
 
+    bert_phase2(bert, tfm, bert_forward, bert_pretrain, registry, dev, cfg,
+                want)
+
     # -- fine-tuning the classifier on the requests -------------------------
     cls = bert.init_classifier_params(1, cfg, 2, pretrained=bert.init_params(
         0, cfg, dev))
@@ -1137,6 +1196,47 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
          lr=FINETUNE_LR, steps=FINETUNE_STEPS, losses=ft_losses,
          launches_per_step=counts)
     return summary["launches_per_step"]
+
+
+def bert_phase2(bert, tfm, bert_forward, bert_pretrain, registry, dev, cfg,
+                want):
+    """BERT-base at its phase-2 shape (PHASE2_SEQ tokens, PHASE2_PRED MLM
+    slots a row): the first step's gradients under the phase-1 gates, then
+    PHASE2_STEPS steps of the entry point, each with the launch counts zeroed
+    just before it and read just after, and the device time of a step."""
+    import tempfile
+    params = bert.init_params(0, cfg, dev)
+    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, PHASE2_SEQ,
+                                      PHASE2_PRED, seed=0, device=dev)
+    first_loss, _ = bert_grad_gate(bert, tfm, bert_forward, registry, cfg,
+                                   params, batch, want, "phase2")
+    del params, batch
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = list(bert_pretrain.run(
+            dev, PHASE2_STEPS, BERT_BATCH, PHASE2_SEQ, PHASE2_PRED, TRAIN_LR,
+            profile_dir=tmp, profile_iters=PHASE2_PROFILE, cfg=cfg))
+    steps, summary = rows[:-1], rows[-1]
+    losses = [r["loss"] for r in steps]
+    for r in steps:
+        check(r["launches"] == want, f"phase-2 step {r['step']} launched "
+              f"{r['launches']}, expected {want}")
+    check(np.isfinite(losses).all(), f"phase-2 losses {losses}")
+    ln = float(np.log(cfg.vocab_size) + np.log(2))
+    check(abs(losses[0] - ln) < FIRST_LOSS_TOL, f"phase-2 first loss "
+          f"{losses[0]} is not within {FIRST_LOSS_TOL} of {ln}")
+    check(abs(losses[0] - first_loss) / losses[0] < BERT_REL,
+          "the phase-2 step's first loss differs from the gradient check's")
+    prof = summary["profile"]
+    emit("bert_pretrain_phase2", config="BERT_BASE", remat=cfg.remat,
+         batch=BERT_BATCH, seq_len=PHASE2_SEQ, mlm_slots=PHASE2_PRED,
+         lr=TRAIN_LR, steps=PHASE2_STEPS, warmup=bert_pretrain.WARMUP,
+         losses=losses, first_loss=losses[0], ln_vocab_plus_ln2=ln,
+         step_ms=summary["step_ms"], device_ms=prof["device_ms"],
+         device_busy_share=prof["device_busy_share"],
+         groups_us=prof["groups_us"],
+         sequences_per_s=summary["sequences_per_s"],
+         tokens_per_s=summary["tokens_per_s"],
+         launches_per_step=summary["launches_per_step"])
 
 
 def bert_phase(bert, bert_forward, registry, dev):
@@ -1454,10 +1554,12 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn))
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
         c["max_abs_err"] for c in ces))
+    # the two backward kernels also at BERT-base's phase-2 shapes (S = 512;
+    # 32 x 76 MLM rows)
     kern["flash_attention_bwd"] = dict(attn_bwd[0], max_abs_err=max(
-        c["max_abs_err"] for c in attn_bwd))
+        c["max_abs_err"] for c in attn_bwd), phase2=_timed(attn_bwd[1]))
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
-        c["max_abs_err"] for c in ce_bwd))
+        c["max_abs_err"] for c in ce_bwd), phase2=_timed(ce_bwd[2]))
     # csr_spmm at layer 2's forward (F = 256); epoch_ms sums the three
     # shapes an epoch launches
     kern["csr_spmm"] = dict(spmm[1], max_abs_err=max(
@@ -1477,12 +1579,24 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
         bound_by=v["bound"][1], library_ms=v["library_ms"],
         **{f: v[f] for f in ("launched_ms", "plain_launched_ms",
-                             "library_launched_ms", "shape", "epoch_ms")
+                             "library_launched_ms", "shape", "epoch_ms",
+                             "phase2")
            if f in v})
         for k, v in kern.items()]}
 
 
-def main():
+def _timed(case):
+    """A case's shape, times and bound, for the kernels line."""
+    return {"shape": case["shape"], "bound_ms": case["bound"][0],
+            **{f: case[f] for f in ("ms", "launched_ms", "plain_ms",
+                                    "library_ms")}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bert-kernels", action="store_true",
+                    help="stop after the BERT path's kernel checks")
+    args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
                                          cnn_main, ctr_main, gnn_main)
@@ -1513,6 +1627,7 @@ def main():
     libs = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p) for p in libs.values()])
+    tensor_core_phase(_build)
 
     # -- 3. kernels against their plain versions ---------------------------
     kern = kernel_phase(fused_opt, dev, bw, f32)
@@ -1531,6 +1646,8 @@ def main():
     ce_bwd = ce_bwd_phase(fused_ce, dev, bw, bf16)
     emit("fused_linear_nll_bwd_checked",
          tolerance=TOL["fused_linear_nll_bwd"], cases=ce_bwd)
+    if args.bert_kernels:
+        return 0
 
     # -- 4. train the full-width MLP through the executor ------------------
     data = cnn_main.load_dataset("CIFAR10")

@@ -2,8 +2,9 @@
 plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles alone into
-``csrc/build/<name>-<hash>.so``, where the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. The
+``csrc/build/<name>-<hash>.so``, where the hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. The
 build runs at first use (or from :func:`build_all`, which starts one
 ``nvcc`` per source, all at once). A missing ``nvcc`` or a failed build
 raises with nvcc's stderr; nothing falls back to a plain version.
@@ -13,8 +14,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -53,9 +56,19 @@ def _source(name: str) -> str:
     return os.path.join(CSRC, name + ".cu")
 
 
+def headers() -> list[str]:
+    """The ``csrc/*.cuh`` headers a source may include."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def library_path(name: str) -> str:
-    with open(_source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The built library's path: its hash covers the source, every header
+    of ``csrc/`` and the flags."""
+    digest = hashlib.sha256()
+    for path in [_source(name)] + [os.path.join(CSRC, h) for h in headers()]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -107,3 +120,64 @@ def load(name: str) -> ctypes.CDLL:
             out = _finish(name, *_start(find_nvcc(), name))
             lib = _libs[name] = ctypes.CDLL(out)
         return lib
+
+
+# the SASS instructions resources() counts: the tensor cores' (wgmma,
+# mma.sync) and cp.async's
+SASS_OPS = ("HGMMA", "HMMA", "LDGSTS")
+
+
+def resources(name: str) -> list[dict]:
+    """Compile ``csrc/<name>.cu`` once more, with ``-Xptxas -v``, into a
+    temporary directory (not the build directory) and read back, per
+    kernel: ptxas's registers, spill bytes and static shared memory, and
+    the count of each of :data:`SASS_OPS` in its SASS
+    (``cuobjdump -sass``)."""
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, name + ".so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
+                               _source(name)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc failed on csrc/{name}.cu:\n"
+                                   f"{proc.stderr}{proc.stdout}")
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
+            capture_output=True, text=True, check=True).stdout
+    return read_resources(proc.stdout + proc.stderr, sass)
+
+
+def read_resources(ptxas: str, sass: str) -> list[dict]:
+    """Per kernel, in the order ptxas compiled them: its registers, spill
+    bytes and static shared memory from ptxas's ``-v`` report, and the
+    count of each of :data:`SASS_OPS` in ``cuobjdump -sass``'s listing."""
+    kernels, fn = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = kernels.setdefault(m.group(1), {"kernel": m.group(1)})
+            continue
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("static_smem", r"(\d+) bytes smem")):
+            m = re.search(pattern, line)
+            if m and fn is not None:
+                fn[key] = int(m.group(1))
+    fn = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = kernels.setdefault(m.group(1), {"kernel": m.group(1)})
+            fn.update({op: 0 for op in SASS_OPS})
+        elif fn is not None:
+            for op in SASS_OPS:
+                fn[op] += re.search(rf"\b{op}\b", line) is not None
+    filt = shutil.which("c++filt")
+    if filt and kernels:
+        names = subprocess.run([filt], input="\n".join(kernels),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for name, k in zip(names, kernels.values()):
+            k["kernel"] = name
+    return list(kernels.values())

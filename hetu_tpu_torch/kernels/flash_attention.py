@@ -18,10 +18,13 @@ launches (12 in the forward, 12 in the recompute) and 12 backward ones.
 Bounds on an H100 SXM at the BERT-base shape (B=32, H=12, S=128, D=64,
 bf16): forward 4·B·H·S²·D = 1.6 GFLOP against 25 MB of q, k, v and o
 (7.5 us of memory time); backward 10·B·H·S²·D = 4.0 GFLOP against 50 MB
-of q, k, v, o, dO, dq, dk and dv (15 us). Both memory-bound. The first
-kernels do their products in f32 on the CUDA cores, so they are bound by
-their own arithmetic; they never write an (S, S) tensor (the source's
-header has the design).
+of q, k, v, o, dO, dq, dk and dv (15 us). Both memory-bound. The forward
+and the f32 backward do their products in f32 on the CUDA cores, bound by
+their own arithmetic; the bf16 backward runs them on the tensor cores
+(mma.sync, bf16 tiles in shared memory, f32 accumulators), its dq kernel
+computing ``delta = rowsum(dO·O)`` for the dkv kernel. None writes an (S, S)
+tensor (the source's header has the design); the backward's grid and the
+tiles each of its blocks visits are :func:`bwd_plan`'s.
 
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 dispatches under the mode its forward ran under (``registry.bind``).
@@ -35,6 +38,7 @@ Pallas kernels' block skipping: what a CPU tensor runs, what
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -48,6 +52,58 @@ DEFAULT_BLOCK_K = 128
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # the head_dims csrc/flash_attention.cu is built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernels' tile: 64 query rows (dq) or keys (dkv) a block,
+# 64 keys (query rows) a step (kBQ = kBK in csrc/flash_attention.cu)
+TILE = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's work split, which ``hetu_flash_attention_bwd``
+    launches as given: the grid ``(B·H, ceil(S / TILE))`` of its dq and dkv
+    kernels; for each query tile, how many key tiles its dq block visits
+    (from the first on); for each key tile, the first query tile its dkv
+    block visits (to the last)."""
+    grid: tuple
+    dq_key_tiles: tuple
+    dkv_first_query_tile: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def _visit_tiles(seq, causal, block_q, block_k):
+    """``(dq_key_tiles, dkv_first_query_tile)`` of :class:`BwdPlan`: the
+    tiles holding every (query row, key) pair the reference visits, by
+    :func:`_visit_limit`'s rule. The limit rises with the row, so a query
+    tile's last row visits the most keys, and the rows that visit a key
+    tile are those from the first whose limit lies past its first key."""
+    n_t = -(-seq // TILE)
+    limit = _visit_limit(seq, causal, block_q, block_k, "cpu")
+    if limit is None:
+        return (n_t,) * n_t, (0,) * n_t
+    limit = limit.clamp(max=seq).tolist()
+    dq = tuple(-(-limit[min((i + 1) * TILE, seq) - 1] // TILE)
+               for i in range(n_t))
+    first, row = [], 0
+    for j in range(n_t):
+        while limit[row] <= j * TILE:
+            row += 1
+        first.append(row // TILE)
+    return dq, tuple(first)
+
+
+def bwd_plan(batch, heads, seq, causal, block_q, block_k):
+    """The backward's work split for ``(batch, heads, seq, ·)`` inputs and
+    the caller's ``(block_q, block_k)`` blocks."""
+    return BwdPlan((batch * heads, -(-seq // TILE)),
+                   *_visit_tiles(seq, bool(causal), block_q, block_k))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_array(plan, device):
+    """The plan's tiles as the kernels read them: ``dq_key_tiles`` then
+    ``dkv_first_query_tile``, int32 on the device."""
+    return torch.tensor(plan.dq_key_tiles + plan.dkv_first_query_tile,
+                        dtype=torch.int32, device=device)
 
 
 @functools.cache
@@ -61,8 +117,8 @@ def _lib() -> ctypes.CDLL:
         I64, I64, ctypes.c_int, P]
     lib.hetu_flash_attention_fwd.restype = ctypes.c_int
     lib.hetu_flash_attention_bwd.argtypes = [
-        P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64, ctypes.c_float,
-        ctypes.c_int, I64, I64, ctypes.c_int, P]
+        P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64, ctypes.c_float,
+        ctypes.c_int, I64, I64, I64, I64, P, ctypes.c_int, P]
     lib.hetu_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
@@ -226,22 +282,24 @@ def _flash_bwd_plain(q, k, v, o, lse, do, k_bias, *, scale, causal,
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, k_bias, *, scale, causal,
                       block_q, block_k):
-    """Launch ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (two
-    CUDA kernels, counted as one launch); ``delta = rowsum(dO·O)`` in f32
-    is computed here first, as the reference computes it in XLA. Returns
-    ``(dq, dk, dv)``."""
+    """Launch the dq and the dkv kernel of :func:`bwd_plan` (CUDA kernels
+    counted as one launch); ``delta = rowsum(dO·O)`` in f32 is computed in
+    that sequence (bf16: by the dq kernel; f32: by a kernel before it), as
+    the reference computes it in XLA. Returns ``(dq, dk, dv)``."""
     B, H, S, D = q.shape
-    delta = (do.float() * o.float()).sum(-1)
+    plan = bwd_plan(B, H, S, causal, block_q, block_k)
+    tiles = _plan_array(plan, q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.hetu_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if k_bias is None else k_bias.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B * H, H, S, D, float(scale),
-            int(causal), block_q, block_k, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            dk.data_ptr(), dv.data_ptr(), H, S, D, float(scale), int(causal),
+            block_q, block_k, *plan.grid, tiles.data_ptr(),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -18,14 +18,16 @@ step) and the LM ``loss_fn``.
 Bounds on an H100 SXM at the BERT-base MLM shape (N = 32·20 = 640,
 V = 30522, D = 768, bf16): forward 2·N·V·D = 30 GFLOP (30 us of
 tensor-core time, 14 us of memory time); backward 3·2·N·V·D = 90 GFLOP
-(91 us) against 94 MB of W and dW (28 us). Both compute-bound. The first
-kernels do their products in f32 on the CUDA cores, so they are bound by
-their own arithmetic. The forward splits the vocabulary across blocks to
-fill the 132 SMs and merges the splits in a second pass; the backward
-walks the vocabulary in chunks, computing the logits once per chunk into
-an N × chunk slab of g (at most 16 MB) that its dh and dW products read
-(the source's header has the design). Each wrapper counts its CUDA
-kernels as one launch.
+(91 us) against 94 MB of W and dW (28 us). Both compute-bound. The
+forward does its products in f32 on the CUDA cores, splitting the
+vocabulary across blocks to fill the 132 SMs and merging the splits in a
+second pass. The backward walks the vocabulary in chunks, computing the
+logits once per chunk into an N × chunk slab of g that its dh and dW
+products read; in bf16 every product runs on the tensor cores (wgmma,
+bf16 operands, f32 accumulators) and the slab is bf16, in f32 on the CUDA
+cores (the source's header has the design). Its work split is
+:func:`bwd_plan`'s, which the C launch loop walks as given. Each wrapper
+counts its CUDA kernels as one launch.
 
 The backward dispatches under the mode the forward ran under
 (``registry.bind``).
@@ -39,7 +41,9 @@ against.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import typing
 
 import torch
 
@@ -53,6 +57,109 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's grid aims at two blocks for each of the H100's 132 SMs
 _TARGET_BLOCKS = 2 * 132
 _ROWS_PER_BLOCK = 64
+# the backward: the g slab's cap (16 MB: a chunk's slab, with the chunk of
+# W beside it, stays in the 50 MB L2 between the products that read it);
+# the output tile of the f32 kernels (kTile in csrc/fused_ce.cu), and the
+# bf16 kernels' output tile and the depth of one of their stages (kTcM =
+# kTcN, kTcK)
+SLAB_BYTES = 16 << 20
+_F32_TILE = 64
+_TC_TILE, _TC_DEPTH = 128, 64
+
+
+class ChunkLaunch(typing.NamedTuple):
+    """One vocab chunk's launches: its columns ``[c0, c0 + cw)``, the grids
+    of its logits/g, dh and dW kernels, and the dh splits: split ``z`` (the
+    dh kernel's ``blockIdx.z``) adds the chunk's columns
+    ``[bounds[z], bounds[z + 1])`` to dh partial ``z``."""
+    c0: int
+    cw: int
+    g_grid: tuple
+    dh_grid: tuple
+    dw_grid: tuple
+    bounds: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's work split, which ``hetu_fused_linear_nll_bwd``
+    launches as given: the g slab's row stride ``chunk`` (columns), the
+    count ``n_split`` of dh partial buffers (the first chunk stores each of
+    them, later chunks add to as many as they split into), and one
+    :class:`ChunkLaunch` a chunk, in launch order."""
+    chunk: int
+    n_split: int
+    chunks: tuple
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_plan(n_rows, depth, vocab, dtype, w_dv, sm_count=132):
+    """The backward's work split for an ``(n_rows, depth)`` h against a
+    vocabulary of ``vocab``, W in layout "dv" when ``w_dv``, on a card of
+    ``sm_count`` SMs.
+
+    f32 (the CUDA-core kernels' split): chunks of 64-column tiles with an
+    f32 slab of at most ``SLAB_BYTES``; dh partials so that the dh
+    product's 64 × 64 tiles fill about two blocks per SM, each at least 512
+    columns deep, a chunk's columns split into runs of
+    ``ceil(cw / n_split)``. bf16: chunks of 128 columns with a bf16 slab of
+    at most ``SLAB_BYTES``, the vocabulary cut into equal chunks; dh
+    partials so that the dh product's 128 × 128 tiles fill about one block
+    per SM, each at least four 64-deep stages of the first chunk, a chunk's
+    64-deep stages split evenly over ``min(n_split, stages)`` partials."""
+    n = max(n_rows, 1)
+    if dtype == torch.float32:
+        t = _F32_TILE
+        chunk = min(max(SLAB_BYTES // 4 // n // t, 1), _cdiv(vocab, t)) * t
+        out_tiles = _cdiv(n_rows, t) * _cdiv(depth, t)
+        n_split = min(max(_cdiv(2 * sm_count, out_tiles), 1),
+                      max(chunk // 512, 1))
+
+        def bounds(cw):
+            return tuple(range(0, cw, _cdiv(cw, n_split))) + (cw,)
+    else:
+        t = _TC_TILE
+        cap = max(SLAB_BYTES // 2 // n // t, 1) * t
+        per_chunk = _cdiv(vocab, _cdiv(vocab, cap))   # equal chunks <= cap
+        chunk = _cdiv(per_chunk, t) * t
+        out_tiles = _cdiv(n_rows, t) * _cdiv(depth, t)
+        n_split = min(max(_cdiv(sm_count, out_tiles), 1),
+                      max(_cdiv(min(chunk, vocab), _TC_DEPTH) // 4, 1))
+
+        def bounds(cw):
+            stages = _cdiv(cw, _TC_DEPTH)
+            ns = min(n_split, stages)
+            return tuple(min(z * stages // ns * _TC_DEPTH, cw)
+                         for z in range(ns + 1))
+    chunks = []
+    for c0 in range(0, vocab, chunk):
+        cw = min(chunk, vocab - c0)
+        kb = bounds(cw)
+        dw = ((_cdiv(depth, t), _cdiv(cw, t)) if w_dv
+              else (_cdiv(cw, t), _cdiv(depth, t)))
+        chunks.append(ChunkLaunch(
+            c0, cw, (_cdiv(n_rows, t), _cdiv(cw, t)),
+            (_cdiv(n_rows, t), _cdiv(depth, t), len(kb) - 1), dw, kb))
+    return BwdPlan(chunk, n_split, tuple(chunks))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_arrays(plan, device):
+    """The plan as ``hetu_fused_linear_nll_bwd`` reads it: a host table of
+    int64, one row a chunk (c0, cw, the g grid's x and y, the dh grid's x,
+    y and z, the dW grid's x and y), and the dh splits' bounds on the
+    device, ``n_split + 1`` int32 a chunk (a chunk of fewer splits repeats
+    its last bound)."""
+    table = torch.tensor([(c.c0, c.cw, *c.g_grid, *c.dh_grid, *c.dw_grid)
+                          for c in plan.chunks], dtype=torch.int64)
+    width = plan.n_split + 1
+    bounds = torch.tensor([c.bounds + c.bounds[-1:] * (width - len(c.bounds))
+                           for c in plan.chunks], dtype=torch.int32)
+    return table, bounds.to(device)
 
 
 def should_fuse(flag, mesh=None, device=None) -> bool:
@@ -77,10 +184,9 @@ def _lib() -> ctypes.CDLL:
     lib.hetu_linear_nll_tile_width.argtypes = []
     lib.hetu_linear_nll_tile_width.restype = I
     lib.hetu_fused_linear_nll_bwd.argtypes = [
-        P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64, I64, I, I, P]
+        P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64, I64, P, I64,
+        P, I, I, P]
     lib.hetu_fused_linear_nll_bwd.restype = I
-    lib.hetu_linear_nll_bwd_plan.argtypes = [I64, I64, I64, I64, P]
-    lib.hetu_linear_nll_bwd_plan.restype = None
     return lib
 
 
@@ -202,31 +308,37 @@ def _linear_nll_bwd_plain(h, w, b, targets, lse, ct, *, block_n, block_v,
 
 def _linear_nll_bwd_kernel(h, w, b, targets, lse, ct, *, block_n, block_v,
                            w_dv):
-    """Launch, per vocab chunk, ``linear_nll_bwd_g_kernel`` (g into an
-    N × chunk f32 slab), the db column sums and the dh and dW products,
-    then the sum of the dh partials (CUDA kernels counted as one launch);
-    returns ``(dh, dW, db)``."""
+    """Launch the chunks of :func:`bwd_plan`: per chunk the logits/g kernel
+    (g into an N × chunk slab), the dh and dW products (and, f32, the db
+    column sums), then the sums of the dh partials (and, bf16, of db's
+    column partials); CUDA kernels counted as one launch. Returns
+    ``(dh, dW, db)``."""
     del block_n, block_v   # the kernels' tiles are their own
     N, D = h.shape
     V = _vocab(w, w_dv)
     lib = _lib()
-    plan = (ctypes.c_int64 * 2)()
-    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    lib.hetu_linear_nll_bwd_plan(N, D, V, sms, plan)
-    chunk, n_split = plan
-    g = torch.empty((N, chunk), dtype=torch.float32, device=h.device)
-    dh_part = torch.empty((n_split, N, D), dtype=torch.float32,
-                          device=h.device)
+    dev = h.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = bwd_plan(N, D, V, h.dtype, w_dv, sms)
+    table, bounds = _plan_arrays(plan, dev)
+    g = torch.empty((N, plan.chunk), dtype=h.dtype, device=dev)
+    dh_part = torch.empty((plan.n_split, N, D), dtype=torch.float32,
+                          device=dev)
+    # bf16: db's column partials, one row per row block of the g grid
+    bf16 = h.dtype == torch.bfloat16
+    db_part = torch.empty((plan.chunks[0].g_grid[0], V) if bf16 else (0,),
+                          dtype=torch.float32, device=dev)
     dh = torch.empty_like(h)
     dw = torch.empty_like(w)
-    db = torch.empty((V,), dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
+    db = torch.empty((V,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         rc = lib.hetu_fused_linear_nll_bwd(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), targets.data_ptr(),
             lse.data_ptr(), ct.data_ptr(), g.data_ptr(), dh_part.data_ptr(),
-            dh.data_ptr(), dw.data_ptr(), db.data_ptr(), N, D, V, chunk,
-            n_split, int(w_dv), _DTYPE_CODE[h.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            db_part.data_ptr(), dh.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            N, D, V, plan.chunk, plan.n_split, table.data_ptr(),
+            len(plan.chunks), bounds.data_ptr(), int(w_dv),
+            _DTYPE_CODE[h.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_linear_nll_bwd: kernel launch failed with "
                            f"CUDA error {rc}")

@@ -302,6 +302,104 @@ def test_fused_ce_bwd_kernel_matches_plain(dev, n, v, d, layout, dtype):
     assert registry.launch_counts()["fused_linear_nll_bwd"] == 1
 
 
+# The tensor-core (bf16) backward kernels at the phase-2 shapes and at
+# ragged ones (misaligned rows of W and h, D and S not multiples of a tile,
+# a fully padded row), under the same gates; and each run twice on the same
+# inputs, bit for bit.
+
+def _ce_bwd_inputs(dev, n, v, d, layout, dtype, seed=5):
+    rng = np.random.RandomState(seed)
+    h = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.randn(v, d).astype(np.float32) * 0.05).to(
+        dev, dtype)
+    if layout == "dv":
+        w = w.t().contiguous()
+    b = torch.from_numpy(rng.randn(v).astype(np.float32) * 0.1).to(dev)
+    t = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(dev)
+    ct = torch.from_numpy(rng.rand(n).astype(np.float32) / n).to(dev)
+    from hetu_tpu_torch.kernels import fused_ce as ce
+    kw = dict(block_n=128, block_v=512, w_dv=layout == "dv")
+    lse, _ = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
+    return (h, w, b, t, lse, ct), kw
+
+
+@pytest.mark.parametrize("n,v,d,layout", [
+    (2432, 30522, 768, "vd"),    # BERT-base MLM, phase 2 (32 x 76 rows)
+    (33, 517, 48, "vd"),
+    (20, 300, 1100, "dv"),       # rows of W and h not 16-byte aligned
+])
+def test_fused_ce_bwd_bf16_phase2_and_ragged(dev, n, v, d, layout):
+    from hetu_tpu_torch.kernels import fused_ce as ce
+    args, kw = _ce_bwd_inputs(dev, n, v, d, layout, torch.bfloat16)
+    want = ce._linear_nll_bwd_plain(*args, **kw)
+    with registry.active("auto"):
+        got = registry.dispatch("fused_linear_nll_bwd", *args, **kw)
+    for name, g, ww in zip(("dh", "dW", "db"), got, want):
+        assert g.dtype == ww.dtype, name
+        torch.testing.assert_close(
+            g.float(), ww.float(),
+            **(dict(rtol=0, atol=1e-3) if name == "db"
+               else dict(rtol=2e-2, atol=2e-2)))
+        assert _rel_l2(g, ww) <= 1e-2, name
+    t = args[3]
+    free = torch.ones(v, dtype=torch.bool, device=dev)
+    free[t.long()] = False
+    vocab_major = (lambda x: x.t()) if layout == "dv" else (lambda x: x)
+    assert _rel_l2(vocab_major(got[1])[free],
+                   vocab_major(want[1])[free]) <= 1e-2
+    assert _rel_l2(got[2][free], want[2][free]) <= 1e-2
+    assert registry.launch_counts()["fused_linear_nll_bwd"] == 1
+
+
+@pytest.mark.parametrize("b,s,d,causal,full_pad", [
+    (32, 512, 64, False, False),   # BERT-base layer, phase 2
+    (4, 96, 16, True, True),
+    (4, 256, 128, True, True),
+])
+def test_flash_bwd_bf16_phase2_and_ragged(dev, b, s, d, causal, full_pad):
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    q, k, v, kb = _bert_attention(dev, b=b, s=s, d=d, dtype=torch.bfloat16,
+                                  seed=3)
+    if full_pad:
+        kb[0] = -1e30
+    do = _rand(q.shape, 4, dev).to(torch.bfloat16)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
+              block_k=min(128, s))
+    o, lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
+    want = fa._flash_bwd_plain(q, k, v, o, lse, do, kb, **kw)
+    with registry.active("auto"):
+        got = registry.dispatch("flash_attention_bwd", q, k, v, o, lse, do,
+                                kb, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2)
+        assert _rel_l2(g, w) <= 1e-2, name
+    assert registry.launch_counts()["flash_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("kernel", ["fused_linear_nll_bwd",
+                                    "flash_attention_bwd"])
+def test_bf16_backward_kernels_repeat_bit_for_bit(dev, kernel):
+    if kernel == "fused_linear_nll_bwd":
+        args, kw = _ce_bwd_inputs(dev, 640, 30522, 768, "vd",
+                                  torch.bfloat16)
+    else:
+        from hetu_tpu_torch.kernels import flash_attention as fa
+        q, k, v, kb = _bert_attention(dev, b=8, s=128, d=64,
+                                      dtype=torch.bfloat16, seed=3)
+        do = _rand(q.shape, 4, dev).to(torch.bfloat16)
+        kw = dict(scale=0.125, causal=False, block_q=128, block_k=128)
+        o, lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
+        args = (q, k, v, o, lse, do, kb)
+    with registry.active("auto"):
+        first = registry.dispatch(kernel, *args, **kw)
+        second = registry.dispatch(kernel, *args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert registry.launch_counts()[kernel] == 2
+
+
 def test_ineligible_backward_calls_raise(dev):
     from hetu_tpu_torch.kernels import flash_attention as fa, fused_ce as ce
     q, k, v, kb = _bert_attention(dev, b=2, s=128)

@@ -232,3 +232,65 @@ def test_cpu_takes_the_plain_version_and_force_raises():
         with pytest.raises(registry.KernelEligibilityError, match="CPU"):
             tfa.flash_attention(q, k, v)
     assert registry.launch_counts()["flash_attention_fwd"] == 0
+
+
+# -- the backward's work split (bwd_plan), which the kernels read ----------
+# The BERT-base layer at phase 1 (S = 128) and phase 2 (S = 512, and a
+# causal 512), and the ragged cases of the card tests: S = 96 against the
+# 64-row tiles, causal blocks smaller than the tile.
+PLAN_CASES = [(128, False, 128, 128), (512, False, 128, 128),
+              (512, True, 128, 128), (96, True, 96, 96),
+              (256, True, 128, 128), (192, True, 64, 32), (64, False, 64, 64)]
+
+
+def _needed_tile_pairs(s, causal, block_q, block_k):
+    """The (query tile, key tile) pairs holding a (row, key) pair the
+    reference visits."""
+    limit = tfa._visit_limit(s, causal, block_q, block_k, "cpu")
+    lim = [s if limit is None else min(int(limit[r]), s) for r in range(s)]
+    return {(r // tfa.TILE, c // tfa.TILE) for r in range(s)
+            for c in range(0, lim[r], tfa.TILE)}
+
+
+@pytest.mark.parametrize("b,h", [(2, 3), (32, 12)])
+@pytest.mark.parametrize("s,causal,block_q,block_k", PLAN_CASES)
+def test_bwd_plan_visits_every_tile_pair_the_reference_visits(
+        s, causal, block_q, block_k, b, h):
+    plan = tfa.bwd_plan(b, h, s, causal, block_q, block_k)
+    n_t = -(-s // tfa.TILE)
+    # one dq block per query tile and one dkv block per key tile
+    assert plan.grid == (b * h, n_t)
+    need = _needed_tile_pairs(s, causal, block_q, block_k)
+    # the dq block of query tile i visits key tiles 0 .. n - 1 once each,
+    # the dkv block of key tile j query tiles first .. n_t - 1: every pair
+    # the reference visits, and no tile past the last (before the first)
+    # such pair
+    assert len(plan.dq_key_tiles) == len(plan.dkv_first_query_tile) == n_t
+    for i, n in enumerate(plan.dq_key_tiles):
+        assert n == 1 + max(j for qi, j in need if qi == i)
+    for j, first in enumerate(plan.dkv_first_query_tile):
+        assert first == min(qi for qi, kj in need if kj == j)
+    dq = {(i, j) for i in range(n_t) for j in range(plan.dq_key_tiles[i])}
+    dkv = {(i, j) for j in range(n_t)
+           for i in range(plan.dkv_first_query_tile[j], n_t)}
+    assert need <= dq and need <= dkv
+    if not causal:
+        assert dq == dkv == need
+
+
+@pytest.mark.parametrize("s,causal,block_q,block_k", PLAN_CASES)
+def test_bwd_plan_array_is_what_the_kernels_read(s, causal, block_q,
+                                                 block_k):
+    plan = tfa.bwd_plan(2, 3, s, causal, block_q, block_k)
+    tiles = tfa._plan_array(plan, torch.device("cpu"))
+    n_t = plan.grid[1]
+    # dq reads tiles[blockIdx.y], dkv tiles[gridDim.y + blockIdx.y]
+    assert tiles.dtype == torch.int32 and tiles.shape == (2 * n_t,)
+    assert tiles[:n_t].tolist() == list(plan.dq_key_tiles)
+    assert tiles[n_t:].tolist() == list(plan.dkv_first_query_tile)
+    # no block is empty: a tile's rows see at least its own diagonal tile
+    assert all(i < n <= n_t for i, n in enumerate(plan.dq_key_tiles)
+               if causal)
+    assert all(0 < n <= n_t for n in plan.dq_key_tiles)
+    assert all(0 <= f <= j for j, f in
+               enumerate(plan.dkv_first_query_tile))

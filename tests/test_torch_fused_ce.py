@@ -203,3 +203,62 @@ def test_cpu_takes_the_plain_version_and_force_raises():
         with pytest.raises(registry.KernelEligibilityError, match="CPU"):
             tce.fused_linear_nll(h, w, b, t)
     assert registry.launch_counts()["fused_linear_nll_fwd"] == 0
+
+
+# -- the backward's work split (bwd_plan), which the C launch loop walks ----
+# BERT-base MLM at phase 1 (32 x 20 rows) and phase 2 (32 x 76), the GPT-2
+# LM head, and the ragged shapes of the card tests (V and D not multiples
+# of a tile, rows of W and h not 16-byte aligned in bf16).
+PLAN_SHAPES = [(640, 30522, 768), (2432, 30522, 768), (1000, 50257, 768),
+               (33, 517, 48), (20, 300, 1100), (40, 3000, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,v,d", PLAN_SHAPES)
+def test_bwd_plan_covers_each_vocab_column_once(n, v, d, dtype):
+    tile = 128 if dtype == torch.bfloat16 else 64
+    for w_dv in (False, True):
+        plan = tce.bwd_plan(n, d, v, dtype, w_dv)
+        table, bounds = tce._plan_arrays(plan, torch.device("cpu"))
+        # the arrays the C entry reads are the plan's chunks
+        assert table.shape == (len(plan.chunks), 9)
+        assert bounds.shape == (len(plan.chunks), plan.n_split + 1)
+        cover = np.zeros(v, np.int64)
+        for i, c in enumerate(plan.chunks):
+            assert table[i].tolist() == [c.c0, c.cw, *c.g_grid, *c.dh_grid,
+                                         *c.dw_grid]
+            ns = c.dh_grid[2]
+            assert bounds[i, :ns + 1].tolist() == list(c.bounds)
+            assert 0 < c.cw <= plan.chunk and c.c0 % tile == 0
+            cover[c.c0:c.c0 + c.cw] += 1
+            # each column of the chunk goes to exactly one dh partial, and
+            # no split is empty
+            kb = c.bounds
+            assert kb[0] == 0 and kb[-1] == c.cw
+            assert all(k1 > k0 for k0, k1 in zip(kb, kb[1:]))
+            assert ns == len(kb) - 1 <= plan.n_split
+            # the first chunk stores every partial buffer, later ones add
+            assert i > 0 or ns == plan.n_split
+            if dtype == torch.bfloat16:
+                assert all(k % 64 == 0 for k in kb[:-1])
+            # the grids cover the chunk's output tiles, and no more
+            assert c.g_grid == (-(-n // tile), -(-c.cw // tile))
+            assert c.dh_grid[:2] == (-(-n // tile), -(-d // tile))
+            rows, cols = (d, c.cw) if w_dv else (c.cw, d)
+            assert c.dw_grid == (-(-rows // tile), -(-cols // tile))
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,v,d", PLAN_SHAPES)
+def test_bwd_plan_scratch_within_its_cap(n, v, d, dtype):
+    plan = tce.bwd_plan(n, d, v, dtype, False)
+    assert n * plan.chunk * dtype.itemsize <= tce.SLAB_BYTES
+    if dtype == torch.bfloat16:
+        # chunks of whole 128-column tiles
+        assert plan.chunk % 128 == 0
+    else:
+        # a 16 MB f32 slab of 64-column tiles, the dh partials at most a
+        # 512-column run of the chunk each
+        assert plan.chunk % 64 == 0
+        assert plan.n_split <= max(plan.chunk // 512, 1)

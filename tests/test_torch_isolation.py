@@ -237,3 +237,35 @@ def test_every_source_is_built_and_keyed_by_its_content():
     assert len({_build.library_path(n) for n in _build.sources()}) == 6
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_resources_reads_ptxas_and_sass():
+    """``_build.read_resources`` on the report shapes ptxas -v and
+    cuobjdump -sass print: registers, spills, static shared memory and the
+    tensor-core and cp.async instructions, per kernel."""
+    ptxas = (
+        "ptxas info    : Compiling entry function 'k_tc' for 'sm_90a'\n"
+        "ptxas info    : Function properties for k_tc\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 99 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function 'k_f32' for 'sm_90a'\n"
+        "ptxas info    : Function properties for k_f32\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 48 registers, used 1 barriers, 16896 bytes "
+        "smem, 416 bytes cmem[0]\n")
+    sass = (
+        "\t\tFunction : k_tc\n"
+        "        /*07c0*/   LDGSTS.E.BYPASS.128 [R4], desc[UR10][R6.64] ;\n"
+        "        /*75c0*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR20], R24 ;\n"
+        "        /*7710*/   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR20], R24 ;\n"
+        "\t\tFunction : k_f32\n"
+        "        /*4f90*/   HMMA.16816.F32.BF16 R12, R16.reuse, R8, RZ ;\n"
+        "        /*4fa0*/   FFMA R1, R2, R3, R1 ;\n")
+    got = {k["kernel"]: k for k in _build.read_resources(ptxas, sass)}
+    assert got["k_tc"] == {"kernel": "k_tc", "spill_stores": 8,
+                           "spill_loads": 4, "registers": 99, "HGMMA": 2,
+                           "HMMA": 0, "LDGSTS": 1}
+    assert got["k_f32"] == {"kernel": "k_f32", "spill_stores": 0,
+                            "spill_loads": 0, "registers": 48,
+                            "static_smem": 16896, "HGMMA": 0, "HMMA": 1,
+                            "LDGSTS": 0}
