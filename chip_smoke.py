@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of hetu_tpu_torch, the PyTorch/CUDA port: builds the
 CUDA kernels from this checkout, checks from their SASS that the bf16
-backward kernels run on the tensor cores, and holds each kernel against
-its plain PyTorch version on the card; trains the full-width MLP of
+kernels of flash attention and the fused CE, forward and backward, run on
+the tensor cores, and holds each kernel against its plain PyTorch version
+on the card; trains the full-width MLP of
 ``examples/cnn/models/MLP.py`` (3072-256-256-10, synthetic CIFAR10, batch
 128) through ``hetu_tpu_torch.Executor``, then trains it data-parallel
 (``comm_mode="AllReduce"``) at world size 1 over NCCL with an explicit
@@ -83,21 +84,27 @@ ATTN_CASES = [(32, 12, 128, 64, torch.bfloat16, False, True),
               (2, 4, 256, 128, torch.float32, True, True)]
 # Fused linear+CE checks (N, V, D, layout), bf16: BERT-base's MLM loss (32
 # rows x 20 slots against the tied (V, D) embedding, with the MLM bias; the
-# main path's shape) and a GPT-2 LM head ((D, V), N ragged against 64).
-CE_CASES = [(640, 30522, 768, "vd"), (1000, 50257, 768, "dv")]
-# The backward also at BERT-base's phase-2 MLM shape (32 rows x 76 slots),
-# and at the MLM shape in f32, where no output rounding hides dh's softmax
-# term (~1e-4 of its onehot term, below a bf16 rounding).
+# main path's shape), a GPT-2 LM head ((D, V), N ragged against 128) and
+# BERT-base's phase-2 MLM shape (32 rows x 76 slots).
+CE_CASES = [(640, 30522, 768, "vd"), (1000, 50257, 768, "dv"),
+            (2432, 30522, 768, "vd")]
+# The backward at the same shapes, and at the MLM shape in f32, where no
+# output rounding hides dh's softmax term (~1e-4 of its onehot term, below
+# a bf16 rounding).
 CE_BWD_CASES = ([c + (torch.bfloat16,) for c in CE_CASES]
-                + [(2432, 30522, 768, "vd", torch.bfloat16),
-                   (640, 30522, 768, "vd", torch.float32)])
-# Kernel vs plain version: o in bf16 may differ by one bf16 rounding (the
-# same f32 sums in another order); f32 by summation order alone; lse, the
-# target logit and the NLL are f32 sums over 128 keys or 30k-50k logits.
+                + [(640, 30522, 768, "vd", torch.float32)])
+# Kernel vs plain version: o in bf16 may differ by one bf16 rounding of o
+# and of p (the bf16 kernel rounds p once to bf16 as it enters p.V; the
+# plain version keeps it f32), so it is also held by its relative L2 error,
+# as the backward's outputs are (an absolute 2e-2 alone would pass zeros);
+# f32 by summation order alone; lse, the target logit and the NLL are f32
+# sums over 128-512 keys or 30k-50k logits. Each bf16 kernel is bit-equal
+# to itself on a rerun.
 TOL.update({
     "flash_attention_fwd": {"o_bf16": dict(rtol=2e-2, atol=2e-2),
                             "o_f32": dict(rtol=2e-5, atol=2e-5),
-                            "lse": dict(rtol=0, atol=1e-3)},
+                            "lse": dict(rtol=0, atol=1e-3),
+                            "rel_l2_bf16": 1e-2},
     "fused_linear_nll_fwd": {"lse_tl_nll": dict(rtol=0, atol=1e-3)},
     # the backward kernels against their plain versions: each gradient is
     # an f32 sum rounded once to the output dtype on both sides, so bf16
@@ -221,10 +228,17 @@ DP_MODES, DP_CHECK_STEPS, DP_CURVE_STEPS = ("off", "int8", "fp8"), 5, 20
 DP_CURVE_TOL = {"int8": 2e-2, "fp8": 1e-1}
 DP_LAUNCHES = {"quant_blocks": 3, "dequant_blocks": 3}
 
-# The bf16 backward kernels (the *_tc_kernel functions of each source) and
-# the SASS instruction each must hold: wgmma (HGMMA) in the fused CE's,
-# mma.sync (HMMA) in flash attention's.
-TC_SASS = {"fused_ce": "HGMMA", "flash_attention": "HMMA"}
+# The bf16 kernels, forward and backward (the *_tc_kernel functions of each
+# source), and the SASS instruction each must hold: wgmma (HGMMA) in the
+# fused CE's, mma.sync (HMMA) in flash attention's. Every one named here
+# must be found, in each of its template instances.
+TC_SASS = {"fused_ce": {"linear_nll_fwd_tc_kernel": "HGMMA",
+                        "linear_nll_bwd_g_tc_kernel": "HGMMA",
+                        "linear_nll_bwd_dh_tc_kernel": "HGMMA",
+                        "linear_nll_bwd_dw_tc_kernel": "HGMMA"},
+           "flash_attention": {"flash_fwd_tc_kernel": "HMMA",
+                               "flash_bwd_dq_tc_kernel": "HMMA",
+                               "flash_bwd_dkv_tc_kernel": "HMMA"}}
 
 # Peak rates for the bound, by card name: device-memory bytes/s, float32
 # (non-tensor-core) flop/s and bf16 dense tensor-core flop/s, from NVIDIA's
@@ -321,17 +335,27 @@ def rel_errs(names, got, want, limit, what):
 
 
 def tensor_core_phase(build):
-    """The bf16 backward kernels run on the tensor cores: each one's SASS
-    holds its tensor-core instruction (TC_SASS), read with its registers
-    and spills from a second compile of its source."""
+    """The bf16 kernels run on the tensor cores: each kernel TC_SASS names
+    is found, and each of its instances' SASS holds its tensor-core
+    instruction, read with its registers and spills from a second compile
+    of its source."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(TC_SASS)) as pool:
         found = dict(zip(TC_SASS, pool.map(build.resources, TC_SASS)))
     kernels = []
-    for src, op in TC_SASS.items():
+    for src, want in TC_SASS.items():
+        # no name of TC_SASS holds another, so a substring names a kernel,
+        # mangled or not
         tc = [k for k in found[src] if "_tc_kernel" in k["kernel"]]
-        check(tc and all(k.get(op, 0) > 0 for k in tc),
-              f"csrc/{src}.cu: a bf16 backward kernel without {op}: {tc}")
+        for name, op in want.items():
+            inst = [k for k in tc if name in k["kernel"]]
+            check(inst and all(k.get(op, 0) > 0 for k in inst),
+                  f"csrc/{src}.cu: {name} not found or without {op}: "
+                  f"{inst or [k['kernel'] for k in found[src]]}")
+        unnamed = [k["kernel"] for k in tc
+                   if not any(n in k["kernel"] for n in want)]
+        check(not unnamed, f"csrc/{src}.cu: bf16 kernels TC_SASS does not "
+              f"name: {unnamed}")
         kernels += [{"source": src, **k} for k in tc]
     emit("tensor_cores", seconds=time.perf_counter() - t0, kernels=kernels)
 
@@ -417,8 +441,10 @@ def _attention_inputs(gen, dev, b, h, s, d, dtype, pad):
 
 
 def attention_phase(fa, dev, bw, f32, bf16):
-    """flash_attention_fwd against its plain version (and, in f32, against
-    unfused attention) at ATTN_CASES; timed at each case."""
+    """flash_attention_fwd against its plain version (bf16 o also by its
+    relative L2 error; in f32, also against unfused attention) at
+    ATTN_CASES, each kernel run twice and held bit-equal to itself; timed
+    at each case."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(1)
     tol = TOL["flash_attention_fwd"]
@@ -428,13 +454,21 @@ def attention_phase(fa, dev, bw, f32, bf16):
         kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
                   block_k=min(128, s))
         o, lse = fa._flash_fwd_kernel(q, k, v, kb, **kw)
+        again = fa._flash_fwd_kernel(q, k, v, kb, **kw)
         want_o, want_lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
         torch.cuda.synchronize()
-        o_tol = tol["o_bf16"] if dtype == torch.bfloat16 else tol["o_f32"]
+        what = f"flash_attention_fwd {[b, h, s, d]} {str(dtype)[6:]}"
+        check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+              f"{what}: two runs differ")
+        bf = dtype == torch.bfloat16
+        o_tol = tol["o_bf16"] if bf else tol["o_f32"]
         case = {"shape": [b, h, s, d], "dtype": str(dtype)[6:],
-                "causal": causal, "key_padding": pad,
+                "causal": causal, "key_padding": pad, "rerun_bit_equal": True,
                 "o_max_abs_err": max_err(o.float(), want_o.float(), o_tol),
                 "lse_max_abs_err": max_err(lse, want_lse, tol["lse"])}
+        if bf:
+            case["o_rel_l2"] = rel_errs(("o",), (o,), (want_o,),
+                                        tol["rel_l2_bf16"], what)["o"]
         if dtype == torch.float32:
             sc = torch.matmul(q, k.transpose(-1, -2)) * kw["scale"]
             if kb is not None:
@@ -469,7 +503,8 @@ def attention_phase(fa, dev, bw, f32, bf16):
 
 
 def ce_phase(ce, dev, bw, bf16):
-    """fused_linear_nll_fwd against its plain version at CE_CASES, timed."""
+    """fused_linear_nll_fwd against its plain version at CE_CASES, the
+    kernel run twice and held bit-equal to itself; timed."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = TOL["fused_linear_nll_fwd"]["lse_tl_nll"]
     cases = []
@@ -485,8 +520,11 @@ def ce_phase(ce, dev, bw, bf16):
                           dtype=torch.int32)
         kw = dict(block_n=128, block_v=512, w_dv=w_dv)
         lse, tl = ce._linear_nll_fwd_kernel(h, w, b, t, **kw)
+        again = ce._linear_nll_fwd_kernel(h, w, b, t, **kw)
         want_lse, want_tl = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(lse, again[0]) and torch.equal(tl, again[1]),
+              f"fused_linear_nll_fwd {[n, v, d]} {layout}: two runs differ")
         err = max(max_err(lse, want_lse, tol), max_err(tl, want_tl, tol),
                   max_err(lse - tl, want_lse - want_tl, tol))
 
@@ -497,7 +535,8 @@ def ce_phase(ce, dev, bw, bf16):
 
         cases.append({
             "shape": [n, v, d], "layout": layout, "dtype": "bfloat16",
-            "max_abs_err": err, "mean_nll": float((lse - tl).mean()),
+            "rerun_bit_equal": True, "max_abs_err": err,
+            "mean_nll": float((lse - tl).mean()),
             # read h, W, b and the targets once; write lse and tl
             "bound": bound(2 * (n * d + v * d) + 4 * v + 4 * n + 8 * n,
                            2 * n * v * d, bw, bf16),
@@ -1548,14 +1587,14 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                "quant_blocks": "quant_comm.cu",
                "dequant_blocks": "quant_comm.cu"}
     # the BERT kernels' entries are timed at the main path's shapes (their
-    # first cases); max_abs_err is the largest over all their cases
+    # first cases), and also at BERT-base's phase-2 shapes (S = 512; 32 x 76
+    # MLM rows); max_abs_err is the largest over all their cases
     kern = dict(kern)
     kern["flash_attention_fwd"] = dict(attn[0], max_abs_err=max(
-        max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn))
+        max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn),
+        phase2=_timed(attn[1]))
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
-        c["max_abs_err"] for c in ces))
-    # the two backward kernels also at BERT-base's phase-2 shapes (S = 512;
-    # 32 x 76 MLM rows)
+        c["max_abs_err"] for c in ces), phase2=_timed(ces[2]))
     kern["flash_attention_bwd"] = dict(attn_bwd[0], max_abs_err=max(
         c["max_abs_err"] for c in attn_bwd), phase2=_timed(attn_bwd[1]))
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(

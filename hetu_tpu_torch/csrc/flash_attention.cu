@@ -20,30 +20,58 @@
 // Bounds on an H100 SXM at the BERT-base shape (B=32, H=12, S=128, D=64,
 // bf16). Forward: 4*B*H*S*S*D = 1.6 GFLOP against reading q, k, v and
 // writing o once, 25 MB: 1.6 us at 989 TFLOP/s and 7.5 us at 3.35 TB/s, so
-// the bound is the memory. Backward: 10*B*H*S*S*D = 4.0 GFLOP (4.1 us)
-// against reading q, k, v, o, dO and writing dq, dk, dv, 50 MB (15 us):
-// memory again. The forward and the f32 backward compute every product
-// with f32 FMAs on the CUDA cores (67 TFLOP/s peak), bound by their own
-// arithmetic; their design point is to be right and to read each operand
-// tile once per block from device memory. The bf16 backward (the main
-// path's) runs its products on the tensor cores (mma.sync m16n8k16, bf16
-// in, f32 accumulate): its seven products (s and dp are computed in both
-// kernels) are some 5.6 GFLOP, a few microseconds of tensor-core time, so
-// what bounds it is its memory traffic and latency.
+// the bound is the memory (at S = 512: 25.8 GFLOP, 26 us, against 100 MB,
+// 30 us). Backward: 10*B*H*S*S*D = 4.0 GFLOP (4.1 us) against reading q,
+// k, v, o, dO and writing dq, dk, dv, 50 MB (15 us): memory again. The bf16
+// kernels (the main path's) run their products on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate); the f32 ones compute every
+// product with f32 FMAs on the CUDA cores (67 TFLOP/s peak), bound by their
+// own arithmetic, kept for the f32 checks, whose 2e-5 gates TF32 would
+// break; their design point is to be right and to read each operand tile
+// once per block from device memory.
 //
-// Forward design. Grid (B*H, ceil(S/64)); 256 threads as a 16x16 grid
-// (ty, tx). A block loads its 64 query rows (times scale, as _fwd_kernel
-// does) into shared memory once, then streams 64-key tiles of k (stored
-// transposed) and v through shared memory. Thread (ty, tx) owns score rows
-// ty+16i and key columns tx+16j (i, j < 4), and output rows ty+16i, columns
-// tx+16j (j < D/16); the 16 threads of one row are one half-warp, so the row
-// max and row sum are half-warp shuffles. bf16 is converted to f32 on load.
+// Forward design, bf16 (flash_fwd_tc_kernel, FlashAttention-2's shape). A
+// block owns 128 query rows of one (b, h), 8 warps of 16 rows; it stages
+// its q tile once (each warp keeps its q fragments in registers) and
+// streams 64-key tiles of k, v and the key bias through a two-stage
+// cp.async ring, so each tile read from L2 serves 128 rows. Per tile, each
+// warp computes s = Q.K^T (K as the col-major operand as it lies), then
+// x = s * scale + bias and the masks, the online (m, l) update in
+// registers (a row's 64 values lie in the four lanes of a quad: the row max
+// is two shuffles; l is each lane's share until the end), rescales acc by
+// exp(m_old - m_new), and adds p.V with p rounded once to bf16 as the A
+// fragments (to_a_frag, no trip through shared memory) and V read through
+// ldmatrix.trans. l sums the f32 p, so lse = m + log(l) is the reference's
+// up to summation order; o = acc / l, rounded once. The reference keeps p
+// in f32: one bf16 rounding of p moves o by ~2e-3 of its relative L2 norm
+// (the gate is 1e-2). The key tiles a block visits are the plan's
+// (kernels/flash_attention.py tile_plan, fwd_key_tiles); a tile in which no
+// key is masked for any row of the block skips the per-key tests. What
+// bounds it now (BERT-base layer, one H100 SXM at 700 W): not its
+// arithmetic; removing the products or the softmax of a tile barely moves
+// its time. Streaming k and v cost most while blocks held 64 rows (S / 64
+// reads of each from L2), and so did reading the bias from device memory
+// in the loop; both are halved or gone. It now runs 16 warps an SM at a
+// 128-register cap (head_dim 64 spills a few bytes); one block an SM,
+// without the cap, is slower, and a deeper ring does not help. A
+// wgmma/TMA, warp-specialized design is the next step.
+//
+// Forward design, f32 (flash_fwd_kernel, kept). Grid (B*H, ceil(S/64));
+// 256 threads as a 16x16 grid (ty, tx). A block loads its 64 query rows
+// (times scale, as _fwd_kernel does) into shared memory once, then
+// streams the plan's 64-key tiles of k (stored transposed) and v through
+// shared memory. Thread (ty, tx) owns score rows ty+16i and key columns
+// tx+16j (i, j < 4), and output rows ty+16i, columns tx+16j (j < D/16); the
+// 16 threads of one row are one half-warp, so the row max and row sum are
+// half-warp shuffles.
 //
 // Backward design. Two kernels, launched back to back and counted by the
 // wrapper as one launch; each grid block owns disjoint outputs, so there
-// are no float atomics and the result is deterministic. The grid and the
-// tiles each block visits are the wrapper's (kernels/flash_attention.py:
-// bwd_plan), passed in and launched as given.
+// are no float atomics and the result is deterministic (the forward's
+// blocks, too, own their rows). The grids and the tiles each
+// block visits, in both directions, are the wrapper's
+// (kernels/flash_attention.py: tile_plan), passed in and launched as
+// given.
 // - dq, grid (B*H, ceil(S/64)): a block owns 64 query rows and loops over
 //   64-key tiles of k and v from the first to the plan's last, the tile of
 //   the rows' last visited key. Per tile: s and dp, ds, then dq += ds.K.
@@ -91,7 +119,7 @@
 // - the reference skips, per q block of block_q rows, every key block of
 //   block_k keys above the diagonal (ceil bound of _causal_upper_kb); its
 //   dkv kernel starts at the matching q block, so both directions visit
-//   the same (q block, k block) pairs. The kernels' own 64x64 tiles differ
+//   the same (q block, k block) pairs. The kernels' own tiles differ
 //   from the caller's blocks, so each row excludes (forward: as -inf, adds
 //   0 to l; backward: p = 0) exactly the keys the reference never visits
 //   for that row. Only a fully masked row can tell the difference, and it
@@ -120,13 +148,7 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // One past the last key the reference visits for query row `row`.
 __device__ __forceinline__ int key_limit(int row, int seq, int causal,
@@ -143,12 +165,13 @@ constexpr size_t smem_bytes() {
          (kBQ * (D + 1) + D * (kBK + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ kbias,
-                 T* __restrict__ o, float* __restrict__ lse, int seq,
-                 int heads, float scale, int causal, int req_bq, int req_bk) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ kbias,
+                 const int* __restrict__ tiles, float* __restrict__ o,
+                 float* __restrict__ lse, int seq, int heads, float scale,
+                 int causal, int req_bq, int req_bk) {
   constexpr int DJ = D / 16;   // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                        // [kBQ][D + 1]
@@ -163,9 +186,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int64_t base = static_cast<int64_t>(bh) * seq * D;
-  const T* qp = q + base;
-  const T* kp = k + base;
-  const T* vp = v + base;
+  const float* qp = q + base;
+  const float* kp = k + base;
+  const float* vp = v + base;
   const float* bp = kbias ? kbias + static_cast<int64_t>(batch) * seq : nullptr;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
@@ -187,8 +210,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
   }
-  const int last_row = (q0 + kBQ < seq ? q0 + kBQ : seq) - 1;
-  const int kv_end = key_limit(last_row, seq, causal, req_bq, req_bk);
+  // the key tiles the plan gives this block's query tile
+  const int kv_end = tiles[blockIdx.y] * kBK;
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();   // the previous tile's KsT/Vs/Ps are consumed
@@ -268,7 +291,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* op = o + base;
+  float* op = o + base;
   float* lp = lse + static_cast<int64_t>(bh) * seq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -287,50 +310,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* kbias,
-           void* o, void* lse, int64_t bh, int64_t heads, int64_t seq,
-           float scale, int causal, int64_t block_q, int64_t block_k,
-           cudaStream_t stream) {
+           void* o, void* lse, int64_t heads, int64_t seq, float scale,
+           int causal, int64_t block_q, int64_t block_k, dim3 grid,
+           const int* tiles, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // above 48 KB a block needs the opt-in, which holds for the device that
   // is current; setting it at every launch keeps any device right
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>(bh),
-                  static_cast<unsigned>((seq + kBQ - 1) / kBQ));
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(kbias),
-      static_cast<T*>(o), static_cast<float*>(lse), static_cast<int>(seq),
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(kbias), tiles,
+      static_cast<float*>(o), static_cast<float*>(lse), static_cast<int>(seq),
       static_cast<int>(heads), scale, causal, static_cast<int>(block_q),
       static_cast<int>(block_k));
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(int64_t head_dim, const void* q, const void* k, const void* v,
-             const void* kbias, void* o, void* lse, int64_t bh, int64_t heads,
-             int64_t seq, float scale, int causal, int64_t block_q,
-             int64_t block_k, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, kbias, o, lse, bh, heads, seq, scale,
-                           causal, block_q, block_k, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, kbias, o, lse, bh, heads, seq, scale,
-                           causal, block_q, block_k, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, kbias, o, lse, bh, heads, seq, scale,
-                           causal, block_q, block_k, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, kbias, o, lse, bh, heads, seq, scale,
-                            causal, block_q, block_k, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 
@@ -723,13 +721,14 @@ constexpr size_t bwd_dkv_tc_smem_bytes() {
 }
 
 // Rows row0 .. row0+63 of a (seq, D) bf16 matrix into a shared tile of row
-// stride D + 8, by cp.async; rows >= seq are zero.
-template <int D>
+// stride D + 8, by cp.async, by the block's kN threads; rows >= seq are
+// zero.
+template <int D, int kN = kTcThreads>
 __device__ __forceinline__ void tc_load_rows(bf16* dst,
                                              const bf16* __restrict__ src,
                                              int row0, int seq) {
   constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < 64 * kChunks; e += kTcThreads) {
+  for (int e = threadIdx.x; e < 64 * kChunks; e += kN) {
     const int r = e / kChunks, c = e % kChunks;
     const int row = row0 + r;
     const bool in = row < seq;
@@ -1164,7 +1163,295 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The head_dim dispatch: f32 on the CUDA cores, bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// The bf16 forward's block: 128 query rows, a warp for each 16 of them,
+// so that each 64-key tile of k and v streamed into shared memory serves
+// 128 rows (K and V are read from L2 S / 128 times, not S / 64).
+constexpr int kFwdRows = 128;
+constexpr int kFwdThreads = 2 * kFwdRows;
+constexpr int kFwdStages = 2;   // the k, v (and bias) ring: a tile ahead
+
+// Blocks of the bf16 forward an SM holds at once: two at head_dim <= 64,
+// which caps a thread at 128 registers (the shared memory allows more),
+// one at 128.
+template <int D>
+constexpr int tc_fwd_min_blocks() {
+  return D <= 64 ? 2 : 1;
+}
+
+// Shared memory of the bf16 forward: the q tile (128 rows), kFwdStages
+// stages each of k and v (64 rows), bf16 rows padded to D + 8 values, and
+// kFwdStages stages of the 64 keys' bias, f32.
+template <int D>
+constexpr size_t fwd_tc_smem_bytes() {
+  return (kFwdRows + 2 * kFwdStages * 64) * (D + 8) * sizeof(bf16) +
+         kFwdStages * 64 * sizeof(float);
+}
+
+// One key tile's k and v rows k0.. and, with a bias, its 64 values, into
+// a stage, by cp.async.
+template <int D>
+__device__ __forceinline__ void fwd_load_tile(bf16* Kt, bf16* Vt, float* Bt,
+                                              const bf16* k, const bf16* v,
+                                              const float* bp, int k0,
+                                              int seq) {
+  tc_load_rows<D, kFwdThreads>(Kt, k, k0, seq);
+  tc_load_rows<D, kFwdThreads>(Vt, v, k0, seq);
+  if (bp && threadIdx.x < 64) {
+    const int key = k0 + threadIdx.x;
+    tc::cp_async4(Bt + threadIdx.x, key < seq ? bp + key : bp,
+                  key < seq ? 4 : 0);
+  }
+}
+
+// s[8][4] (16 rows x 64 keys) = Q.K^T over depth D for this warp's rows:
+// Q as A fragments already in registers (qa[k step]), K a [key][d] tile.
+template <int D>
+__device__ __forceinline__ void tc_scores_q(const uint32_t (&qa)[D / 16][4],
+                                            const bf16* kt, float (&s)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      tc::ldsm_x4(b, frag_b_nk<D>(kt, np * 16, kk * 16));
+      tc::mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+      tc::mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+    }
+}
+
+// One key tile of the forward for this warp's 16 rows: s = Q.K^T, then
+// x = s * scale + bias (bt: the tile's bias in shared memory, or null) and
+// the masks of dq_tile; the online update of the row max m and of this
+// thread's share l of the row sum (the four lanes of a quad hold a row, so
+// the max is two shuffles); acc rescaled; acc += p.V with p rounded once to
+// bf16 as the A operand, straight from the registers, and V read through
+// ldmatrix.trans. `full`: no key of the tile is masked for any row of the
+// block (block-uniform), so the per-key tests are skipped. p = exp(x - m)
+// is exp2f((x - m) * log2(e)): x - m is taken first, in natural units, so
+// a fully padded row's x = m = -1e30 gives p = 1 exactly.
+template <int D>
+__device__ __forceinline__ void fwd_tile(
+    const uint32_t (&qa)[D / 16][4], const bf16* Kt, const bf16* Vt,
+    const float* bt, int k0, bool full, const int (&row)[2],
+    const int (&lim)[2], float scale, int causal, float (&m)[2],
+    float (&l)[2], float (&acc)[D / 8][4]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int lane = threadIdx.x & 31;
+  float s[8][4];
+  tc_scores_q<D>(qa, Kt, s);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int c0 = nt * 8 + 2 * (lane & 3);   // the tile's column of e = 0
+    if (full) {
+      const float b0 = bt ? bt[c0] : 0.0f;
+      const float b1 = bt ? bt[c0 + 1] : 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = fmaf(s[nt][e], scale, (e & 1) ? b1 : b0);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int key = k0 + c0 + (e & 1);
+        float x = -INFINITY;   // a key the reference never visits for this row
+        if (key < lim[i]) {
+          x = fmaf(s[nt][e], scale, bt ? bt[c0 + (e & 1)] : 0.0f);
+          if (causal && key > row[i]) x = kNegInf;
+        }
+        s[nt][e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);   // finite: m starts at -1e30
+    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+    l[i] = l[i] * alpha[i];
+    m[i] = m_new;
+  }
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = exp2f((s[nt][e] - m[e >> 1]) * kLog2e);
+      l[e >> 1] = l[e >> 1] + p[e];   // l sums the f32 p
+    }
+    to_a_frag(pa, nt, p);
+  }
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = acc[dn][e] * alpha[e >> 1];
+  tc_accumulate<D, false>(pa, pa, Vt, acc);
+}
+
+// A block owns 128 query rows (blockIdx.y) of one (batch, head)
+// (blockIdx.x), a warp 16 of them, and visits the plan's key tiles of its
+// rows, the next one loaded by cp.async while this one is used.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, tc_fwd_min_blocks<D>())
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ kbias,
+                    const int* __restrict__ tiles, bf16* __restrict__ o,
+                    float* __restrict__ lse, int seq, int heads, float scale,
+                    int causal, int req_bq, int req_bk) {
+  constexpr int kT = 64 * (D + 8);   // one 64-row tile, in values
+  extern __shared__ __align__(16) char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [128][D + 8]
+  bf16* Ks = Qs + 2 * kT;                // [kFwdStages][64][D + 8]
+  bf16* Vs = Ks + kFwdStages * kT;       // [kFwdStages][64][D + 8]
+  float* Bs = reinterpret_cast<float*>(Vs + kFwdStages * kT);   // [.][64]
+
+  const int bh = blockIdx.x;
+  const int batch = bh / heads;
+  const int q0 = blockIdx.y * kFwdRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t base = static_cast<int64_t>(bh) * seq * D;
+  const float* bp = kbias ? kbias + static_cast<int64_t>(batch) * seq : nullptr;
+  const int n_tiles = tiles[blockIdx.y];   // the plan's key tiles
+
+  tc_load_rows<D, kFwdThreads>(Qs, q + base, q0, seq);
+  tc_load_rows<D, kFwdThreads>(Qs + kT, q + base, q0 + 64, seq);
+  tc::cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kFwdStages - 1; ++t) {   // a group each, even empty
+    if (t < n_tiles)
+      fwd_load_tile<D>(Ks + t * kT, Vs + t * kT, Bs + t * 64, k + base,
+                       v + base, bp, t * 64, seq);
+    tc::cp_async_commit();
+  }
+
+  int row[2], lim[2];
+  float m[2], l[2], acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + warp * 16 + (lane >> 2) + 8 * i;
+    lim[i] = key_limit(row[i], seq, causal, req_bq, req_bk);
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.0f;
+  // keys below lim0 are visited by every row of the block (the limit
+  // rises with the row), and causal keys up to q0 are above no row's
+  // diagonal
+  const int lim0 = key_limit(q0, seq, causal, req_bq, req_bk);
+
+  tc::cp_async_wait<kFwdStages - 1>();   // q has landed: its fragments
+  __syncthreads();
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    tc::ldsm_x4(qa[kk], frag_a<D>(Qs, warp * 16, kk * 16));
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int ahead = t + kFwdStages - 1;   // into the stage t - 1 freed
+    if (ahead < n_tiles) {
+      const int st = ahead % kFwdStages;
+      fwd_load_tile<D>(Ks + st * kT, Vs + st * kT, Bs + st * 64, k + base,
+                       v + base, bp, ahead * 64, seq);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<kFwdStages - 1>();   // tile t has landed
+    __syncthreads();
+    const int st = t % kFwdStages, k0 = t * 64;
+    const bool full = k0 + 64 <= lim0 && (!causal || k0 + 63 <= q0);
+    fwd_tile<D>(qa, Ks + st * kT, Vs + st * kT, bp ? Bs + st * 64 : nullptr,
+                k0, full, row, lim, scale, causal, m, l, acc);
+    __syncthreads();   // this stage is consumed before it is refilled
+  }
+
+  // o = acc / l and lse = m + log(l), l the quad's sum of its shares
+  float* lp = lse + static_cast<int64_t>(bh) * seq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li = li + __shfl_xor_sync(0xffffffffu, li, 1);
+    li = li + __shfl_xor_sync(0xffffffffu, li, 2);
+    li = fmaxf(li, 1e-30f);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      acc[dn][2 * i] = acc[dn][2 * i] / li;
+      acc[dn][2 * i + 1] = acc[dn][2 * i + 1] / li;
+    }
+    if ((lane & 3) == 0 && row[i] < seq) lp[row[i]] = m[i] + logf(li);
+  }
+  tc_store_rows<D>(o + base, acc, row, seq);
+}
+
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v,
+                  const void* kbias, void* o, void* lse, int64_t heads,
+                  int64_t seq, float scale, int causal, int64_t block_q,
+                  int64_t block_k, dim3 grid, const int* tiles,
+                  cudaStream_t stream) {
+  constexpr size_t smem = fwd_tc_smem_bytes<D>();
+  // as many blocks an SM as tc_fwd_min_blocks asks (228 KB, 1 KB of it
+  // reserved a block)
+  static_assert(tc_fwd_min_blocks<D>() * (smem + 1024) <= 228 * 1024,
+                "the bf16 forward blocks an SM holds");
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_tc_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(kbias), tiles,
+      static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<int>(seq),
+      static_cast<int>(heads), scale, causal, static_cast<int>(block_q),
+      static_cast<int>(block_k));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The head_dim dispatch of the forward: f32 on the CUDA cores, bf16 on the
+// tensor cores.
+int launch_fwd_any(int64_t head_dim, int dtype, const void* q, const void* k,
+                   const void* v, const void* kbias, void* o, void* lse,
+                   int64_t heads, int64_t seq, float scale, int causal,
+                   int64_t block_q, int64_t block_k, dim3 grid,
+                   const int* tiles, cudaStream_t s) {
+#define HETU_FWD_CASE(D)                                                     \
+  case D:                                                                    \
+    if (dtype == 0)                                                          \
+      return launch<D>(q, k, v, kbias, o, lse, heads, seq, scale, causal,    \
+                       block_q, block_k, grid, tiles, s);                    \
+    if (dtype == 1)                                                          \
+      return launch_fwd_tc<D>(q, k, v, kbias, o, lse, heads, seq, scale,     \
+                              causal, block_q, block_k, grid, tiles, s);     \
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    HETU_FWD_CASE(16)
+    HETU_FWD_CASE(32)
+    HETU_FWD_CASE(64)
+    HETU_FWD_CASE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HETU_FWD_CASE
+}
+
+// The head_dim dispatch of the backward: f32 on the CUDA cores, bf16 on
+// the tensor cores.
 int launch_bwd_any(int64_t head_dim, int dtype, const void* q, const void* k,
                    const void* v, const void* o, const void* dout,
                    const void* lse, void* delta, const void* kbias,
@@ -1195,28 +1482,29 @@ int launch_bwd_any(int64_t head_dim, int dtype, const void* q, const void* k,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kbias may be null (no bias).
+// dtype: 0 = float32, 1 = bfloat16. kbias may be null (no bias). o is
+// written in the input dtype, lse (B*H, S) in f32. The work split is the
+// caller's (kernels/flash_attention.py tile_plan), launched as given: the
+// grid (grid_x = B*H, grid_y = query blocks: of 64 rows in f32, of
+// kFwdRows = 128 in bf16) and tiles, device memory, for each query block
+// the count of key tiles it visits.
 extern "C" int hetu_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kbias, void* o,
-    void* lse, int64_t bh, int64_t heads, int64_t seq, int64_t head_dim,
-    float scale, int causal, int64_t block_q, int64_t block_k, int dtype,
-    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(head_dim, q, k, v, kbias, o, lse, bh, heads, seq,
-                           scale, causal, block_q, block_k, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(head_dim, q, k, v, kbias, o, lse, bh,
-                                   heads, seq, scale, causal, block_q,
-                                   block_k, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    void* lse, int64_t heads, int64_t seq, int64_t head_dim, float scale,
+    int causal, int64_t block_q, int64_t block_k, int64_t grid_x,
+    int64_t grid_y, const int* tiles, int dtype, void* stream) {
+  const dim3 grid(static_cast<unsigned>(grid_x),
+                  static_cast<unsigned>(grid_y));
+  return launch_fwd_any(head_dim, dtype, q, k, v, kbias, o, lse, heads, seq,
+                        scale, causal, block_q, block_k, grid, tiles,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // dtype: 0 = float32, 1 = bfloat16. kbias may be null (no bias). lse is
 // (B*H, S) f32; delta = rowsum(dO * O), (B*H, S) f32, is written in the
 // sequence (f32: by a kernel before the dq kernel; bf16: by the dq kernel)
 // for the kernels after it. dq, dk and dv are written in the input dtype.
-// The work split is the caller's (kernels/flash_attention.py bwd_plan),
+// The work split is the caller's (kernels/flash_attention.py tile_plan),
 // launched as given: the grid (grid_x = B*H, grid_y = query tiles = key
 // tiles) of both kernels, and tiles, device memory, grid_y + grid_y ints:
 // for each query tile the count of key tiles its dq block visits, then for

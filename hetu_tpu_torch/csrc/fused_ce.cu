@@ -17,23 +17,42 @@
 // recomputing the logits, dh and dW take 3 * 2*N*V*D = 90 GFLOP (91 us)
 // against reading W and writing dW, 94 MB (28 us): the operations again.
 //
-// Forward design (f32 FMAs on the CUDA cores, both dtypes; the design
-// point is to be right, to stream W once per row block, and to keep the
-// logits in registers and shared memory). The vocabulary is split across
-// blocks: at N = 640 a grid over 64-row blocks alone would be 10 blocks
-// for 132 SMs. Grid (ceil(N/64), n_split); block (rb, sp) sweeps its
-// contiguous run of 64-wide vocab tiles and keeps, per row, the online
-// (m, l, tl) that _fwd_kernel keeps in VMEM scratch. Each tile's 64x64
-// logits are a register-tiled product over D in chunks of 32, h and W
-// chunks staged in shared memory (both transposed to [d][row], bf16
-// converted to f32 on load). Thread (ty, tx) owns rows ty+16i and vocab
-// columns tx+16j (i, j < 4); the 16 threads of a row are a half-warp, so
-// the row max is a half-warp shuffle, while l and tl stay per thread until
-// the end. Each block writes partial (m, l, tl) per row; a second kernel
-// merges the splits with the same rescale,
+// Forward design. The vocabulary is split across blocks: at N = 640 a
+// grid over row blocks alone would be 5 to 10 blocks for 132 SMs. Grid
+// (row blocks, n_split); block (rb, sp) sweeps its contiguous run of vocab
+// tiles and keeps, per row, the online (m, l, tl) that _fwd_kernel keeps
+// in VMEM scratch. The split is the wrapper's (kernels/fused_ce.py:
+// fwd_plan): as many equal runs of tiles as keep the grid within two
+// blocks an SM, so that it is one wave. Each block writes partial
+// (m, l, tl) per row; a second kernel merges the splits in split order
+// with the same rescale,
 //   M = max m_s, L = sum l_s exp(m_s - M), TL = sum tl_s,
 // and writes lse = M + log(max(L, 1e-30)) and tl. Two launches, counted by
-// the wrapper as one launch of the kernel.
+// the wrapper as one launch of the kernel; no float atomics, so two runs
+// on the same inputs give the same bits.
+// - bf16 (linear_nll_fwd_tc_kernel, the main path's): 128 rows and
+//   128-wide vocab tiles a block, two warpgroups; each tile's 128 x 128
+//   logits h.W^T come from the backward's wgmma mainloop (tc_tile, below;
+//   W "vd" K-major, "dv" MN-major, as they lie) into f32 registers, then an
+//   epilogue adds the f32 bias, scores positions past V -1e30, captures the
+//   target logit and updates (m, l, tl): a thread holds 32 values of each
+//   of its two rows and the four lanes of a quad hold a row, so the row
+//   max is two shuffles, and l, tl stay per thread until the end. Products
+//   of bf16 values are exact in f32, so the logits differ from the plain
+//   version's only by summation order. h's 128 x 768 tile is streamed from
+//   L2 again for each vocab tile (192 KB a tile; at these shapes it stays
+//   in L2). What limits it: as in the backward, tc_tile waits for each
+//   stage's wgmma before the next barrier, and each tile's epilogue (64
+//   exponentials a thread) runs between two mainloops, with no load in
+//   flight.
+// - f32 (linear_nll_partial_kernel, the first design, kept for the f32
+//   checks, whose 2e-5 gates TF32 would break): f32 FMAs on the CUDA
+//   cores, 64 rows and 64-wide vocab tiles a block; each tile's 64x64
+//   logits a register-tiled product over D in chunks of 32, h and W chunks
+//   staged in shared memory (both transposed to [d][row]). Thread (ty, tx)
+//   owns rows ty+16i and vocab columns tx+16j (i, j < 4); the 16 threads of
+//   a row are a half-warp, so the row max is a half-warp shuffle, while l
+//   and tl stay per thread until the end.
 //
 // Backward. With g = (softmax - onehot) * ct, recomputed from the
 // forward's lse as p = exp(s - lse): dh = g.W (g.W^T for "dv"),
@@ -80,11 +99,11 @@
 // epilogue, per 128-row block, and merged over the row blocks in order.
 //
 // Masking follows the reference: vocab positions >= V (the ragged tail,
-// 30522 = 476*64 + 58) score -1e30 in the forward and add nothing to l,
-// since every split starts at a real vocab position, and get p = 0 (so
-// g = 0) in the backward; the target logit is the score at vpos == target,
-// 0 when no position matches. Rows past N (the ragged row block) get g = 0:
-// the reference's padded rows with cotangent 0.
+// 30522 = 476*64 + 58 = 238*128 + 58) score -1e30 in the forward and add
+// nothing to l, since every split starts at a real vocab position, and
+// get p = 0 (so g = 0) in the backward; the target logit is the score at
+// vpos == target, 0 when no position matches. Rows past N (the ragged row
+// block) get g = 0: the reference's padded rows with cotangent 0.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // its launches (cudaErrorInvalidValue for a dtype it was not built for)
@@ -106,13 +125,11 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
-template <typename T, bool kDV>
+template <bool kDV>
 __global__ void __launch_bounds__(kThreads)
-linear_nll_partial_kernel(const T* __restrict__ h, const T* __restrict__ w,
+linear_nll_partial_kernel(const float* __restrict__ h,
+                          const float* __restrict__ w,
                           const float* __restrict__ bias,
                           const int* __restrict__ targets,
                           float* __restrict__ part_m,
@@ -253,7 +270,7 @@ __global__ void linear_nll_combine_kernel(const float* __restrict__ part_m,
   tl[row] = t;
 }
 
-template <typename T, bool kDV>
+template <bool kDV>
 int launch(const void* h, const void* w, const void* bias,
            const void* targets, void* part, void* lse, void* tl,
            int64_t n_rows, int64_t depth, int64_t vocab,
@@ -263,8 +280,8 @@ int launch(const void* h, const void* w, const void* bias,
   float* pt = pl + n_split * n_rows;
   const dim3 grid(static_cast<unsigned>((n_rows + kBN - 1) / kBN),
                   static_cast<unsigned>(n_split));
-  linear_nll_partial_kernel<T, kDV><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w),
+  linear_nll_partial_kernel<kDV><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const int*>(targets), pm,
       pl, pt, static_cast<int>(n_rows), static_cast<int>(depth),
       static_cast<int>(vocab), static_cast<int>(tiles_per_split));
@@ -913,33 +930,158 @@ int launch_bwd_tc(const void* h, const void* w, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// Split blockIdx.y's partial (m, l, tl) per row over its run of 128-wide
+// vocab tiles, for the 128 rows m0..: per tile, the logits tile h.W^T + b
+// from tc_tile (W element (v, d) at w[v*depth + d] in "vd", a K-major
+// operand, or w[d*vocab + v] in "dv", MN-major), then the online update.
+// A row's values lie in the four lanes of a quad, so the row max is two
+// shuffles; l and tl are this thread's shares until the end.
+template <bool kDV>
+__global__ void __launch_bounds__(kTcThreads, 2)
+linear_nll_fwd_tc_kernel(const bf16* __restrict__ h,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ bias,
+                         const int* __restrict__ targets,
+                         float* __restrict__ part_m,
+                         float* __restrict__ part_l,
+                         float* __restrict__ part_tl, int n_rows, int depth,
+                         int vocab, int tiles_per_split) {
+  extern __shared__ char smem_raw[];
+  char* smem = tc_smem(smem_raw);
+  const int m0 = blockIdx.x * kTcM;
+  const int split = blockIdx.y;
+  const int n_tiles = (vocab + kTcN - 1) / kTcN;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int64_t ldw = kDV ? vocab : depth;
+
+  int tgt[2];
+  float m[2], l[2], tl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {   // rows tc_row(0) and tc_row(2), 8 apart
+    const int row = m0 + tc_row(2 * i);
+    tgt[i] = row < n_rows ? targets[row] : -1;
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+    tl[i] = 0.0f;
+  }
+  float acc[64];
+  for (int t = t_begin; t < t_end; ++t) {
+    const int v0 = t * kTcN;
+    tc_tile<false, kDV>(smem, h, depth, n_rows, w, ldw, vocab, m0, v0, 0,
+                        depth, acc);
+    // acc[j]: row tc_row(j) (i = (j >> 1) & 1), column tc_col(j)
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int vp = v0 + tc_col(nb * 4 + c);
+        const float b = vp < vocab ? bias[vp] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int j = nb * 4 + 2 * i + c;
+          float x = kNegInf;   // past the vocabulary: adds 0 to l
+          if (vp < vocab) {
+            x = acc[j] + b;
+            if (vp == tgt[i]) tl[i] = tl[i] + x;
+          }
+          acc[j] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      l[i] = l[i] * expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int i = (j >> 1) & 1;
+      l[i] = l[i] + expf(acc[j] - m[i]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i], ti = tl[i];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      li = li + __shfl_xor_sync(0xffffffffu, li, off);
+      ti = ti + __shfl_xor_sync(0xffffffffu, ti, off);
+    }
+    const int row = m0 + tc_row(2 * i);
+    if ((threadIdx.x & 3) == 0 && row < n_rows) {
+      const int64_t at = static_cast<int64_t>(split) * n_rows + row;
+      part_m[at] = m[i];
+      part_l[at] = li;
+      part_tl[at] = ti;
+    }
+  }
+}
+
+template <bool kDV>
+int launch_fwd_tc(const void* h, const void* w, const void* bias,
+                  const void* targets, void* part, void* lse, void* tl,
+                  int64_t n_rows, int64_t depth, int64_t vocab,
+                  int64_t tiles_per_split, int64_t n_split,
+                  cudaStream_t stream) {
+  const cudaError_t attr = allow_smem(linear_nll_fwd_tc_kernel<kDV>);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  float* pm = static_cast<float*>(part);
+  float* pl = pm + n_split * n_rows;
+  float* pt = pl + n_split * n_rows;
+  const dim3 grid(static_cast<unsigned>((n_rows + kTcM - 1) / kTcM),
+                  static_cast<unsigned>(n_split));
+  linear_nll_fwd_tc_kernel<kDV><<<grid, kTcThreads, kTcSmemBytes, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const int*>(targets), pm,
+      pl, pt, static_cast<int>(n_rows), static_cast<int>(depth),
+      static_cast<int>(vocab), static_cast<int>(tiles_per_split));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  linear_nll_combine_kernel<<<static_cast<unsigned>((n_rows + 255) / 256),
+                              256, 0, stream>>>(
+      pm, pl, pt, static_cast<float*>(lse), static_cast<float*>(tl),
+      static_cast<int>(n_rows), static_cast<int>(n_split));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-extern "C" int hetu_linear_nll_tile_width() { return kBV; }
 
 // dtype: 0 = float32, 1 = bfloat16; w_dv: 0 = W (V, D), 1 = W (D, V).
-// part: 3 * n_split * n_rows floats of scratch. The splits partition the
-// ceil(vocab / 64) vocab tiles into runs of tiles_per_split, none empty.
+// part: 3 * n_split * n_rows floats of scratch. The work split is the
+// caller's (kernels/fused_ce.py fwd_plan), launched as given: vocab tiles
+// of `tile` positions and row blocks of `row_block` rows (f32: 64 and 64,
+// bf16: 128 and 128, the kernels' own; anything else is refused), the
+// splits partitioning the ceil(vocab / tile) tiles into runs of
+// tiles_per_split, none empty.
 extern "C" int hetu_fused_linear_nll_fwd(
     const void* h, const void* w, const void* bias, const void* targets,
     void* part, void* lse, void* tl, int64_t n_rows, int64_t depth,
-    int64_t vocab, int64_t tiles_per_split, int64_t n_split, int w_dv,
-    int dtype, void* stream) {
+    int64_t vocab, int64_t tile, int64_t row_block, int64_t tiles_per_split,
+    int64_t n_split, int w_dv, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && w_dv)
-    return launch<float, true>(h, w, bias, targets, part, lse, tl, n_rows,
-                               depth, vocab, tiles_per_split, n_split, s);
-  if (dtype == 0)
-    return launch<float, false>(h, w, bias, targets, part, lse, tl, n_rows,
+  if (dtype == 0 && tile == kBV && row_block == kBN)
+    return w_dv ? launch<true>(h, w, bias, targets, part, lse, tl, n_rows,
+                               depth, vocab, tiles_per_split, n_split, s)
+                : launch<false>(h, w, bias, targets, part, lse, tl, n_rows,
                                 depth, vocab, tiles_per_split, n_split, s);
-  if (dtype == 1 && w_dv)
-    return launch<__nv_bfloat16, true>(h, w, bias, targets, part, lse, tl,
+  if (dtype == 1 && tile == kTcN && row_block == kTcM)
+    return w_dv ? launch_fwd_tc<true>(h, w, bias, targets, part, lse, tl,
+                                      n_rows, depth, vocab, tiles_per_split,
+                                      n_split, s)
+                : launch_fwd_tc<false>(h, w, bias, targets, part, lse, tl,
                                        n_rows, depth, vocab, tiles_per_split,
                                        n_split, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, false>(h, w, bias, targets, part, lse, tl,
-                                        n_rows, depth, vocab, tiles_per_split,
-                                        n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,14 +1,14 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// backward kernels of fused_ce.cu and flash_attention.cu. Every PTX
-// instruction the two kernels issue is wrapped here, so that a kernel's
-// index arithmetic reads as plain C++:
-// - cp.async: 16-byte copies from device memory into shared memory, with
-//   zero fill, in commit groups;
+// kernels of fused_ce.cu and flash_attention.cu, forward and backward.
+// Every PTX instruction the kernels issue is wrapped here, so that a
+// kernel's index arithmetic reads as plain C++:
+// - cp.async: 16-byte (and 4-byte) copies from device memory into shared
+//   memory, with zero fill, in commit groups;
 // - ldmatrix and mma.sync.m16n8k16 (bf16 in, f32 accumulate): the warp-level
-//   tiles of the flash-attention backward;
+//   tiles of flash attention;
 // - wgmma.mma_async m64n128k16 (bf16 in, f32 accumulate in registers), its
 //   shared-memory descriptors and fences: the warpgroup-level tiles of the
-//   fused linear+CE backward.
+//   fused linear+CE.
 //
 // Shared-memory layout of a wgmma operand ("swizzled lines"). An operand
 // tile is a run of 128-byte lines, each holding 64 bf16 values, the tile
@@ -47,6 +47,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from src to dst, as cp_async16 (src_bytes 0 or 4).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");

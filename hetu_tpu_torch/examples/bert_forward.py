@@ -108,7 +108,7 @@ def kernel_group(name):
     """The group of a device kernel's name: each ported kernel of
     ``csrc/``, the dense products (cuBLAS), the optimizer's foreach
     kernels, and the rest."""
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_attention_fwd"
     if "flash_bwd_" in name:
         return "flash_attention_bwd"

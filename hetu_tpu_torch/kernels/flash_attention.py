@@ -18,13 +18,15 @@ launches (12 in the forward, 12 in the recompute) and 12 backward ones.
 Bounds on an H100 SXM at the BERT-base shape (B=32, H=12, S=128, D=64,
 bf16): forward 4·B·H·S²·D = 1.6 GFLOP against 25 MB of q, k, v and o
 (7.5 us of memory time); backward 10·B·H·S²·D = 4.0 GFLOP against 50 MB
-of q, k, v, o, dO, dq, dk and dv (15 us). Both memory-bound. The forward
-and the f32 backward do their products in f32 on the CUDA cores, bound by
-their own arithmetic; the bf16 backward runs them on the tensor cores
-(mma.sync, bf16 tiles in shared memory, f32 accumulators), its dq kernel
-computing ``delta = rowsum(dO·O)`` for the dkv kernel. None writes an (S, S)
-tensor (the source's header has the design); the backward's grid and the
-tiles each of its blocks visits are :func:`bwd_plan`'s.
+of q, k, v, o, dO, dq, dk and dv (15 us). Both memory-bound. In bf16 both
+run their products on the tensor cores (mma.sync, bf16 tiles in shared
+memory, f32 accumulators): the forward with FlashAttention-2's online
+softmax in registers, p rounded once to bf16 as it enters p·V; the
+backward's dq kernel computing ``delta = rowsum(dO·O)`` for its dkv kernel.
+In f32 both do their products with f32 FMAs on the CUDA cores, bound by
+their own arithmetic. None writes an (S, S) tensor (the source's header
+has the design); the grids and the tiles each block visits are
+:func:`tile_plan`'s.
 
 ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 dispatches under the mode its forward ran under (``registry.bind``).
@@ -52,26 +54,33 @@ DEFAULT_BLOCK_K = 128
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)   # the head_dims csrc/flash_attention.cu is built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the backward kernels' tile: 64 query rows (dq) or keys (dkv) a block,
-# 64 keys (query rows) a step (kBQ = kBK in csrc/flash_attention.cu)
+# the kernels' tile: 64 query rows (f32 forward, dq) or keys (dkv) a block,
+# 64 keys (query rows) a step (kBQ = kBK in csrc/flash_attention.cu); the
+# bf16 forward's blocks hold FWD_ROWS query rows (kFwdRows), 64 keys a step
 TILE = 64
+FWD_ROWS = 128
 
 
 @dataclasses.dataclass(frozen=True)
-class BwdPlan:
-    """The backward's work split, which ``hetu_flash_attention_bwd``
-    launches as given: the grid ``(B·H, ceil(S / TILE))`` of its dq and dkv
-    kernels; for each query tile, how many key tiles its dq block visits
-    (from the first on); for each key tile, the first query tile its dkv
-    block visits (to the last)."""
+class TilePlan:
+    """The work split that ``hetu_flash_attention_fwd`` and
+    ``hetu_flash_attention_bwd`` launch as given: the grid
+    ``(B·H, ceil(S / TILE))`` of the f32 forward and of the backward's dq
+    and dkv kernels; for each query tile, how many key tiles its f32
+    forward and its dq block visit (from the first on); for each key tile,
+    the first query tile its dkv block visits (to the last); the grid
+    ``(B·H, ceil(S / FWD_ROWS))`` of the bf16 forward, and for each of its
+    blocks how many key tiles it visits: its query tiles' most."""
     grid: tuple
     dq_key_tiles: tuple
     dkv_first_query_tile: tuple
+    fwd_grid: tuple
+    fwd_key_tiles: tuple
 
 
 @functools.lru_cache(maxsize=64)
 def _visit_tiles(seq, causal, block_q, block_k):
-    """``(dq_key_tiles, dkv_first_query_tile)`` of :class:`BwdPlan`: the
+    """``(dq_key_tiles, dkv_first_query_tile)`` of :class:`TilePlan`: the
     tiles holding every (query row, key) pair the reference visits, by
     :func:`_visit_limit`'s rule. The limit rises with the row, so a query
     tile's last row visits the most keys, and the rows that visit a key
@@ -91,19 +100,24 @@ def _visit_tiles(seq, causal, block_q, block_k):
     return dq, tuple(first)
 
 
-def bwd_plan(batch, heads, seq, causal, block_q, block_k):
-    """The backward's work split for ``(batch, heads, seq, ·)`` inputs and
+def tile_plan(batch, heads, seq, causal, block_q, block_k):
+    """The kernels' work split for ``(batch, heads, seq, ·)`` inputs and
     the caller's ``(block_q, block_k)`` blocks."""
-    return BwdPlan((batch * heads, -(-seq // TILE)),
-                   *_visit_tiles(seq, bool(causal), block_q, block_k))
+    dq, dkv = _visit_tiles(seq, bool(causal), block_q, block_k)
+    per = FWD_ROWS // TILE
+    fwd = tuple(max(dq[i:i + per]) for i in range(0, len(dq), per))
+    return TilePlan((batch * heads, len(dq)), dq, dkv,
+                    (batch * heads, len(fwd)), fwd)
 
 
 @functools.lru_cache(maxsize=64)
 def _plan_array(plan, device):
-    """The plan's tiles as the kernels read them: ``dq_key_tiles`` then
-    ``dkv_first_query_tile``, int32 on the device."""
-    return torch.tensor(plan.dq_key_tiles + plan.dkv_first_query_tile,
-                        dtype=torch.int32, device=device)
+    """The plan's tiles as the kernels read them: ``dq_key_tiles``, then
+    ``dkv_first_query_tile``, then ``fwd_key_tiles``, int32 on the
+    device."""
+    return torch.tensor(plan.dq_key_tiles + plan.dkv_first_query_tile
+                        + plan.fwd_key_tiles, dtype=torch.int32,
+                        device=device)
 
 
 @functools.cache
@@ -113,8 +127,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_SRC)
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     lib.hetu_flash_attention_fwd.argtypes = [
-        P, P, P, P, P, P, I64, I64, I64, I64, ctypes.c_float, ctypes.c_int,
-        I64, I64, ctypes.c_int, P]
+        P, P, P, P, P, P, I64, I64, I64, ctypes.c_float, ctypes.c_int, I64,
+        I64, I64, I64, P, ctypes.c_int, P]
     lib.hetu_flash_attention_fwd.restype = ctypes.c_int
     lib.hetu_flash_attention_bwd.argtypes = [
         P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64, ctypes.c_float,
@@ -179,8 +193,17 @@ def _flash_fwd_plain(q, k, v, k_bias, *, scale, causal, block_q, block_k):
 
 
 def _flash_fwd_kernel(q, k, v, k_bias, *, scale, causal, block_q, block_k):
-    """Launch ``flash_fwd_kernel``: returns ``(o, lse)``."""
+    """Launch the forward over :func:`tile_plan`'s grid, each block
+    visiting its query rows' key tiles (bf16: ``flash_fwd_tc_kernel`` over
+    ``fwd_grid``, f32: ``flash_fwd_kernel`` over ``grid``): returns
+    ``(o, lse)``."""
     B, H, S, D = q.shape
+    plan = tile_plan(B, H, S, causal, block_q, block_k)
+    tiles = _plan_array(plan, q.device)
+    if q.dtype == torch.bfloat16:
+        grid, tiles = plan.fwd_grid, tiles[2 * plan.grid[1]:]
+    else:
+        grid = plan.grid
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -188,8 +211,8 @@ def _flash_fwd_kernel(q, k, v, k_bias, *, scale, causal, block_q, block_k):
         rc = lib.hetu_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if k_bias is None else k_bias.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B * H, H, S, D, float(scale), int(causal),
-            block_q, block_k, _DTYPE_CODE[q.dtype],
+            lse.data_ptr(), H, S, D, float(scale), int(causal), block_q,
+            block_k, *grid, tiles.data_ptr(), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd: kernel launch failed with "
@@ -282,12 +305,12 @@ def _flash_bwd_plain(q, k, v, o, lse, do, k_bias, *, scale, causal,
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, k_bias, *, scale, causal,
                       block_q, block_k):
-    """Launch the dq and the dkv kernel of :func:`bwd_plan` (CUDA kernels
+    """Launch the dq and the dkv kernel of :func:`tile_plan` (CUDA kernels
     counted as one launch); ``delta = rowsum(dO·O)`` in f32 is computed in
     that sequence (bf16: by the dq kernel; f32: by a kernel before it), as
     the reference computes it in XLA. Returns ``(dq, dk, dv)``."""
     B, H, S, D = q.shape
-    plan = bwd_plan(B, H, S, causal, block_q, block_k)
+    plan = tile_plan(B, H, S, causal, block_q, block_k)
     tiles = _plan_array(plan, q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -19,15 +19,16 @@ Bounds on an H100 SXM at the BERT-base MLM shape (N = 32·20 = 640,
 V = 30522, D = 768, bf16): forward 2·N·V·D = 30 GFLOP (30 us of
 tensor-core time, 14 us of memory time); backward 3·2·N·V·D = 90 GFLOP
 (91 us) against 94 MB of W and dW (28 us). Both compute-bound. The
-forward does its products in f32 on the CUDA cores, splitting the
-vocabulary across blocks to fill the 132 SMs and merging the splits in a
-second pass. The backward walks the vocabulary in chunks, computing the
-logits once per chunk into an N × chunk slab of g that its dh and dW
-products read; in bf16 every product runs on the tensor cores (wgmma,
-bf16 operands, f32 accumulators) and the slab is bf16, in f32 on the CUDA
-cores (the source's header has the design). Its work split is
-:func:`bwd_plan`'s, which the C launch loop walks as given. Each wrapper
-counts its CUDA kernels as one launch.
+forward splits the vocabulary across blocks to fill the SMs, each block
+keeping the online (m, l, target logit) of its rows over its run of vocab
+tiles, and merges the splits in a second pass, in split order; its split
+is :func:`fwd_plan`'s. The backward walks the vocabulary in chunks,
+computing the logits once per chunk into an N × chunk slab of g that its
+dh and dW products read; its split is :func:`bwd_plan`'s, which the C
+launch loop walks as given. In bf16 every product of both runs on the
+tensor cores (wgmma, bf16 operands, f32 accumulators; the backward's slab
+is bf16), in f32 on the CUDA cores (the source's header has the design).
+Each wrapper counts its CUDA kernels as one launch.
 
 The backward dispatches under the mode the forward ran under
 (``registry.bind``).
@@ -54,14 +55,12 @@ DEFAULT_BLOCK_N = 128
 DEFAULT_BLOCK_V = 512
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's grid aims at two blocks for each of the H100's 132 SMs
-_TARGET_BLOCKS = 2 * 132
-_ROWS_PER_BLOCK = 64
 # the backward: the g slab's cap (16 MB: a chunk's slab, with the chunk of
 # W beside it, stays in the 50 MB L2 between the products that read it);
 # the output tile of the f32 kernels (kTile in csrc/fused_ce.cu), and the
 # bf16 kernels' output tile and the depth of one of their stages (kTcM =
-# kTcN, kTcK)
+# kTcN, kTcK); the forward's vocab tile and row block are the same: 64 and
+# 64 in f32 (kBV, kBN), 128 and 128 in bf16
 SLAB_BYTES = 16 << 20
 _F32_TILE = 64
 _TC_TILE, _TC_DEPTH = 128, 64
@@ -92,8 +91,36 @@ class BwdPlan:
     chunks: tuple
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward's work split, which ``hetu_fused_linear_nll_fwd``
+    launches as given: vocab tiles of ``tile`` positions, row blocks of
+    ``row_block`` rows, and the grid (row blocks, ``n_split``), split ``z``
+    taking tiles ``[z · tiles_per_split, (z + 1) · tiles_per_split)`` of the
+    ``ceil(V / tile)``, cut at the last."""
+    tile: int
+    row_block: int
+    tiles_per_split: int
+    n_split: int
+
+
 def _cdiv(a, b):
     return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_plan(n_rows, vocab, dtype, sm_count=132):
+    """The forward's work split for ``n_rows`` rows against a vocabulary
+    of ``vocab`` on a card of ``sm_count`` SMs: the kernel's tile and row
+    block by dtype (f32 64 × 64 on the CUDA cores, bf16 128 × 128 on the
+    tensor cores), and as many equal splits of the vocabulary as keep the
+    grid within two blocks an SM (the bf16 kernel's shared memory allows
+    two), so that the grid is one wave; at least one split a row block."""
+    t = _TC_TILE if dtype == torch.bfloat16 else _F32_TILE
+    n_tiles = _cdiv(vocab, t)
+    want = max(1, min(n_tiles, 2 * sm_count // _cdiv(max(n_rows, 1), t)))
+    per_split = _cdiv(n_tiles, want)
+    return FwdPlan(t, t, per_split, _cdiv(n_tiles, per_split))
 
 
 @functools.lru_cache(maxsize=64)
@@ -179,10 +206,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_SRC)
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.hetu_fused_linear_nll_fwd.argtypes = [
-        P, P, P, P, P, P, P, I64, I64, I64, I64, I64, I, I, P]
+        P, P, P, P, P, P, P, I64, I64, I64, I64, I64, I64, I64, I, I, P]
     lib.hetu_fused_linear_nll_fwd.restype = I
-    lib.hetu_linear_nll_tile_width.argtypes = []
-    lib.hetu_linear_nll_tile_width.restype = I
     lib.hetu_fused_linear_nll_bwd.argtypes = [
         P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, I64, I64, I64, P, I64,
         P, I, I, P]
@@ -222,25 +247,26 @@ def _linear_nll_fwd_plain(h, w, b, targets, *, block_n, block_v, w_dv):
 
 
 def _linear_nll_fwd_kernel(h, w, b, targets, *, block_n, block_v, w_dv):
-    """Launch ``linear_nll_partial_kernel`` over (row blocks, vocab splits)
-    and ``linear_nll_combine_kernel`` after it; returns ``(lse, tl)``."""
-    del block_n, block_v   # the kernel's tiles are its own (64 x 64)
+    """Launch the partial kernel over :func:`fwd_plan`'s (row blocks,
+    vocab splits) (bf16: ``linear_nll_fwd_tc_kernel``, f32:
+    ``linear_nll_partial_kernel``) and ``linear_nll_combine_kernel`` after
+    it, counted as one launch; returns ``(lse, tl)``."""
+    del block_n, block_v   # the kernels' tiles are their own
     N, D = h.shape
     V = _vocab(w, w_dv)
     lib = _lib()
-    n_tiles = -(-V // lib.hetu_linear_nll_tile_width())
-    row_blocks = -(-N // _ROWS_PER_BLOCK)
-    want = max(1, min(n_tiles, -(-_TARGET_BLOCKS // row_blocks)))
-    per_split = -(-n_tiles // want)
-    n_split = -(-n_tiles // per_split)        # no split is empty
-    part = torch.empty((3, n_split, N), dtype=torch.float32, device=h.device)
-    lse = torch.empty((N,), dtype=torch.float32, device=h.device)
-    tl = torch.empty((N,), dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
+    dev = h.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fwd_plan(N, V, h.dtype, sms)
+    part = torch.empty((3, plan.n_split, N), dtype=torch.float32, device=dev)
+    lse = torch.empty((N,), dtype=torch.float32, device=dev)
+    tl = torch.empty((N,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         rc = lib.hetu_fused_linear_nll_fwd(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), targets.data_ptr(),
             part.data_ptr(), lse.data_ptr(), tl.data_ptr(), N, D, V,
-            per_split, n_split, int(w_dv), _DTYPE_CODE[h.dtype],
+            plan.tile, plan.row_block, plan.tiles_per_split, plan.n_split,
+            int(w_dv), _DTYPE_CODE[h.dtype],
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_linear_nll_fwd: kernel launch failed with "

@@ -273,6 +273,29 @@ def test_bert_forward_example_runs_on_the_cpu():
     assert res[0]["launches"] == {} and res[1]["launches"] == {}
 
 
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::flash_fwd_tc_kernel<64>(__nv_bfloat16 "
+     "const*, ...)", "flash_attention_fwd"),
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, "
+     "...)", "flash_attention_fwd"),
+    ("void (anonymous namespace)::flash_bwd_dq_tc_kernel<64>(...)",
+     "flash_attention_bwd"),
+    ("void (anonymous namespace)::linear_nll_fwd_tc_kernel<false>(...)",
+     "fused_linear_nll_fwd"),
+    ("(anonymous namespace)::linear_nll_combine_kernel(float const*, ...)",
+     "fused_linear_nll_fwd"),
+    ("void (anonymous namespace)::linear_nll_bwd_g_tc_kernel<false>(...)",
+     "fused_linear_nll_bwd"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>(...)", "other"),
+])
+def test_profile_groups_each_kernel_under_its_port(name, group):
+    """The step profile's groups (``bert_forward.kernel_group``) put each
+    CUDA kernel of a ported function, f32 and bf16 alike, under its
+    registry name."""
+    from hetu_tpu_torch.examples import bert_forward
+    assert bert_forward.kernel_group(name) == group
+
+
 # -- training -----------------------------------------------------------------
 TRAIN_LR = 1e-3
 PARAMS = dict(rtol=0, atol=5e-5)

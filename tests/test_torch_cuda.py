@@ -99,8 +99,9 @@ def test_mlp_on_the_card_matches_the_cpu(dev):
 
 
 # -- flash_attention_fwd and fused_linear_nll_fwd ---------------------------
-# Tolerances as in chip_smoke.py: bf16 o rtol/atol 2e-2 (one bf16 rounding
-# of o on each side), lse and NLL atol 1e-3 (f32 sums in another order).
+# Tolerances as in chip_smoke.py: bf16 o rtol/atol 2e-2 and relative L2
+# 1e-2 (one bf16 rounding of o on each side, and of p in the kernel), lse,
+# target logit and NLL atol 1e-3 (f32 sums in another order).
 
 def _bert_attention(dev, b=4, h=12, s=128, d=64, dtype=torch.bfloat16,
                     seed=0):
@@ -113,15 +114,22 @@ def _bert_attention(dev, b=4, h=12, s=128, d=64, dtype=torch.bfloat16,
     return q, k, v, kb
 
 
-@pytest.mark.parametrize("s,d,causal,dtype", [
-    (128, 64, False, torch.bfloat16),     # BERT-base layer
-    (512, 64, True, torch.bfloat16),
-    (256, 128, True, torch.float32),
-    (64, 32, False, torch.float32),
+@pytest.mark.parametrize("s,d,causal,dtype,full_pad", [
+    (128, 64, False, torch.bfloat16, False),    # BERT-base layer
+    (512, 64, False, torch.bfloat16, False),    # phase 2, padded
+    (512, 64, True, torch.bfloat16, False),
+    (96, 16, True, torch.bfloat16, True),       # S not a multiple of 64
+    (96, 32, True, torch.bfloat16, False),
+    (96, 128, True, torch.bfloat16, True),
+    (128, 64, False, torch.bfloat16, True),     # a fully padded row
+    (256, 128, True, torch.float32, False),
+    (64, 32, False, torch.float32, False),
 ])
-def test_flash_kernel_matches_plain(dev, s, d, causal, dtype):
+def test_flash_kernel_matches_plain(dev, s, d, causal, dtype, full_pad):
     from hetu_tpu_torch.kernels import flash_attention as fa
     q, k, v, kb = _bert_attention(dev, s=s, d=d, dtype=dtype)
+    if full_pad:
+        kb[0] = -1e30
     kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
               block_k=min(128, s))
     want_o, want_lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
@@ -129,15 +137,19 @@ def test_flash_kernel_matches_plain(dev, s, d, causal, dtype):
         o, lse = fa.flash_attention_fwd(q, k, v, causal, k_bias=kb)
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
         dict(rtol=2e-5, atol=2e-5)
+    assert o.dtype == dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), want_o.float(), **tol)
+    assert _rel_l2(o, want_o) <= _rel_l2_limit(dtype)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
     assert registry.launch_counts()["flash_attention_fwd"] == 1
 
 
 @pytest.mark.parametrize("n,v,d,layout", [
     (640, 30522, 768, "vd"),              # BERT-base MLM
+    (2432, 30522, 768, "vd"),             # phase 2 (32 x 76 rows)
     (1000, 50257, 768, "dv"),
     (33, 517, 48, "vd"),
+    (20, 300, 1100, "dv"),                # rows of W and h not 16-byte aligned
 ])
 def test_fused_ce_kernel_matches_plain(dev, n, v, d, layout):
     from hetu_tpu_torch.kernels import fused_ce as ce
@@ -150,12 +162,16 @@ def test_fused_ce_kernel_matches_plain(dev, n, v, d, layout):
         w = w.t().contiguous()
     b = torch.from_numpy(rng.randn(v).astype(np.float32) * 0.1).to(dev)
     t = torch.from_numpy(rng.randint(0, v, n).astype(np.int32)).to(dev)
-    lse, tl = ce._linear_nll_fwd_plain(h, w, b, t, block_n=128, block_v=512,
-                                       w_dv=layout == "dv")
+    kw = dict(block_n=128, block_v=512, w_dv=layout == "dv")
+    lse, tl = ce._linear_nll_fwd_plain(h, w, b, t, **kw)
     with registry.active("auto"):
         nll = ce.fused_linear_nll(h, w, b, t, w_layout=layout)
+        got_lse, got_tl = registry.dispatch("fused_linear_nll_fwd", h, w, b,
+                                            t, **kw)
     torch.testing.assert_close(nll, lse - tl, rtol=0, atol=1e-3)
-    assert registry.launch_counts()["fused_linear_nll_fwd"] == 1
+    torch.testing.assert_close(got_lse, lse, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got_tl, tl, rtol=0, atol=1e-3)
+    assert registry.launch_counts()["fused_linear_nll_fwd"] == 2
 
 
 def test_ineligible_attention_and_ce_calls_raise(dev):
@@ -378,12 +394,16 @@ def test_flash_bwd_bf16_phase2_and_ragged(dev, b, s, d, causal, full_pad):
     assert registry.launch_counts()["flash_attention_bwd"] == 1
 
 
-@pytest.mark.parametrize("kernel", ["fused_linear_nll_bwd",
+@pytest.mark.parametrize("kernel", ["fused_linear_nll_fwd",
+                                    "fused_linear_nll_bwd",
+                                    "flash_attention_fwd",
                                     "flash_attention_bwd"])
-def test_bf16_backward_kernels_repeat_bit_for_bit(dev, kernel):
-    if kernel == "fused_linear_nll_bwd":
+def test_bf16_kernels_repeat_bit_for_bit(dev, kernel):
+    if kernel.startswith("fused_linear_nll"):
         args, kw = _ce_bwd_inputs(dev, 640, 30522, 768, "vd",
                                   torch.bfloat16)
+        if kernel == "fused_linear_nll_fwd":
+            args = args[:4]
     else:
         from hetu_tpu_torch.kernels import flash_attention as fa
         q, k, v, kb = _bert_attention(dev, b=8, s=128, d=64,
@@ -391,7 +411,8 @@ def test_bf16_backward_kernels_repeat_bit_for_bit(dev, kernel):
         do = _rand(q.shape, 4, dev).to(torch.bfloat16)
         kw = dict(scale=0.125, causal=False, block_q=128, block_k=128)
         o, lse = fa._flash_fwd_plain(q, k, v, kb, **kw)
-        args = (q, k, v, o, lse, do, kb)
+        args = ((q, k, v, kb) if kernel == "flash_attention_fwd"
+                else (q, k, v, o, lse, do, kb))
     with registry.active("auto"):
         first = registry.dispatch(kernel, *args, **kw)
         second = registry.dispatch(kernel, *args, **kw)

@@ -234,7 +234,7 @@ def test_cpu_takes_the_plain_version_and_force_raises():
     assert registry.launch_counts()["flash_attention_fwd"] == 0
 
 
-# -- the backward's work split (bwd_plan), which the kernels read ----------
+# -- the kernels' work split (tile_plan), which they read -------------------
 # The BERT-base layer at phase 1 (S = 128) and phase 2 (S = 512, and a
 # causal 512), and the ragged cases of the card tests: S = 96 against the
 # 64-row tiles, causal blocks smaller than the tile.
@@ -256,7 +256,7 @@ def _needed_tile_pairs(s, causal, block_q, block_k):
 @pytest.mark.parametrize("s,causal,block_q,block_k", PLAN_CASES)
 def test_bwd_plan_visits_every_tile_pair_the_reference_visits(
         s, causal, block_q, block_k, b, h):
-    plan = tfa.bwd_plan(b, h, s, causal, block_q, block_k)
+    plan = tfa.tile_plan(b, h, s, causal, block_q, block_k)
     n_t = -(-s // tfa.TILE)
     # one dq block per query tile and one dkv block per key tile
     assert plan.grid == (b * h, n_t)
@@ -281,16 +281,125 @@ def test_bwd_plan_visits_every_tile_pair_the_reference_visits(
 @pytest.mark.parametrize("s,causal,block_q,block_k", PLAN_CASES)
 def test_bwd_plan_array_is_what_the_kernels_read(s, causal, block_q,
                                                  block_k):
-    plan = tfa.bwd_plan(2, 3, s, causal, block_q, block_k)
+    plan = tfa.tile_plan(2, 3, s, causal, block_q, block_k)
     tiles = tfa._plan_array(plan, torch.device("cpu"))
     n_t = plan.grid[1]
-    # dq reads tiles[blockIdx.y], dkv tiles[gridDim.y + blockIdx.y]
-    assert tiles.dtype == torch.int32 and tiles.shape == (2 * n_t,)
+    # the f32 forward and dq read tiles[blockIdx.y] over the grid
+    # (B·H, n_t), dkv tiles[gridDim.y + blockIdx.y]; the bf16 forward
+    # tiles[2 n_t + blockIdx.y] over (B·H, n_f), its blocks of FWD_ROWS
+    n_f = -(-s // tfa.FWD_ROWS)
+    assert plan.grid == (6, n_t) and n_t == -(-s // tfa.TILE)
+    assert plan.fwd_grid == (6, n_f)
+    assert tiles.dtype == torch.int32 and tiles.shape == (2 * n_t + n_f,)
     assert tiles[:n_t].tolist() == list(plan.dq_key_tiles)
-    assert tiles[n_t:].tolist() == list(plan.dkv_first_query_tile)
+    assert tiles[n_t:2 * n_t].tolist() == list(plan.dkv_first_query_tile)
+    assert tiles[2 * n_t:].tolist() == list(plan.fwd_key_tiles)
+    # a bf16 forward block visits the key tiles its query tiles' dq blocks
+    # visit, the most of them (the limit rises with the row)
+    per = tfa.FWD_ROWS // tfa.TILE
+    assert [max(plan.dq_key_tiles[i * per:(i + 1) * per])
+            for i in range(n_f)] == list(plan.fwd_key_tiles)
     # no block is empty: a tile's rows see at least its own diagonal tile
     assert all(i < n <= n_t for i, n in enumerate(plan.dq_key_tiles)
                if causal)
     assert all(0 < n <= n_t for n in plan.dq_key_tiles)
     assert all(0 <= f <= j for j, f in
                enumerate(plan.dkv_first_query_tile))
+
+
+@pytest.mark.parametrize("s,causal,block_q,block_k", PLAN_CASES)
+def test_fwd_visits_each_rows_reference_keys(s, causal, block_q, block_k):
+    """The forward's block of a row (f32: its 64-row tile, bf16: its
+    128-row block) visits key tiles 0 .. n - 1 of the plan and excludes,
+    row by row, the keys at or past the row's visit limit: what is left is
+    exactly the keys the reference's ``_fwd_kernel`` visits for that row,
+    the key blocks below its q block's ``_causal_upper_kb`` (all of them
+    when not causal)."""
+    plan = tfa.tile_plan(2, 3, s, causal, block_q, block_k)
+    limit = tfa._visit_limit(s, causal, block_q, block_k, "cpu")
+    for r in range(s):
+        lim = s if limit is None else min(int(limit[r]), s)
+        upper = (jfa._causal_upper_kb(r // block_q * block_q, block_q,
+                                      block_k) if causal else s // block_k)
+        for n in (plan.dq_key_tiles[r // tfa.TILE],
+                  plan.fwd_key_tiles[r // tfa.FWD_ROWS]):
+            assert min(n * tfa.TILE, lim) == min(upper * block_k, s), r
+
+
+def _tc_fwd_emulation(q, k, v, kb, scale, causal, block_q, block_k):
+    """``flash_fwd_tc_kernel``'s arithmetic in PyTorch: blocks of FWD_ROWS
+    query rows over the plan's 64-key tiles; s = (q·kᵀ)·scale in f32, then
+    the bias, the causal -1e30 and the exclusion of keys past a row's visit
+    limit; the online (m, l) with l summing the f32 p; p rounded once to
+    bf16 as it enters p·V; o = acc / l rounded once to q's dtype."""
+    B, H, S, D = q.shape
+    plan = tfa.tile_plan(B, H, S, causal, block_q, block_k)
+    limit = tfa._visit_limit(S, causal, block_q, block_k, "cpu")
+    lim = (torch.full((S,), S) if limit is None else limit.clamp(max=S))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o = torch.empty((B, H, S, D))
+    lse = torch.empty((B, H, S))
+    T, R = tfa.TILE, tfa.FWD_ROWS
+    for i, n in enumerate(plan.fwd_key_tiles):
+        r0, r1 = i * R, min((i + 1) * R, S)
+        rows = torch.arange(r0, r1)
+        m = torch.full((B, H, r1 - r0), -1e30)
+        l = torch.zeros((B, H, r1 - r0))
+        acc = torch.zeros((B, H, r1 - r0, D))
+        for j in range(n):
+            c0, c1 = j * T, min((j + 1) * T, S)
+            keys = torch.arange(c0, c1)
+            sc = torch.matmul(qf[:, :, r0:r1],
+                              kf[:, :, c0:c1].transpose(-1, -2)) * scale
+            if kb is not None:
+                sc = sc + kb[:, None, None, c0:c1]
+            if causal:
+                sc = torch.where(keys[None, :] > rows[:, None], -1e30, sc)
+            sc = torch.where(keys[None, :] < lim[r0:r1, None], sc,
+                             -float("inf"))
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(
+                p.to(torch.bfloat16).float(), vf[:, :, c0:c1])
+            m = m_new
+        l = l.clamp_min(1e-30)
+        o[:, :, r0:r1] = acc / l[..., None]
+        lse[:, :, r0:r1] = m + torch.log(l)
+    return o.to(q.dtype), lse
+
+
+@pytest.mark.parametrize("s,d,causal,block_q,block_k,bias", [
+    (192, 32, True, 64, 32, "padding"),      # causal, uneven blocks
+    (128, 64, False, 128, 128, "full_pad"),  # a fully padded row
+    (96, 128, True, 96, 96, "none"),         # head_dim 128, S not 64k
+])
+def test_bf16_p_rounding_fits_the_card_gates(s, d, causal, block_q, block_k,
+                                             bias):
+    """p enters the bf16 kernel's p·V rounded once to bf16 (the reference
+    keeps it f32): the kernel's arithmetic, emulated, against
+    ``_fwd_pallas`` in interpret mode and against the plain version, under
+    the card's gates: o relative L2 1e-2, lse atol 1e-3."""
+    rng = np.random.RandomState(13)
+    q, k, v = (rng.randn(2, 2, s, d).astype(np.float32) for _ in range(3))
+    kb = _bias(bias, s=s)
+    scale = d ** -0.5
+    tq, tk, tv = (_t(x, torch.bfloat16) for x in (q, k, v))
+    got_o, got_lse = _tc_fwd_emulation(tq, tk, tv, _t(kb), scale, causal,
+                                       block_q, block_k)
+    jo, jl = jfa._fwd_pallas(_j(q, jnp.bfloat16), _j(k, jnp.bfloat16),
+                             _j(v, jnp.bfloat16), _j(kb), scale, causal,
+                             block_q, block_k, interpret=True)
+    po, pl = tfa._flash_fwd_plain(tq, tk, tv, _t(kb), scale=scale,
+                                  causal=causal, block_q=block_q,
+                                  block_k=block_k)
+    ref = (torch.from_numpy(np.array(jo.astype(jnp.float32))),
+           torch.from_numpy(np.array(jl)))
+    for want_o, want_lse in (ref, (po.float(), pl)):
+        rel = float(torch.linalg.vector_norm(got_o.float() - want_o)
+                    / torch.linalg.vector_norm(want_o))
+        assert rel <= 1e-2, rel
+        np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(),
+                                   rtol=0, atol=1e-3)
+    assert np.isfinite(got_o.float().numpy()).all()

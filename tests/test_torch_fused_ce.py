@@ -12,6 +12,9 @@ the full BERT vocabulary. The CUDA kernels themselves run only on the card
 Tolerances: f32 rtol/atol 2e-5 (the same online logsumexp and products,
 summed in another order); bf16 rtol/atol 2e-2.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -262,3 +265,51 @@ def test_bwd_plan_scratch_within_its_cap(n, v, d, dtype):
         # 512-column run of the chunk each
         assert plan.chunk % 64 == 0
         assert plan.n_split <= max(plan.chunk // 512, 1)
+
+
+# -- the forward's work split (fwd_plan), which the C entry launches --------
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,v,d", PLAN_SHAPES)
+def test_fwd_plan_puts_each_vocab_tile_in_one_split(n, v, d, dtype, sms):
+    """Split z of the grid's y takes vocab tiles [z · tiles_per_split,
+    (z + 1) · tiles_per_split) of ceil(V / tile), cut at the last, as the
+    kernels compute it: every tile in exactly one split, no split empty,
+    and the grid within two blocks an SM where the row blocks allow."""
+    del d   # the split does not depend on the depth
+    plan = tce.fwd_plan(n, v, dtype, sms)
+    tile = 128 if dtype == torch.bfloat16 else 64
+    assert plan.tile == plan.row_block == tile
+    n_tiles = -(-v // tile)
+    cover = np.zeros(n_tiles, np.int64)
+    for z in range(plan.n_split):
+        t0 = z * plan.tiles_per_split
+        t1 = min(t0 + plan.tiles_per_split, n_tiles)
+        assert t1 > t0, z
+        cover[t0:t1] += 1
+    assert (cover == 1).all()
+    row_blocks = -(-n // tile)
+    assert row_blocks * plan.n_split <= max(2 * sms, row_blocks)
+    # and at least half as fine as that target: equal runs of whole tiles
+    # halve the split count at most
+    assert 2 * plan.n_split >= min(n_tiles, 2 * sms // row_blocks)
+
+
+def test_fwd_plan_tiles_are_the_kernels():
+    """The plan's tile and row block are the source's constants, which the
+    C entry checks the plan against (it refuses any other): f32 kBV and
+    kBN, bf16 kTcN and kTcM."""
+    src = open(os.path.join(os.path.dirname(tce.__file__), os.pardir,
+                            "csrc", "fused_ce.cu")).read()
+    const = {k: int(x) for k, x in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    f32 = tce.fwd_plan(640, 30522, torch.float32)
+    bf16 = tce.fwd_plan(640, 30522, torch.bfloat16)
+    assert (f32.tile, f32.row_block) == (const["kBV"], const["kBN"])
+    assert (bf16.tile, bf16.row_block) == (const["kTcN"], const["kTcM"])
+    # BERT-base's MLM rows at phases 1 and 2 on the H100's 132 SMs: one
+    # wave of at most 264 blocks
+    assert (bf16.tiles_per_split, bf16.n_split) == (5, 48)
+    p2 = tce.fwd_plan(2432, 30522, torch.bfloat16)
+    assert (p2.tiles_per_split, p2.n_split) == (19, 13)
