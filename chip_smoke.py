@@ -30,6 +30,7 @@ kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
+    python3 chip_smoke.py --csr-kernels    # build, the CSR kernels only
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -38,13 +39,15 @@ nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package. ``--bert-kernels`` stops
 after the kernels of the BERT path (the optimizers', flash attention's and
 the fused CE's, forward and backward) are built, checked and timed, and
-prints no result line: a quick check of a kernel change.
+prints no result line: a quick check of a kernel change. ``--csr-kernels``
+does the same for ``csr_spmm`` and ``csr_spmv`` on the GCN's adjacency.
 """
 import argparse
 import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -161,9 +164,10 @@ FINETUNE_STEPS, FINETUNE_LR = 5, 2e-5
 # CSR products on the GCN's adjacency (the arxiv-sized graph), at the main
 # path's shapes: A·X at F = 128 (layer 1), A·H at F = 256 (layer 2), Aᵀ·dZ
 # at F = 256 (layer 2's backward), and the vector product on A. Kernel and
-# plain version sum each row in CSR order with one f32 accumulator, each
-# product rounded before the add (-fmad=false): bit-equal expected, each
-# output held by its relative L2 error.
+# plain version sum each chunk of a row (chunk_plan) in CSR order with one
+# f32 accumulator, each product rounded before the add (-fmad=false), and
+# fold a split row's partials in chunk order: each output must be bit-equal
+# to the plain version and to a rerun, and within rel L2 1e-6 of it.
 CSR_CASES = [("A", 128), ("A", 256), ("A^T", 256)]
 TOL.update({"csr_spmm": {"rel_l2": 1e-6}, "csr_spmv": {"rel_l2": 1e-6}})
 # The GCN (run_single's dense_model at ogbn-arxiv's widths, hidden 256,
@@ -298,6 +302,26 @@ def graph_ms(fn, iters=200):
     with torch.cuda.graph(graph):
         fn()
     return time_ms(graph.replay, iters)
+
+
+def device_split(fn, iters=20):
+    """Device µs a call of ``fn`` by kernel name, from torch.profiler over
+    ``iters`` calls: where one call makes several launches, each one's
+    share."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            m = re.search(r"(\w+_kernel(<\w+>)?)", e.key)
+            name = m.group(1) if m else e.key[:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters
+    return out
 
 
 def timings(kernel, plain, library):
@@ -705,31 +729,56 @@ def ce_bwd_phase(ce, dev, bw, bf16):
 
 
 def csr_check(kind, a, dense, kernel, plain, library, registry, what, bw,
-              f32):
+              f32, chunk_plan, chunk):
     """One csr_spmm/csr_spmv case: the kernel against its plain version on
-    the same inputs, then timed."""
+    the same inputs, bit for bit, and against itself on a rerun; then
+    timed, the library call by CUDA-graph replay where it can be captured,
+    else by CUDA events around back-to-back eager calls."""
     got, want = kernel(a, dense), plain(a, dense)
+    again = kernel(a, dense)
     torch.cuda.synchronize()
     rel = rel_l2(got, want)
     check(rel <= TOL[kind]["rel_l2"], f"{kind} {what} differs from the plain "
           f"version by rel L2 {rel}")
+    check(same_bits(got, want), f"{kind} {what} is not bit-equal to its "
+          f"plain version (rel L2 {rel})")
+    check(same_bits(got, again), f"{kind} {what} differs from itself on a "
+          "rerun")
     f = dense.shape[1] if dense.ndim == 2 else 1
+    plan = chunk_plan(a, chunk)
+    per_row = torch.bincount(plan.chunks[0].long(), minlength=1)
+    dense_bytes = 8 * a.nnz + 4 * (a.nrow + 1) + 4 * a.nrow * f
     case = {"matrix": what, "shape": [a.nrow, a.ncol, a.nnz, f],
-            "bit_equal": bool(torch.equal(got, want)),
+            "bit_equal": True, "rerun_bit_equal": True,
             "max_abs_err": float((got - want).abs().max()), "rel_l2": rel,
+            "plan": {"chunk": chunk, "chunks": int(plan.chunks.shape[1]),
+                     "split_rows": int(plan.splits.shape[1]),
+                     "most_chunks_in_a_row": int(per_row.max())},
             # read rowptr, col and values once and each dense row once
             # (the least; a row's neighbours may fetch it again), write the
             # output once; one multiply and one add per entry and column
-            "bound": bound(8 * a.nnz + 4 * (a.nrow + 1) + 4 * a.ncol * f
-                           + 4 * a.nrow * f, 2 * a.nnz * f, bw, f32),
+            "bound": bound(dense_bytes + 4 * a.ncol * f, 2 * a.nnz * f, bw,
+                           f32),
+            # the same, with a dense row read for every entry (no reuse)
+            "gather_bound": bound(dense_bytes + 4 * a.nnz * f, 2 * a.nnz * f,
+                                  bw, f32),
             "ms": graph_ms(lambda: kernel(a, dense)),
+            # the chunk kernel's and the merge's device µs, eager
+            "kernel_us": device_split(lambda: kernel(a, dense)),
             # through the registry gate, one call at a time
             "launched_ms": time_ms(lambda: registry.dispatch(kind, a, dense)),
             "plain_ms": graph_ms(lambda: plain(a, dense), iters=3)}
     try:        # cuSPARSE, a yardstick only
-        case["library_ms"] = time_ms(library, iters=50)
+        case.update(library_ms=graph_ms(library, iters=50),
+                    library_timing="graph")
     except RuntimeError as e:
-        case.update(library_ms=None, library_error=str(e)[:200])
+        torch.cuda.synchronize()
+        case["library_graph_error"] = str(e)[:200]
+        try:
+            case.update(library_ms=time_ms(library, iters=50),
+                        library_timing="eager")
+        except RuntimeError as e:
+            case.update(library_ms=None, library_error=str(e)[:200])
     return case
 
 
@@ -747,11 +796,12 @@ def csr_phase(cs, registry, adj, dev, bw, f32):
         b = torch.randn((a.ncol, f), generator=gen, device=dev)
         spmm.append(csr_check(
             "csr_spmm", a, b, cs._spmm_kernel, cs._spmm_plain,
-            lambda: torch.sparse.mm(lib[form], b), registry, form, bw, f32))
+            lambda: torch.sparse.mm(lib[form], b), registry, form, bw, f32,
+            cs.chunk_plan, cs.SPMM_CHUNK))
     x = torch.randn((adj.ncol,), generator=gen, device=dev)
     spmv = [csr_check("csr_spmv", adj.csr, x, cs._spmv_kernel,
                       cs._spmv_plain, lambda: torch.mv(lib["A"], x),
-                      registry, "A", bw, f32)]
+                      registry, "A", bw, f32, cs.chunk_plan, cs.SPMV_CHUNK)]
     return spmm, spmv
 
 
@@ -1618,9 +1668,11 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
         bound_by=v["bound"][1], library_ms=v["library_ms"],
         **{f: v[f] for f in ("launched_ms", "plain_launched_ms",
-                             "library_launched_ms", "shape", "epoch_ms",
-                             "phase2")
-           if f in v})
+                             "library_launched_ms", "library_timing",
+                             "shape", "epoch_ms", "phase2", "plan")
+           if f in v},
+        **({"gather_bound_ms": v["gather_bound"][0]}
+           if "gather_bound" in v else {}))
         for k, v in kern.items()]}
 
 
@@ -1635,6 +1687,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bert-kernels", action="store_true",
                     help="stop after the BERT path's kernel checks")
+    ap.add_argument("--csr-kernels", action="store_true",
+                    help="build, check the CSR kernels on the GCN's "
+                         "adjacency, and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
@@ -1666,6 +1721,12 @@ def main(argv=None):
     libs = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p) for p in libs.values()])
+    if args.csr_kernels:
+        tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
+        spmm, spmv = csr_phase(csr_spmm, registry, tr.adj, dev, bw, f32)
+        emit("csr_spmm_checked", tolerance=TOL["csr_spmm"],
+             cases=spmm + spmv)
+        return 0
     tensor_core_phase(_build)
 
     # -- 3. kernels against their plain versions ---------------------------

@@ -116,9 +116,9 @@ def kernel_group(name):
         return "fused_linear_nll_bwd"
     if "linear_nll" in name:
         return "fused_linear_nll_fwd"
-    if "spmm_kernel" in name:
+    if "spmm_chunk_kernel" in name or "spmm_merge_kernel" in name:
         return "csr_spmm"
-    if "spmv_kernel" in name:
+    if "spmv_chunk_kernel" in name or "spmv_merge_kernel" in name:
         return "csr_spmv"
     if "segsum_kernel" in name:
         return "fused_embed_grad"

@@ -133,15 +133,15 @@ class CSRMatrix:
     """One CSR form of a sparse matrix on one device: ``rowptr`` (nrow + 1)
     int32, ``col`` (nnz) int32 and ``val`` (nnz) float32, the entries of
     each row in the order of the COO input (a stable sort by row).
-    ``plan`` is a cache the plain spmm fills at its first call
-    (``kernels/csr_spmm.py``)."""
+    ``plans`` caches the sparse products' work splits by kind, filled at
+    their first call (``kernels/csr_spmm.py:chunk_plan``)."""
 
-    __slots__ = ("rowptr", "col", "val", "nrow", "ncol", "plan")
+    __slots__ = ("rowptr", "col", "val", "nrow", "ncol", "plans")
 
     def __init__(self, rowptr, col, val, nrow: int, ncol: int):
         self.rowptr, self.col, self.val = rowptr, col, val
         self.nrow, self.ncol = int(nrow), int(ncol)
-        self.plan = None
+        self.plans = {}
 
     @property
     def device(self) -> torch.device:

@@ -287,6 +287,14 @@ def test_bert_forward_example_runs_on_the_cpu():
     ("void (anonymous namespace)::linear_nll_bwd_g_tc_kernel<false>(...)",
      "fused_linear_nll_bwd"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>(...)", "other"),
+    ("void (anonymous namespace)::spmm_chunk_kernel<true>(int const*, ...)",
+     "csr_spmm"),
+    ("void (anonymous namespace)::spmm_merge_kernel<false>(int const*, ...)",
+     "csr_spmm"),
+    ("(anonymous namespace)::spmv_chunk_kernel(int const*, long, ...)",
+     "csr_spmv"),
+    ("(anonymous namespace)::spmv_merge_kernel(int const*, long, ...)",
+     "csr_spmv"),
 ])
 def test_profile_groups_each_kernel_under_its_port(name, group):
     """The step profile's groups (``bert_forward.kernel_group``) put each

@@ -14,6 +14,8 @@ grade is docs/KERNELS.md's for the segment-sum kernels, allclose 1e-4,
 and the relative L2 error of the whole output at most 1e-6 (a few f32
 roundings per element, ~1e-7).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -63,12 +65,19 @@ def _coo(case, seed=0):
     elif case == "heavy_row":       # one row holds 120 of 280 entries
         rows = np.concatenate([rows, np.full(120, 5)])
         cols = np.concatenate([cols, rng.randint(0, ncol, 120)])
+    elif case == "long_row":        # rows past 3 chunks and just past one
+        c = max(tcs.SPMM_CHUNK, tcs.SPMV_CHUNK)
+        extra = np.repeat([9, 2, 17], [4 * c + 7, 3 * c + 5, c + 1])
+        rows = np.concatenate([rows, extra])
+        cols = np.concatenate([cols, rng.randint(0, ncol, extra.size)])
+        order = rng.permutation(rows.size)
+        rows, cols = rows[order], cols[order]
     vals = rng.randn(rows.size).astype(np.float32)
     return vals, rows.astype(np.int32), cols.astype(np.int32), nrow, ncol
 
 
 CASES = ["unsorted", "sorted", "duplicates", "empty_rows", "nnz0", "one_row",
-         "heavy_row"]
+         "heavy_row", "long_row"]
 
 
 def _rel_l2(got, want):
@@ -111,7 +120,8 @@ def test_plain_matches_xla(case, trans):
                                      ("csr_spmv", "plain"): 1}
 
 
-@pytest.mark.parametrize("case", ["unsorted", "duplicates", "empty_rows"])
+@pytest.mark.parametrize("case", ["unsorted", "duplicates", "empty_rows",
+                                  "long_row"])
 def test_plain_matches_pallas_interpret(case):
     """``_spmm_pallas``/``_spmv_pallas`` themselves, in interpret mode."""
     vals, rows, cols, nrow, ncol = _coo(case, seed=2)
@@ -140,6 +150,126 @@ def test_plain_sums_each_row_in_csr_order():
     a = _sparse(np.array([1e8, -1e8, 1.0], np.float32), np.zeros(3, int),
                 np.array([0, 1, 2]), 1, 3)
     assert tcs.matmat(a, b).tolist() == [[1.0, 1.0]]
+
+
+def _long_row_csr(chunk, vals_at_boundary):
+    """One row of ``chunk - 1`` zeros, then ``vals_at_boundary`` (the
+    first of them the chunk's last entry), over columns 0, 1, ..."""
+    vals = np.concatenate([np.zeros(chunk - 1), vals_at_boundary])
+    return _sparse(vals.astype(np.float32), np.zeros(vals.size, int),
+                   np.arange(vals.size), 1, vals.size)
+
+
+@pytest.mark.parametrize("product,chunk", [("matmat", tcs.SPMM_CHUNK),
+                                           ("matvec", tcs.SPMV_CHUNK)])
+def test_plain_folds_split_rows_in_chunk_order(product, chunk):
+    """A split row is its chunks' partials folded left to right: 1e8 ends
+    the first chunk, -1e8 and 1 open the second, so the partials are 1e8
+    and -1e8 (1 is lost beside -1e8) and the row sums to 0; the serial sum
+    ((1e8 - 1e8) + 1) would give 1. Rows of at most one chunk keep the
+    serial sum (test_plain_sums_each_row_in_csr_order)."""
+    a = _long_row_csr(chunk, [1e8, -1e8, 1.0])
+    b = torch.ones(a.ncol, 2)
+    if product == "matmat":
+        assert tcs.matmat(a, b).tolist() == [[0.0, 0.0]]
+    else:
+        assert tcs.matvec(a, b[:, 0].contiguous()).tolist() == [0.0]
+    # the same three terms inside the first chunk: the serial answer
+    a = _long_row_csr(chunk - 3, [1e8, -1e8, 1.0])
+    assert a.csr.nnz == chunk - 1
+    got = (tcs.matmat(a, b)[0, 0] if product == "matmat"
+           else tcs.matvec(a, b[:, 0].contiguous())[0])
+    assert float(got) == 1.0
+
+
+def _loop_reference(csr, b, chunk):
+    """The kernels' order as a loop of numpy float32 operations: per row,
+    each chunk of ``chunk`` entries summed from 0 in CSR order, then the
+    partials folded left to right."""
+    rowptr, col, val = (t.numpy() for t in (csr.rowptr, csr.col, csr.val))
+    out = np.zeros((csr.nrow,) + b.shape[1:], np.float32)
+    for r in range(csr.nrow):
+        parts = []
+        for c0 in range(rowptr[r], max(rowptr[r + 1], rowptr[r] + 1), chunk):
+            acc = np.zeros(b.shape[1:], np.float32)
+            for j in range(c0, min(c0 + chunk, rowptr[r + 1])):
+                acc = acc + val[j] * b[col[j]]
+            parts.append(acc)
+        out[r] = functools.reduce(lambda x, y: x + y, parts)
+    return out
+
+
+@pytest.mark.parametrize("case", ["heavy_row", "long_row"])
+def test_plain_order_is_the_chunked_loop(case):
+    """The plain versions are bit-equal to the order written as a loop."""
+    vals, rows, cols, nrow, ncol = _coo(case, seed=12)
+    a = _sparse(vals, rows, cols, nrow, ncol)
+    rng = np.random.RandomState(13)
+    for csr in (a.csr, a.csr_t):
+        b = rng.randn(csr.ncol, 5).astype(np.float32)
+        np.testing.assert_array_equal(
+            tcs._spmm_plain(csr, torch.from_numpy(b)).numpy(),
+            _loop_reference(csr, b, tcs.SPMM_CHUNK))
+        np.testing.assert_array_equal(
+            tcs._spmv_plain(csr, torch.from_numpy(b[:, 0].copy())).numpy(),
+            _loop_reference(csr, b[:, 0], tcs.SPMV_CHUNK))
+
+
+def _lengths_csr(lengths, seed=0):
+    """A CSR matrix whose rows hold ``lengths`` entries, in random order."""
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    rows = rows[rng.permutation(rows.size)]
+    return _sparse(rng.randn(rows.size).astype(np.float32), rows,
+                   rng.randint(0, 8, rows.size), len(lengths), 8).csr
+
+
+@pytest.mark.parametrize("chunk", sorted({tcs.SPMM_CHUNK, tcs.SPMV_CHUNK, 4}))
+def test_chunk_plan_covers_every_entry_once(chunk):
+    """chunk_plan's arrays, walked as the C code reads them: rows of 0, 1,
+    chunk - 1, chunk, chunk + 1 and 3·chunk + 5 entries (twice, in another
+    order the second time)."""
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, 3 * chunk + 5]
+    lengths = lengths + lengths[::-1]
+    a = _lengths_csr(lengths)
+    plan = tcs.chunk_plan(a, chunk)
+    assert tcs.chunk_plan(a, chunk) is plan           # cached on the CSR
+    assert plan.chunk == chunk and plan.chunks.dtype == torch.int32
+    assert plan.splits.dtype == torch.int32
+    assert plan.chunks.is_contiguous() and plan.splits.is_contiguous()
+    rowptr = a.rowptr.tolist()
+    row, start, end, slot = plan.chunks.tolist()
+    split_row, first, parts = plan.splits.tolist()
+    # contiguous, in CSR order, every entry once, at most `chunk` long
+    assert start[0] == 0 and end[-1] == a.nnz
+    assert all(s == e for s, e in zip(start[1:], end[:-1]))
+    assert all(0 <= e - s <= chunk for s, e in zip(start, end))
+    assert row == sorted(row)
+    expect_split, next_slot = [], 0
+    for r, n in enumerate(lengths):
+        mine = [c for c in range(len(row)) if row[c] == r]
+        assert len(mine) == max(1, -(-n // chunk))
+        assert start[mine[0]] == rowptr[r] and end[mine[-1]] == rowptr[r + 1]
+        if n <= chunk:        # one chunk, written straight to the output
+            assert [slot[c] for c in mine] == [-1]
+        else:                 # consecutive slots, in chunk order
+            assert [slot[c] for c in mine] == list(
+                range(next_slot, next_slot + len(mine)))
+            expect_split.append((r, next_slot, len(mine)))
+            next_slot += len(mine)
+    assert list(zip(split_row, first, parts)) == expect_split
+    assert plan.nslot == next_slot == sum(parts)
+
+
+def test_chunk_sizes_are_the_kernels():
+    """The wrapper's chunk sizes are the ones the C entries accept."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tcs.__file__), os.pardir, "csrc",
+                            "csr_spmm.cu")).read()
+    consts = dict(re.findall(r"constexpr int (k\w+Chunk) = (\d+);", src))
+    assert consts == {"kSpmmChunk": str(tcs.SPMM_CHUNK),
+                      "kSpmvChunk": str(tcs.SPMV_CHUNK)}
 
 
 def test_csr_forms_are_stable_sorts():

@@ -503,9 +503,10 @@ def test_bert_train_step_with_kernels_off_launches_nothing(dev):
 
 
 # -- csr_spmm and csr_spmv ---------------------------------------------------
-# Kernel and plain version sum each row in CSR order with one f32
-# accumulator, each product rounded before the add (-fmad=false), so they
-# agree bit for bit; the relative L2 error (at most 1e-6) is reported too.
+# Kernel and plain version sum each chunk of a row in CSR order with one f32
+# accumulator, each product rounded before the add (-fmad=false), and fold
+# a split row's partials in chunk order, so they agree bit for bit, and a
+# rerun with them; the relative L2 error (at most 1e-6) is reported too.
 
 def _csr_case(case, dev):
     """(ND_Sparse_Array on dev, F) of a named case."""
@@ -519,11 +520,20 @@ def _csr_case(case, dev):
     nrow, k, nnz, f = {"random": (5000, 5000, 60000, 256),
                        "nnz0": (300, 200, 0, 128),
                        "one_row": (1, 700, 900, 200),
-                       "degree_5000": (100, 6000, 1000, 96)}[case]
+                       "degree_5000": (100, 6000, 1000, 96),
+                       "chunk_edges": (1000, 5000, 20000, 260)}[case]
     rows, cols = rng.randint(0, nrow, nnz), rng.randint(0, k, nnz)
     if case == "degree_5000":       # row 7 holds 5,000 entries
         rows = np.concatenate([rows, np.full(5000, 7)])
         cols = np.concatenate([cols, rng.randint(0, k, 5000)])
+    if case == "chunk_edges":       # rows 3-7: exactly a chunk, one more,
+        from hetu_tpu_torch.kernels import csr_spmm as cs   # 100,000
+        lengths = {3: cs.SPMM_CHUNK, 4: cs.SPMM_CHUNK + 1, 5: cs.SPMV_CHUNK,
+                   6: cs.SPMV_CHUNK + 1, 7: 100000}
+        keep = ~np.isin(rows, list(lengths))
+        extra = np.repeat(list(lengths), list(lengths.values()))
+        rows = np.concatenate([rows[keep], extra])
+        cols = np.concatenate([cols[keep], rng.randint(0, k, extra.size)])
     vals = rng.randn(rows.size).astype(np.float32)
     return ht.sparse_array(vals, (rows, cols), (nrow, k), ctx=ht.gpu(0)), f
 
@@ -538,7 +548,7 @@ def _bit_equal(got, want, what):
 
 
 @pytest.mark.parametrize("case", ["random", "arxiv", "nnz0", "one_row",
-                                  "degree_5000"])
+                                  "degree_5000", "chunk_edges"])
 def test_csr_kernels_match_plain(dev, case):
     from hetu_tpu_torch.kernels import csr_spmm as cs
     a, f = _csr_case(case, dev)
@@ -555,6 +565,40 @@ def test_csr_kernels_match_plain(dev, case):
         assert z.shape == (csr.nrow, f) and zv.shape == (csr.nrow,)
         _bit_equal(z, cs._spmm_plain(csr, b), f"{case} spmm {what}")
         _bit_equal(zv, cs._spmv_plain(csr, x), f"{case} spmv {what}")
+        _bit_equal(cs._spmm_kernel(csr, b), z, f"{case} spmm {what} rerun")
+        _bit_equal(cs._spmv_kernel(csr, x), zv, f"{case} spmv {what} rerun")
+
+
+@pytest.mark.parametrize("f,offset", [(67, 0), (1, 0), (128, 1), (301, 0)])
+def test_csr_spmm_scalar_layout(dev, f, offset):
+    """Widths the float4 layout does not take (F % 4 != 0, or B not 16-byte
+    aligned) run the scalar layout of the same kernel, bit-equal to the
+    plain version and to a rerun."""
+    from hetu_tpu_torch.kernels import csr_spmm as cs
+    a, _ = _csr_case("chunk_edges", dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for csr, what in ((a.csr, "A"), (a.csr_t, "A^T")):
+        flat = torch.randn((csr.ncol * f + offset,), generator=g, device=dev)
+        b = flat[offset:].view(csr.ncol, f)
+        assert b.is_contiguous() and (b.data_ptr() % 16 != 0) == bool(offset)
+        z = registry.dispatch("csr_spmm", csr, b)
+        torch.cuda.synchronize()
+        _bit_equal(z, cs._spmm_plain(csr, b), f"F={f} spmm {what}")
+        _bit_equal(cs._spmm_kernel(csr, b), z, f"F={f} spmm {what} rerun")
+
+
+def test_csr_kernel_refuses_another_chunk_size(dev, monkeypatch):
+    """The C entries read the plan as given and refuse one cut to another
+    chunk size."""
+    from hetu_tpu_torch.kernels import csr_spmm as cs
+    a, f = _csr_case("random", dev)
+    b = torch.randn((a.ncol, f), device=dev)
+    monkeypatch.setattr(cs, "SPMM_CHUNK", cs.SPMM_CHUNK // 2)
+    monkeypatch.setattr(cs, "SPMV_CHUNK", cs.SPMV_CHUNK // 2)
+    with pytest.raises(RuntimeError, match="csr_spmm: .*CUDA error"):
+        cs._spmm_kernel(a.csr, b)
+    with pytest.raises(RuntimeError, match="csr_spmv: .*CUDA error"):
+        cs._spmv_kernel(a.csr, b[:, 0].contiguous())
 
 
 def test_csr_gradient_on_the_card_matches_plain(dev):
