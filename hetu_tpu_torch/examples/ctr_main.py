@@ -11,7 +11,7 @@ in the reference; ``33762577`` is full Criteo-Kaggle). The data is the
 reference's seeded synthetic set (8,192 training and 2,048 validation
 rows). Every training step takes the table's gradient through the sorted
 segment sum (``fused_embed_grad``) and applies SGD through ``fused_sgd``,
-one launch per parameter.
+one launch for all the parameters.
 
 Prints one JSON line per epoch (mean loss, accuracy and AUC over its
 steps, each step's loss, the mean ms per step on the host clock after

@@ -3,7 +3,7 @@
 kernel module registers itself with :mod:`.registry` on import.
 
 All eleven are ported: ``fused_sgd`` and ``fused_adam`` (:mod:`.fused_opt`), one
-launch per parameter; ``flash_attention_fwd`` and ``flash_attention_bwd``
+launch per optimizer apply of up to ``MAX_TENSORS`` parameters; ``flash_attention_fwd`` and ``flash_attention_bwd``
 (:mod:`.flash_attention`); ``fused_linear_nll_fwd`` and
 ``fused_linear_nll_bwd`` (:mod:`.fused_ce`); ``csr_spmm`` and ``csr_spmv``
 (:mod:`.csr_spmm`); ``fused_embed_grad`` (:mod:`.embed_grad`);

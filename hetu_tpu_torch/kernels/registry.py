@@ -155,7 +155,8 @@ def reset_launch_counts() -> None:
 
 def dispatch(name: str, *args, **kwargs):
     """Serve one kernel call through the mode/device/eligibility gate. The
-    device is that of the first argument (a tensor, or a CSR matrix)."""
+    device is that of the first argument (a tensor, or a CSR matrix), or of
+    its first tensor where it is a list (a group of tensors)."""
     spec = _REGISTRY.get(name)
     if spec is None:
         raise KeyError(f"no kernel {name!r} registered "
@@ -164,12 +165,20 @@ def dispatch(name: str, *args, **kwargs):
     if mode == "off":
         _count(name, "off")
         return spec.plain_fn(*args, **kwargs)
-    device = args[0].device
+    first = args[0]
+    group = isinstance(first, (list, tuple))
+    if group:
+        if not first:
+            raise KernelEligibilityError(name, "the group is empty")
+        first = first[0]
+    device = first.device
     if device.type == "cpu":
         if mode == "force":
             raise KernelEligibilityError(
                 name, "kernels='force' on a CPU tensor (the kernel runs "
                 "only on CUDA)")
+        if group:
+            _check_group_on_cpu(name, args)
         _count(name, "plain")
         return spec.plain_fn(*args, **kwargs)
     ok, reason = spec.eligibility(*args, **kwargs)
@@ -177,6 +186,19 @@ def dispatch(name: str, *args, **kwargs):
         raise KernelEligibilityError(name, reason or "ineligible")
     _count(name, "forced" if mode == "force" else "cuda")
     return spec.kernel_fn(*args, **kwargs)
+
+
+def _check_group_on_cpu(name: str, args) -> None:
+    """A group whose first tensor is on the CPU takes the plain version only
+    if every tensor of its lists is on the CPU: a CUDA tensor later in the
+    list launches the kernel or raises, never the plain version."""
+    for xs in args:
+        if isinstance(xs, (list, tuple)):
+            for i, x in enumerate(xs):
+                if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+                    raise KernelEligibilityError(
+                        name, f"tensor {i} of the group is on {x.device}, "
+                        "its first tensor on the CPU")
 
 
 def check_tensors(named: dict, like: torch.Tensor, scalars: dict):

@@ -2,13 +2,15 @@
 (counterpart of ``hetu_tpu/optimizer.py``).
 
 SGD and Adam/AdamW apply through the hand-written CUDA kernels of
-``kernels/fused_opt.py`` (registry-dispatched); Momentum and AdaGrad stay
-plain torch, as the JAX package keeps them plain ``jnp`` expressions.
-Every apply updates the parameter and its slots in place, under
-``torch.no_grad()``. ``insert_comm_ops`` wraps every gradient in an
-all-reduce under ``comm_mode="AllReduce"`` (data parallelism); the PS and
-Hybrid modes arrive with slice 4b. A learning-rate scheduler is refused
-until ``lr_scheduler.py`` is ported.
+``kernels/fused_opt.py`` (registry-dispatched), all of a device's
+parameters as one group: one dispatch per optimizer node and step, one
+launch per ``fused_opt.MAX_TENSORS`` parameters. Momentum and AdaGrad stay
+plain torch, one parameter at a time, as the JAX package keeps them plain
+``jnp`` expressions. Every apply updates the parameter and its slots in
+place, under ``torch.no_grad()``. ``insert_comm_ops`` wraps every
+gradient in an all-reduce under ``comm_mode="AllReduce"`` (data
+parallelism); the PS and Hybrid modes arrive with slice 4b. A
+learning-rate scheduler is refused until ``lr_scheduler.py`` is ported.
 """
 from __future__ import annotations
 
@@ -73,6 +75,15 @@ class Optimizer:
         """Update ``param`` (and ``slot``) in place; returns the pair."""
         raise NotImplementedError
 
+    def apply_group(self, params, grads, slots):
+        """Update a group of parameters on one device (and their slots) in
+        place; returns ``(params, slots)`` as lists. Here one
+        :meth:`apply_dense` per parameter; SGD and Adam apply the group
+        in one dispatch."""
+        pairs = [self.apply_dense(p, g, s)
+                 for p, g, s in zip(params, grads, slots)]
+        return [p for p, _ in pairs], [s for _, s in pairs]
+
 
 class SGDOptimizer(Optimizer):
     def __init__(self, learning_rate=0.01, l2reg=0.0, clip_grad_norm=None):
@@ -82,6 +93,11 @@ class SGDOptimizer(Optimizer):
         from .kernels import fused_opt
         return fused_opt.sgd_step(self, param, grad,
                                   self.lr_tensor(param.device)), slot
+
+    def apply_group(self, params, grads, slots):
+        from .kernels import fused_opt
+        return fused_opt.sgd_group_step(
+            self, params, grads, self.lr_tensor(params[0].device)), list(slots)
 
 
 class MomentumOptimizer(Optimizer):
@@ -145,6 +161,12 @@ class AdamOptimizer(Optimizer):
         return fused_opt.adam_step(self, param, grad, slot,
                                    self.lr_tensor(param.device))
 
+    def apply_group(self, params, grads, slots):
+        from .kernels import fused_opt
+        grads = [self._regularized(p, g) for p, g in zip(params, grads)]
+        return fused_opt.adam_group_step(self, params, grads, slots,
+                                         self.lr_tensor(params[0].device))
+
 
 class AdamWOptimizer(AdamOptimizer):
     def __init__(self, learning_rate=0.01, beta1=0.9, beta2=0.999,
@@ -190,22 +212,30 @@ class OptimizerOp(Op):
                      for v in self.vars)
 
     def apply_updates(self, env, slots, tc):
-        """Apply every var's update in place (under ``torch.no_grad()``);
-        records the new slots in ``tc.slot_updates``."""
+        """Apply every var's update in place (under ``torch.no_grad()``),
+        one :meth:`Optimizer.apply_group` per device; records the new
+        slots in ``tc.slot_updates``."""
         opt = self.optimizer
         grads = [env[id(g)] for g in self.inputs]
+        params = [tc.params[id(var)] for var in self.vars]
+        new_params, new_slots = list(params), list(slots)
         with torch.no_grad():
             if opt.clip_grad_norm is not None:
                 gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
                 scale = torch.clamp(opt.clip_grad_norm / (gnorm + 1e-12),
                                     max=1.0)
                 grads = [g * scale for g in grads]
-            new_slots = []
-            for var, grad, slot in zip(self.vars, grads, slots):
-                param = tc.params[id(var)]
-                new_param, new_slot = opt.apply_dense(param, grad, slot)
-                tc.param_updates[id(var)] = new_param
-                new_slots.append(new_slot)
+            by_device: dict[torch.device, list[int]] = {}
+            for i, param in enumerate(params):
+                by_device.setdefault(param.device, []).append(i)
+            for idx in by_device.values():
+                ps, ss = opt.apply_group([params[i] for i in idx],
+                                         [grads[i] for i in idx],
+                                         [slots[i] for i in idx])
+                for i, p, s in zip(idx, ps, ss):
+                    new_params[i], new_slots[i] = p, s
+        for var, param in zip(self.vars, new_params):
+            tc.param_updates[id(var)] = param
         tc.slot_updates[id(self)] = tuple(new_slots)
 
     def compute(self, input_vals, tc):

@@ -6,6 +6,8 @@ Tolerances as in chip_smoke.py: SGD rtol 1e-6 / atol 1e-7, Adam rtol 1e-5
 / atol 1e-6 (powf in the kernel against torch.pow in beta**t); the
 attention and CE kernels' below.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -77,6 +79,128 @@ def test_ineligible_cuda_calls_raise(dev):
         with pytest.raises(registry.KernelEligibilityError, match=why):
             registry.dispatch("fused_sgd", *args, l2reg=0.0)
     assert registry.launch_counts()["fused_sgd"] == 0
+
+
+@pytest.mark.parametrize("first", ["cpu", "cuda"])
+def test_a_group_across_devices_raises(dev, first):
+    """A group with a CUDA tensor and a CPU one raises under auto, whichever
+    comes first: the CUDA tensor never takes the plain version."""
+    cpu, gpu = torch.zeros(8), torch.zeros(8, device=dev)
+    ps = [cpu, gpu] if first == "cpu" else [gpu, cpu]
+    gs = [torch.ones_like(p) for p in ps]
+    lr = torch.tensor(0.1, device=ps[0].device)
+    with registry.active("auto"), pytest.raises(
+            registry.KernelEligibilityError, match="tensor 1 .*(cpu|cuda)"):
+        registry.dispatch("fused_sgd", ps, gs, lr, l2reg=0.0)
+    assert registry.launch_counts()["fused_sgd"] == 0
+    assert torch.equal(gpu, torch.zeros(8, device=dev))
+
+
+def _offset_copy(x, offset):
+    """A copy of ``x`` starting ``offset`` floats into a fresh allocation
+    (offset 1: not 16-byte aligned)."""
+    y = torch.empty(x.numel() + offset, device=x.device)[offset:]
+    return y.view(x.shape).copy_(x)
+
+
+K = fused_opt.MAX_TENSORS
+GROUP_CASES = {
+    "mlp": ([(3072, 256), (256,), (256, 256), (256,), (256, 10), (10,)], ""),
+    "odd": ([(37, 19), (5,), (2**20 + 3,), (1,)], ""),
+    "view_p": ([(2**16 + 1,), (1000,)], "p"),
+    "view_g": ([(2**16 + 1,), (1000,)], "g"),
+    "view_m": ([(2**16 + 1,), (1000,)], "m"),
+    "view_v": ([(2**16 + 1,), (1000,)], "v"),
+    "k_plus_3": ([((37 * i) % 1001 + 1,) for i in range(K + 3)], ""),
+}
+
+
+@pytest.mark.parametrize("opt,case", [
+    (opt, case) for opt in ("sgd", "adam") for case in sorted(GROUP_CASES)
+    if opt == "adam" or GROUP_CASES[case][1] not in ("m", "v")])
+def test_group_kernels_match_plain(dev, opt, case):
+    """One group apply against the plain version: SGD bit-equal, Adam
+    within TOL (each tensor with its own t); a view at storage offset 1 of
+    p, g, m or v takes the kernel's scalar loop; one launch per K tensors;
+    bit-equal to a rerun."""
+    shapes, view = GROUP_CASES[case]
+    names = "pgmv" if opt == "adam" else "pg"
+    x = {a: [_offset_copy(_rand(s, 10 * i + j, dev, 0.1 if a in "mv" else 1),
+                          int(a == view))
+             for i, s in enumerate(shapes)] for j, a in enumerate(names)}
+    lr = torch.tensor(0.05, device=dev)
+    kw = dict(l2reg=1e-3)
+    if opt == "adam":
+        x["v"] = [v.abs_() for v in x["v"]]
+        x["t"] = [torch.tensor(float(i % 4), device=dev)
+                  for i in range(len(shapes))]
+        kw = dict(beta1=0.9, beta2=0.999, eps=1e-7, weight_decay=1e-2)
+        want = fused_opt._adam_plain(x["p"], x["g"], x["m"], x["v"], x["t"],
+                                     lr, **kw)
+    else:
+        want = [fused_opt._sgd_plain(x["p"], x["g"], lr, **kw)]
+    runs = []
+    for _ in range(2):
+        cp = {a: [_offset_copy(t, int(a == view)) for t in x[a]]
+              for a in "pmv" if a in x}
+        with registry.active("force"):
+            if opt == "adam":
+                got = registry.dispatch("fused_adam", cp["p"], x["g"],
+                                        cp["m"], cp["v"], x["t"], lr, **kw)
+            else:
+                got = [registry.dispatch("fused_sgd", cp["p"], x["g"], lr,
+                                         **kw)]
+        runs.append(got)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()[f"fused_{opt}"] == 2 * -(-len(shapes)
+                                                             // K)
+    for ga, gb in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    for got_list, want_list in zip(runs[0], want):
+        for a, b in zip(got_list, want_list):
+            if opt == "sgd":
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_c_entry_refuses_a_plan_for_another_k(dev):
+    p, g = torch.zeros(8, device=dev), torch.ones(8, device=dev)
+    lr = torch.tensor(0.5, device=dev)
+    plan = fused_opt.opt_plan((8,), (True,))
+    P = ctypes.c_void_p * 1
+    for k, count in ((K + 1, 1), (K, K + 1), (K, 0)):
+        rc = fused_opt._lib().hetu_fused_sgd_multi(
+            P(p.data_ptr()), P(g.data_ptr()), lr.data_ptr(), 0.0,
+            plan.n_vec, plan.tail_off, plan.tail_len, 0, count, k,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
+    torch.cuda.synchronize()
+    assert torch.equal(p, torch.zeros(8, device=dev))
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_one_launch_per_mlp_step(dev, opt):
+    """A three-parameter MLP through the executor: one fused_sgd or
+    fused_adam launch a step, its parameters as one group."""
+    x_np, y = ht.data._synthetic_classification(512, (32,), 10, seed=5)
+    y_np = ht.data.convert_to_one_hot(y, 10)
+    x = ht.dataloader_op([ht.Dataloader(x_np, 128, "train")])
+    y_ = ht.dataloader_op([ht.Dataloader(y_np, 128, "train")])
+    w1 = ht.init.random_normal((32, 16), stddev=0.1, name="w1")
+    b1 = ht.init.zeros((16,), name="b1")
+    w2 = ht.init.random_normal((16, 10), stddev=0.1, name="w2")
+    h = ht.relu_op(ht.matmul_op(x, w1) + ht.broadcastto_op(b1, ht.matmul_op(
+        x, w1)))
+    loss = ht.reduce_mean_op(
+        ht.softmaxcrossentropy_op(ht.matmul_op(h, w2), y_), [0])
+    cls = (ht.optim.SGDOptimizer if opt == "sgd"
+           else ht.optim.AdamOptimizer)
+    ex = ht.Executor({"train": [loss, cls(1e-2).minimize(loss)]}, seed=3)
+    losses = [float(ex.run("train")[0].asnumpy()) for _ in range(5)]
+    assert np.isfinite(losses).all()
+    assert {k: v for k, v in registry.launch_counts().items() if v} == {
+        f"fused_{opt}": 5}
 
 
 def test_mlp_on_the_card_matches_the_cpu(dev):
@@ -646,7 +770,8 @@ def test_ineligible_csr_calls_raise(dev):
 
 def test_gcn_on_the_card_matches_the_cpu(dev):
     """run_single's GCN (256 nodes, hidden 32, 30 epochs) on the card: 3
-    csr_spmm and 4 fused_sgd launches an epoch, none under kernels='off';
+    csr_spmm launches and 1 fused_sgd launch (the four parameters as one
+    group) an epoch, none under kernels='off';
     losses within rel 1e-4 of the port on the CPU (f32 sums of the dense
     products in another order, compounded over 30 updates). A sparse array
     made on the CPU is moved to the card once."""
@@ -656,7 +781,7 @@ def test_gcn_on_the_card_matches_the_cpu(dev):
         rows = list(gnn_main.run(where, "gcn", "small", epochs=30))
         losses[where] = np.array([r["train_loss"] for r in rows[:-1]])
         if where == "cuda":
-            assert all(r["launches"] == {"csr_spmm": 3, "fused_sgd": 4}
+            assert all(r["launches"] == {"csr_spmm": 3, "fused_sgd": 1}
                        for r in rows[:-1])
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
     rows = list(gnn_main.run(dev, "sage", "small", epochs=2, kernels="off"))
@@ -747,7 +872,8 @@ def test_ineligible_embed_grad_calls_raise(dev):
 
 def test_wdl_step_on_the_card_matches_the_cpu(dev):
     """WDL-Criteo at a small vocabulary (500 rows, embedding 16, batch 32)
-    on the card: 1 fused_embed_grad and 5 fused_sgd launches a step, none
+    on the card: 1 fused_embed_grad and 1 fused_sgd launch (the five
+    parameters as one group) a step, none
     under kernels='off'; losses within rel 1e-4 of the port on the CPU
     from the same initial values (f32 sums of the dense products in
     another order, compounded over 10 updates)."""
@@ -763,7 +889,7 @@ def test_wdl_step_on_the_card_matches_the_cpu(dev):
         losses[str(where)] = np.array(rows[0]["losses"])
         if where == dev:
             assert rows[0]["launches_per_step"] == {"fused_embed_grad": 1,
-                                                    "fused_sgd": 5}
+                                                    "fused_sgd": 1}
             assert rows[0]["launches_same_every_step"]
     np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
     rows = list(ctr_main.run(dev, "dfm_criteo", batch_size=32, dim=500,
