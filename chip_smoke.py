@@ -32,6 +32,7 @@ kernels.
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
     python3 chip_smoke.py --csr-kernels    # build, the CSR kernels only
     python3 chip_smoke.py --opt-kernels    # build, the optimizer kernels only
+    python3 chip_smoke.py --quant-kernels  # build, the quantize kernels only
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -42,7 +43,8 @@ after the kernels of the BERT path (the optimizers', flash attention's and
 the fused CE's, forward and backward) are built, checked and timed, and
 prints no result line: a quick check of a kernel change. ``--csr-kernels``
 does the same for ``csr_spmm`` and ``csr_spmv`` on the GCN's adjacency,
-``--opt-kernels`` for ``fused_sgd`` and ``fused_adam``.
+``--opt-kernels`` for ``fused_sgd`` and ``fused_adam``, ``--quant-kernels``
+for ``quant_blocks`` and ``dequant_blocks``.
 """
 import argparse
 import concurrent.futures
@@ -215,34 +217,44 @@ CTR_LAUNCHES = {"fused_embed_grad": 1, "fused_sgd": 1}
 CTR_SAMPLE, CTR_PROFILE_STEPS, CTR_OFF_VOCAB = 10**6, 3, 100000
 # The quantized all-reduce's blockwise quantize (quant_blocks) and
 # dequantize (dequant_blocks), in int8 and fp8 at blocks 256 (the default
-# and the main path's), 128, 64 and 7, at: the MLP's three quantized
-# gradients (fc1-fc3 weights, as world size 1 gives them to the kernels),
-# an edge vector (a ragged tail, an all-zero block, a NaN, an infinity,
-# exact .5 ties, -0.0) and a BERT-base-sized vector of 110 M elements,
-# past 65,535 blocks. The payload crosses the wire: kernel and plain
-# version must agree bit for bit (q and the scales by their bits, NaN by
-# position). Timed at the main path's shapes, the three launches of one
-# step.
+# and the main path's), 128, 64 and 7. The single-tensor forms (groups of
+# one, no prologue) at: the MLP's three quantized gradients (fc1-fc3
+# weights), an edge vector (a ragged tail, an all-zero block, a NaN, an
+# infinity, exact .5 ties, -0.0) and a BERT-base-sized vector of 110 M
+# elements, past 65,535 blocks. The group forms, at world size 1, with and
+# without the error-feedback residual, at: the MLP's three quantized
+# gradients as one group (as the DP step groups them), the edge vector
+# and the 110 M vector. The payload crosses the wire: kernel and plain
+# version must agree bit for bit (q, the scales, the residual and the
+# dequantized values by their bits, NaN by position), and so must a rerun
+# of the kernel. Timed at the main path's shapes: one group launch of
+# each over the three gradients, with the residual.
 QUANT_MODES, QUANT_BLOCKS = ("int8", "fp8"), (256, 128, 64, 7)
 QUANT_SIZES = [("fc1", 786432), ("fc2", 65536), ("fc3", 2560),
                ("edge", 6 * 7 * 256 + 1001), ("bert_base", 110_000_000)]
+QUANT_GROUPS = [("mlp", ("fc1", "fc2", "fc3")), ("edge", ("edge",)),
+                ("bert_base", ("bert_base",))]
 TOL.update({"quant_blocks": "bit-equal", "dequant_blocks": "bit-equal"})
 # Data-parallel training of the same MLP (comm_mode="AllReduce") at world
 # size 1 over NCCL, with an explicit one-rank dp mesh so the quantized
 # all-reduce runs (the JAX package's rule: an explicit mesh of any size is
 # taken as given), under comm_quant off, int8 and fp8, SGD and Adam, the
 # steps of the MLP phase. Per step 1 fused_sgd/fused_adam launch and,
-# quantized, 3 quant_blocks and 3 dequant_blocks (the fc1-fc3 weights;
-# the biases are below min_size). The first DP_CHECK_STEPS quantized steps
-# against kernels="off": losses and parameters bit-equal under SGD, within
-# TOL["fused_adam"] under Adam. DP off against local mode: bit-equal. The
+# quantized, 1 quant_blocks and 1 dequant_blocks (the fc1-fc3 weights as
+# one group; the biases are below min_size). The first DP_CHECK_STEPS
+# quantized steps against kernels="off": losses and parameters bit-equal
+# under SGD, within TOL["fused_adam"] under Adam; and against the per-op
+# path (each quantized weight alone through quantized_allreduce):
+# bit-equal. The group all-reduce of the three gradients against
+# quantized_allreduce per tensor, DP_CHECK_STEPS steps with the residual
+# carried: bit-equal. DP off against local mode: bit-equal. The
 # quantized loss curves against off: |l_q - l_off| <= DP_CURVE_TOL[mode] *
 # max(1, l_off) over the first DP_CURVE_STEPS steps (one quantization step
 # is scale/2 per element: 0.4 % of a block's largest gradient in int8,
 # 6 % in fp8, partly carried by the error feedback).
 DP_MODES, DP_CHECK_STEPS, DP_CURVE_STEPS = ("off", "int8", "fp8"), 5, 20
 DP_CURVE_TOL = {"int8": 2e-2, "fp8": 1e-1}
-DP_LAUNCHES = {"quant_blocks": 3, "dequant_blocks": 3}
+DP_LAUNCHES = {"quant_blocks": 1, "dequant_blocks": 1}
 
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
@@ -1546,10 +1558,57 @@ def _quant_input(name, n, gen, dev):
     return x
 
 
-def quant_phase(qc, registry, dev, bw, f32):
-    """quant_blocks and dequant_blocks against their plain versions at
-    every QUANT_SIZES x QUANT_MODES x QUANT_BLOCKS case, bit for bit; timed
-    at the main path's shapes (one step's three launches at block 256)."""
+def emit_quant(cases, timings, bert):
+    emit("quant_comm_checked", tolerance="bit-equal", rerun_bit_equal=True,
+         cases=len(cases),
+         group_cases=sum(c["form"] == "group" for c in cases),
+         modes=list(QUANT_MODES), blocks=list(QUANT_BLOCKS),
+         shapes=dict(QUANT_SIZES), groups=dict(QUANT_GROUPS),
+         nan_scale_cases=sum(c.get("nan_scales", 0) > 0 for c in cases),
+         timings=timings, bert_base=bert)
+
+
+def quant_group_case(qc, cq, xs, mode, block, ef, gen, dev):
+    """One group over ``xs`` at world size 1 (the bucket is the rank's
+    shard), with a seeded residual or none: the quantize and the
+    dequantize of what it sent through the kernels, twice, and through the
+    plain group versions. Returns {output: bit-equal to plain and rerun}."""
+    st = cq.QarGroup([x.numel() for x in xs], 1,
+                     cq.QuantPolicy(mode, block=block), dev)
+    st.fill_bucket(xs)
+    pl = st.plan
+    resid = (torch.randn(pl.shard, generator=gen, device=dev) * 0.01
+             if ef else None)
+    got = qc._quant_kernel(st.bucket, block=block, mode=mode, residual=resid,
+                           out=(st.send_q, st.send_scales,
+                                torch.empty_like(st.bucket) if ef else None))
+    again = qc._quant_kernel(st.bucket, block=block, mode=mode,
+                             residual=resid)
+    want = qc._quant_group_plain(st.bucket, block=block, mode=mode,
+                                 residual=resid)
+    st.recv.copy_(st.send)          # world size 1: the one row received
+    n = sum(pl.sizes)
+    deq = [qc._dequant_kernel(st.recv_q, st.recv_scales, n=n, block=block,
+                              plan=pl) for _ in range(2)]
+    deq_plain = qc._dequant_group_plain(st.recv_q, st.recv_scales, n=n,
+                                        block=block, plan=pl)
+    torch.cuda.synchronize()
+    ok = {k: all(a is None and w is None or same_bits(a, w)
+                 for a in (g, r))
+          for k, g, r, w in zip(("q", "scales", "residual"), got, again,
+                                want)}
+    ok["dequantized"] = all(same_bits(d[o:o + k], deq_plain[o:o + k])
+                            for d in deq for o, k in zip(pl.out_offs,
+                                                         pl.sizes))
+    return ok, pl
+
+
+def quant_phase(qc, cq, registry, dev, bw, f32):
+    """quant_blocks and dequant_blocks against their plain versions and a
+    rerun, bit for bit: the single forms at every QUANT_SIZES x QUANT_MODES
+    x QUANT_BLOCKS case, the group forms at every QUANT_GROUPS x modes x
+    blocks case with and without the residual; timed at the main path's
+    shapes (one group launch of each at block 256, with the residual)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     inputs = {name: _quant_input(name, n, gen, dev) for name, n in QUANT_SIZES}
     cases = []
@@ -1557,66 +1616,130 @@ def quant_phase(qc, registry, dev, bw, f32):
         for block in QUANT_BLOCKS:
             for name, n in QUANT_SIZES:
                 x = inputs[name]
-                qk, sk, nk = qc._quant_kernel(x, block=block, mode=mode)
+                qk, sk, _ = qc._quant_kernel(x, block=block, mode=mode)
+                qr, sr, _ = qc._quant_kernel(x, block=block, mode=mode)
                 qp, sp, npl = qc._quant_plain(x, block=block, mode=mode)
-                dk = qc._dequant_kernel(qk, sk, n=nk, block=block)
+                dk = qc._dequant_kernel(qk, sk, n=n, block=block)
                 dp = qc._dequant_plain(qp, sp, n=npl, block=block)
                 torch.cuda.synchronize()
-                ok = {"q": same_bits(qk, qp), "scales": same_bits(sk, sp),
+                ok = {"q": same_bits(qk, qp) and same_bits(qr, qp),
+                      "scales": same_bits(sk, sp) and same_bits(sr, sp),
                       "dequantized": same_bits(dk, dp)}
-                check(all(ok.values()) and nk == npl == n,
+                check(all(ok.values()) and npl == n,
                       f"quant_comm {mode} block {block} {name}: kernel and "
                       f"plain version differ: {ok}")
-                cases.append({"mode": mode, "block": block, "shape": name,
-                              "n": n, "blocks": sk.numel(),
+                cases.append({"form": "single", "mode": mode,
+                              "block": block, "shape": name, "n": n,
+                              "blocks": sk.numel(),
                               "nan_scales": int(torch.isnan(sk).sum())})
-                del qk, sk, qp, sp, dk, dp
+                del qk, sk, qr, sr, qp, sp, dk, dp
+            for name, members in QUANT_GROUPS:
+                for ef in (True, False):
+                    ok, pl = quant_group_case(
+                        qc, cq, [inputs[m] for m in members], mode, block,
+                        ef, gen, dev)
+                    check(all(ok.values()), f"quant_comm group {mode} block "
+                          f"{block} {name} residual={ef}: kernel, plain "
+                          f"version and rerun differ: {ok}")
+                    cases.append({"form": "group", "mode": mode,
+                                  "block": block, "shape": name,
+                                  "residual": ef, "n": sum(pl.sizes),
+                                  "blocks": pl.blocks, "vec": pl.vec})
+                    torch.cuda.empty_cache()
     mlp = [inputs[name] for name, _ in QUANT_SIZES[:3]]
-    n = sum(x.numel() for x in mlp)
-    nb = sum(-(-x.numel() // 256) for x in mlp)
     out = {}
     for mode in QUANT_MODES:
-        qs = [qc._quant_kernel(x, block=256, mode=mode) for x in mlp]
+        st = cq.QarGroup([x.numel() for x in mlp], 1,
+                         cq.QuantPolicy(mode), dev)
+        st.fill_bucket(mlp)
+        pl = st.plan
+        n, nb = pl.shard, pl.blocks
+        resid = torch.randn(n, generator=gen, device=dev) * 0.01
+        q_out = (st.send_q, st.send_scales, torch.empty_like(resid))
+        qc._quant_kernel(st.bucket, block=256, mode=mode, residual=resid,
+                         out=q_out)
+        st.recv.copy_(st.send)
+        d_out = torch.empty(pl.out_size, device=dev)
+        d_args = (st.recv_q, st.recv_scales)
+        d_kw = dict(n=sum(pl.sizes), block=256, plan=pl, out=d_out)
         timed = {
-            # read x once, write q and the scales; abs, max, divide, round
+            # read the sum and the residual; write q, the scales and the
+            # residual; add, abs, max, divide, round, decode, multiply,
+            # subtract
             "quant_blocks": (
-                bound(5 * n + 4 * nb, 4 * n, bw, f32),
-                lambda: [qc._quant_kernel(x, block=256, mode=mode)
-                         for x in mlp],
-                lambda: [qc._quant_plain(x, block=256, mode=mode)
-                         for x in mlp],
-                lambda: [registry.dispatch("quant_blocks", x, block=256,
-                                           mode=mode) for x in mlp]),
+                bound(13 * n + 4 * nb, 7 * n, bw, f32),
+                lambda: qc._quant_kernel(st.bucket, block=256, mode=mode,
+                                         residual=resid, out=q_out),
+                lambda: qc._quant_group_plain(st.bucket, block=256,
+                                              mode=mode, residual=resid,
+                                              out=q_out),
+                lambda: qc.quantize_shard(st.bucket, pl, mode, resid,
+                                          q_out)),
             # read q and the scales, write n floats; one multiply each
             "dequant_blocks": (
                 bound(n + 4 * nb + 4 * n, n, bw, f32),
-                lambda: [qc._dequant_kernel(q, s, n=k, block=256)
-                         for q, s, k in qs],
-                lambda: [qc._dequant_plain(q, s, n=k, block=256)
-                         for q, s, k in qs],
-                lambda: [registry.dispatch("dequant_blocks", q, s, n=k,
-                                           block=256) for q, s, k in qs])}
+                lambda: qc._dequant_kernel(*d_args, **d_kw),
+                lambda: qc._dequant_group_plain(*d_args, **d_kw),
+                lambda: qc.dequantize_group(*d_args, pl, d_out))}
         for k, (bnd, kern, plain, launched) in timed.items():
             out.setdefault(k, {})[mode] = {
                 "bound": bnd, "ms": graph_ms(kern),
                 "launched_ms": time_ms(launched),
                 "plain_ms": graph_ms(plain),
                 # no single PyTorch call quantizes blockwise
-                "library_ms": None}
+                "library_ms": None, "shape": [x.numel() for x in mlp]}
     big = inputs["bert_base"]
     nbig, nbbig = big.numel(), -(-big.numel() // 256)
-    bert = {"quant_ms": graph_ms(lambda: qc._quant_kernel(
-                big, block=256, mode="int8"), iters=20),
-            "quant_bound_ms": bound(5 * nbig + 4 * nbbig, 4 * nbig, bw,
-                                    f32)[0]}
     qb, sb, _ = qc._quant_kernel(big, block=256, mode="int8")
+    rb = torch.randn(nbig, generator=gen, device=dev) * 0.01
+    rb_out = torch.empty_like(rb)
+    bert = {"quant_ms": graph_ms(lambda: qc._quant_kernel(
+                big, block=256, mode="int8", out=(qb, sb, None)), iters=20),
+            "quant_bound_ms": bound(5 * nbig + 4 * nbbig, 4 * nbig, bw,
+                                    f32)[0],
+            "quant_residual_ms": graph_ms(lambda: qc._quant_kernel(
+                big, block=256, mode="int8", residual=rb,
+                out=(qb, sb, rb_out)), iters=20),
+            "quant_residual_bound_ms": bound(13 * nbig + 4 * nbbig,
+                                             7 * nbig, bw, f32)[0]}
+    db = torch.empty(nbig, device=dev)
     bert.update(dequant_ms=graph_ms(lambda: qc._dequant_kernel(
-        qb, sb, n=nbig, block=256), iters=20),
+        qb, sb, n=nbig, block=256, out=db), iters=20),
         dequant_bound_ms=bound(5 * nbig + 4 * nbbig, nbig, bw, f32)[0])
+    for k in ("quant", "quant_residual", "dequant"):
+        bert[k + "_bound_share"] = bert[k + "_bound_ms"] / bert[k + "_ms"]
     return cases, out, bert
 
 
-def dp_phase(ht, cnn_main, multihost, registry, data, dev, local):
+def qar_vs_per_tensor(cq, dev):
+    """The group all-reduce of the MLP's three quantized gradients against
+    quantized_allreduce per tensor (a group of one each), int8 and
+    fp8, DP_CHECK_STEPS steps with the residual carried: bit-equal values
+    and residuals. Needs the process group."""
+    shapes = [(3072, 256), (256, 256), (256, 10)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for mode in QUANT_MODES:
+        pol = cq.QuantPolicy(mode)
+        st = cq.QarGroup([a * b for a, b in shapes], 1, pol, dev)
+        r_g = st.residual_views()
+        r_t = [torch.zeros(cq.shard_size(a * b, 1, pol.block), device=dev)
+               for a, b in shapes]
+        for step in range(DP_CHECK_STEPS):
+            xs = [torch.randn(s, generator=gen, device=dev) * 0.1
+                  for s in shapes]
+            v_g, r_g = cq.quantized_allreduce_group(xs, r_g, None, pol, st)
+            per = [cq.quantized_allreduce(x, r, None, pol)
+                   for x, r in zip(xs, r_t)]
+            r_t = [r for _, r in per]
+            check(all(same_bits(v, vg) and same_bits(r, rg)
+                      for (v, r), vg, rg in zip(per, v_g, r_g)),
+                  f"qar {mode} step {step}: the group differs from "
+                  "quantized_allreduce per tensor")
+    return {"modes": list(QUANT_MODES), "steps": DP_CHECK_STEPS,
+            "tensors": len(shapes), "bit_equal": True}
+
+
+def dp_phase(ht, cnn_main, cq, multihost, registry, data, dev, local):
     """The MLP data-parallel at world size 1 over NCCL with an explicit dp
     mesh, under DP_MODES, SGD and Adam; returns the launches of the runs
     with the kernels. ``local``: {opt: (losses, step ms)} of local mode."""
@@ -1628,6 +1751,7 @@ def dp_phase(ht, cnn_main, multihost, registry, data, dev, local):
         multihost.initialize("file://" + os.path.join(store, "rendezvous"),
                              world_size=1, rank=0, device=dev)
         mesh = multihost.global_mesh(1)
+        emit("qar_vs_per_tensor", **qar_vs_per_tensor(cq, dev))
         for opt, lr, steps, loss_max in (
                 ("sgd", SGD_LR, SGD_STEPS, SGD_LOSS_MAX),
                 ("adam", ADAM_LR, ADAM_STEPS, ADAM_LOSS_MAX)):
@@ -1693,6 +1817,17 @@ def dp_phase(ht, cnn_main, multihost, registry, data, dev, local):
                         torch.testing.assert_close(a, b, **TOL["fused_adam"])
                 rows[mode]["vs_off_max_abs"] = max(
                     float((a - b).abs().max()) for a, b in zip(pg, pw))
+                # the per-op path: each quantized weight alone
+                per = train(ht, cnn_main, data, opt, lr, DP_CHECK_STEPS,
+                            comm_mode="AllReduce", mesh=mesh,
+                            comm_quant=mode, per_op=True)
+                po = [per[3].state["params"][id(n)]
+                      for n in per[3].param_nodes]
+                check(np.array_equal(got[0], per[0])
+                      and all(torch.equal(a, b) for a, b in zip(pg, po)),
+                      f"dp {opt} {mode}: the first {DP_CHECK_STEPS} steps "
+                      "differ from the per-op path's")
+                rows[mode]["vs_per_op_bit_equal"] = True
             emit("dp_train", opt=opt, lr=lr, steps=steps, batch=BATCH,
                  world_size=1, backend="nccl", local_step_ms=local[opt][1],
                  **rows)
@@ -1703,13 +1838,17 @@ def dp_phase(ht, cnn_main, multihost, registry, data, dev, local):
 
 
 def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
-          validate=False, **ex_kw):
+          validate=False, per_op=False, **ex_kw):
     """One fresh executor on the MLP (``ex_kw``: more Executor options):
-    (losses, step ms, validation, the executor)."""
+    (losses, step ms, validation, the executor). ``per_op``: each marked
+    all-reduce alone (the per-op path), not as one group."""
     loss, y, y_, train_op = cnn_main.build("mlp", "CIFAR10", BATCH, opt, lr,
                                            data=data)
     ex = ht.Executor({"train": [loss, y, train_op], "validate": [loss, y, y_]},
                      ctx=ctx, seed=0, kernels=kernels, **ex_kw)
+    if per_op:
+        for sub in ex.subexecutors.values():
+            sub.qar_groups, sub.qar_deferred = {}, set()
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "the executor must keep f32 matmuls in full f32")
     losses = []
@@ -1816,8 +1955,12 @@ def main(argv=None):
     ap.add_argument("--opt-kernels", action="store_true",
                     help="build, check and time the optimizer kernels, "
                          "and stop")
+    ap.add_argument("--quant-kernels", action="store_true",
+                    help="build, check and time the quantized "
+                         "all-reduce's kernels, and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
+    from hetu_tpu_torch import comm_quant
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
                                          cnn_main, ctr_main, gnn_main)
     from hetu_tpu_torch.kernels import (_build, csr_spmm, embed_grad,
@@ -1847,6 +1990,10 @@ def main(argv=None):
     libs = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[os.path.relpath(p) for p in libs.values()])
+    if args.quant_kernels:
+        emit_quant(*quant_phase(quant_comm, comm_quant, registry, dev, bw,
+                                f32))
+        return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
         spmm, spmv = csr_phase(csr_spmm, registry, tr.adj, dev, bw, f32)
@@ -1924,15 +2071,11 @@ def main(argv=None):
              max_rel=float(np.max(np.abs(gpu_l - cpu_l) / np.abs(cpu_l))))
 
     # -- 5b. the quantized all-reduce's kernels; data-parallel training ----
-    quant_cases, quant, quant_bert = quant_phase(quant_comm, registry, dev,
-                                                 bw, f32)
-    emit("quant_comm_checked", tolerance="bit-equal",
-         cases=len(quant_cases), modes=list(QUANT_MODES),
-         blocks=list(QUANT_BLOCKS), shapes=dict(QUANT_SIZES),
-         nan_scale_cases=sum(c["nan_scales"] > 0 for c in quant_cases),
-         timings=quant, bert_base=quant_bert)
-    launches.update(dp_phase(ht, cnn_main, multihost, registry, data, dev,
-                             local))
+    quant_cases, quant, quant_bert = quant_phase(quant_comm, comm_quant,
+                                                 registry, dev, bw, f32)
+    emit_quant(quant_cases, quant, quant_bert)
+    launches.update(dp_phase(ht, cnn_main, comm_quant, multihost, registry,
+                             data, dev, local))
 
     # -- 6. the BERT-base forward ------------------------------------------
     forward_launches = bert_phase(bert, bert_forward, registry, dev)

@@ -36,7 +36,9 @@ over a GSPMD mesh; the results are the JAX executor's:
   gradients and divides by dp: the gradient of the global batch's mean.
   Marked ops of large parameters go through the quantized all-reduce
   (``comm_quant``), with this rank's shard of the error-feedback
-  residual in ``state["qresid"]``.
+  residual in ``state["qresid"]``: the marked inputs of one optimizer
+  node run as one group (``comm_quant.quantized_allreduce_group``, one
+  launch of each kernel) just before the node's apply.
 - **Parameters** are drawn from the seed on every rank, then broadcast
   from rank 0 once at build, so ranks cannot start apart.
 - **Fetched values** are the global batch's. A fetched batch input is
@@ -197,6 +199,22 @@ class TraceContext:
                 for n, v, g in zip(gctx.xs, xs, grads)}
         return self.grad_cache[key][id(x)]
 
+    def allreduce_group(self, ops, xs, state):
+        """The quantized all-reduce of the marked ``ops`` (inputs of one
+        optimizer node), whose inputs' values are ``xs``, as one group
+        through ``state`` (a ``comm_quant.QarGroup``); the values, in
+        ``ops``' order."""
+        cfg = self.config
+        resid = [self.qresid_in.get(id(op)) for op in ops]
+        with torch.no_grad():
+            values, new = cq.quantized_allreduce_group(
+                xs, None if any(r is None for r in resid) else resid,
+                cfg.dp_group, cfg.comm_quant_policy, state)
+        if new is not None:
+            for op, r in zip(ops, new):
+                self.qresid_updates[id(op)] = r
+        return values
+
     def allreduce(self, x, param_node=None, op=None):
         """The mean of the dp ranks' ``x``; the identity without a mesh. An
         op the executor marked takes the quantized all-reduce."""
@@ -281,6 +299,33 @@ class SubExecutor:
                     *(self.batch_deps[id(i)] for i in n.inputs))
             self.batch_deps[id(n)] = deps
 
+        # -- the quantized all-reduce, one group per optimizer node --------
+        # {id(optimizer node): (marked ops, QarGroup)}; the walk skips the
+        # ops and runs the group just before the node's apply
+        self.qar_groups = self._group_qar_ops()
+        self.qar_deferred = {id(op) for ops, _ in self.qar_groups.values()
+                             for op in ops}
+
+    def _group_qar_ops(self) -> dict:
+        """Each optimizer node's marked inputs with the group state the
+        executor made for them, where the node alone reads each of them.
+        Otherwise (a hand-built ``allreduceCommunicate_op`` of a parameter
+        whose value another node of this target also reads, say a gradient
+        norm or a fetched value; ``insert_comm_ops`` wires each op it makes
+        to its optimizer alone) every marked op of that node is computed
+        when the walk reaches it, as a group of one
+        (``TraceContext.allreduce``)."""
+        readers: dict[int, list] = {}
+        for n in self.topo:
+            for i in n.inputs:
+                readers.setdefault(id(i), []).append(n)
+        groups = {}
+        for node in self.optimizer_nodes:
+            ops, state = self.executor.qar_groups.get(id(node), ((), None))
+            if ops and all(len(readers[id(op)]) == 1 for op in ops):
+                groups[id(node)] = (ops, state)
+        return groups
+
     def _leaf(self, node: Op, value):
         # a fed ND_Sparse_Array is no tensor: it never requires grad
         if id(node) in self.grad_x_ids and isinstance(value, torch.Tensor) \
@@ -358,11 +403,16 @@ class SubExecutor:
         with registry.active(self.config.kernels), \
                 torch.set_grad_enabled(self.n_grad_contexts > 0):
             for node in self.order:
-                if id(node) in env:
+                if id(node) in env or id(node) in self.qar_deferred:
                     continue
                 if node.is_placeholder:
                     raise ValueError(f"Placeholder {node.name} was not fed")
                 if node.is_optimizer:
+                    if id(node) in self.qar_groups:
+                        ops, state = self.qar_groups[id(node)]
+                        env.update(zip(map(id, ops), tc.allreduce_group(
+                            ops, [env[id(op.inputs[0])] for op in ops],
+                            state)))
                     node.apply_updates(env, slots_in[id(node)], tc)
                     env[id(node)] = None
                     continue
@@ -486,6 +536,26 @@ class Executor:
                     qresid[id(node)] = torch.zeros(
                         cq.shard_size(val.numel(), config.dp_size, qpol.block),
                         dtype=torch.float32, device=config.device)
+        # the marked inputs of each optimizer node are all-reduced as one
+        # group, whose state (plan, buffers, residuals) is made here once:
+        # each op's residual is a view of its group's residual buffer
+        self.qar_groups = {}
+        grouped = set()
+        marked = {id(n) for n in self.qar_ops}
+        for node in full_topo:
+            if not node.is_optimizer:
+                continue
+            ops = [i for i in node.inputs
+                   if id(i) in marked and id(i) not in grouped]
+            if not ops:
+                continue
+            grouped.update(map(id, ops))
+            state = cq.QarGroup([params[id(op.param_node)].numel()
+                                 for op in ops], config.dp_size, qpol,
+                                config.device)
+            self.qar_groups[id(node)] = (ops, state)
+            if qpol.error_feedback:
+                qresid.update(zip(map(id, ops), state.residual_views()))
         self.comm_quant_report = None
         if self.qar_ops:
             self.comm_quant_report = cq.allreduce_wire_report(
@@ -644,7 +714,8 @@ class Executor:
                         lambda a: torch.from_numpy(np.array(a)).to(
                             self.config.device),
                         aux["slots"][str(i)])
-            # each residual in full shape, cut to this dp rank's shard
+            # each residual in full shape, cut to this dp rank's shard and
+            # copied into its entry (a view of its group's buffer)
             for i, n in enumerate(self._qresid_ordered()):
                 if str(i) in aux.get("qresid", {}):
                     shard = self.state["qresid"][id(n)]
@@ -653,9 +724,8 @@ class Executor:
                     full = np.asarray(aux["qresid"][str(i)], np.float32)
                     flat[:full.size] = full.reshape(-1)
                     r = self.config.dp_rank
-                    self.state["qresid"][id(n)] = torch.from_numpy(
-                        flat[r * shard.numel():(r + 1) * shard.numel()]).to(
-                        self.config.device)
+                    shard.copy_(torch.from_numpy(
+                        flat[r * shard.numel():(r + 1) * shard.numel()]))
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,9 @@ class AllReduceCommunicateOp(Op):
     ``param_node`` is the parameter whose gradient this is."""
 
     # the Executor sets this on each op whose gradient the comm_quant
-    # policy compresses; TraceContext.allreduce then takes the quantized
-    # decomposition (comm_quant.quantized_allreduce)
+    # policy compresses; the step runs the marked inputs of each optimizer
+    # node as one group (comm_quant.quantized_allreduce_group), and
+    # TraceContext.allreduce a marked op that something else reads first
     comm_quant = False
 
     def __init__(self, node, comm=None, ctx=None, param_node=None):

@@ -7,7 +7,8 @@ launch per optimizer apply of up to ``MAX_TENSORS`` parameters; ``flash_attentio
 (:mod:`.flash_attention`); ``fused_linear_nll_fwd`` and
 ``fused_linear_nll_bwd`` (:mod:`.fused_ce`); ``csr_spmm`` and ``csr_spmv``
 (:mod:`.csr_spmm`); ``fused_embed_grad`` (:mod:`.embed_grad`);
-``quant_blocks`` and ``dequant_blocks`` (:mod:`.quant_comm`).
+``quant_blocks`` and ``dequant_blocks`` (:mod:`.quant_comm`), one launch
+each per optimizer node and step over all of its quantized gradients.
 """
 from . import registry
 from . import fused_opt

@@ -970,9 +970,106 @@ def test_ineligible_quant_calls_raise(dev):
         registry.dispatch("dequant_blocks", q, s, n=q.numel() + 1, block=64)
 
 
+# the MLP's three quantized gradients (fc1-fc3 weights), and an edge tensor
+MLP_QUANT = (786432, 65536, 2560, 8 * 256 + 77)
+
+
+def _same_outputs(got, want, what):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None), what
+        if g is not None:
+            assert g.dtype == w.dtype and _same_bits(g, w), what
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("block", [256, 128, 64, 7])
+@pytest.mark.parametrize("dp", [1, 2, 3])
+def test_quant_group_kernels_match_plain_bit_for_bit(dev, mode, block, dp):
+    """The group quantize (the mean over dp, the residual in and out) into
+    the send buffer, and the group dequantize of dp ranks' rows into the
+    param-major output, against the plain group versions and a rerun, bit
+    for bit."""
+    from hetu_tpu_torch import comm_quant as cq
+    from hetu_tpu_torch.kernels import quant_comm as qc
+    state = cq.QarGroup(MLP_QUANT, dp, cq.QuantPolicy(mode, block=block), dev)
+    pl = state.plan
+    shard = _quant_input(pl.shard, dev, True)
+    for resid in (_rand((pl.shard,), 3, dev, 0.01), None):
+        out = (state.send_q, state.send_scales,
+               None if resid is None else torch.empty_like(shard))
+        got = qc._quant_kernel(shard, block=block, mode=mode, dp=dp,
+                               residual=resid, out=out)
+        again = qc._quant_kernel(shard, block=block, mode=mode, dp=dp,
+                                 residual=resid)
+        want = qc._quant_group_plain(shard, block=block, mode=mode, dp=dp,
+                                     residual=resid)
+        torch.cuda.synchronize()
+        _same_outputs(got, want, (mode, block, dp, resid is None))
+        _same_outputs(again, want, "rerun")
+    rows = state.recv.view(dp, pl.chunk)
+    for r in range(dp):
+        q, s, _ = qc._quant_plain(_rand((pl.shard,), 20 + r, dev, 3.0),
+                                  block=block, mode=mode)
+        rows[r, :pl.shard] = q.view(torch.uint8)
+        rows[r, pl.q_bytes:pl.q_bytes + 4 * pl.blocks] = s.view(torch.uint8)
+    q, s = state.recv_q, state.recv_scales
+    n = sum(MLP_QUANT)
+    got = [qc._dequant_kernel(q, s, n=n, block=block, plan=pl)
+           for _ in range(2)]
+    want = qc._dequant_group_plain(q, s, n=n, block=block, plan=pl)
+    for o, k in zip(pl.out_offs, MLP_QUANT):
+        assert all(_same_bits(g[o:o + k], want[o:o + k]) for g in got)
+    assert registry.launch_counts()["quant_blocks"] == 4
+    assert registry.launch_counts()["dequant_blocks"] == 2
+
+
+def test_quant_c_entries_refuse_a_vector_path_for_another_block(dev):
+    from hetu_tpu_torch.kernels import quant_comm as qc
+    x = torch.zeros(128, device=dev)
+    q = torch.empty(128, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert qc._lib().hetu_quant_group(x.data_ptr(), None, None, q.data_ptr(),
+                                      x.data_ptr(), 128, 128, 1, 1, 0, 8,
+                                      stream) != 0
+    plan = qc.plan_on(qc.qar_plan((128,), 1, 128), dev)
+    assert qc._lib().hetu_dequant_group(
+        q.data_ptr(), 128, x.data_ptr(), 1, x.data_ptr(), plan.data_ptr(), 1,
+        1, 128, 1, 0, 2, stream) != 0
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_grouped_all_reduce_equals_per_tensor_on_the_card(dev, tmp_path,
+                                                          mode):
+    """quantized_allreduce_group over the MLP's three quantized gradients
+    (NCCL, world of one) against quantized_allreduce per tensor, bit for
+    bit, values and residuals, over 3 steps."""
+    from hetu_tpu_torch import comm_quant as cq
+    from hetu_tpu_torch.parallel import multihost
+    shapes = [(3072, 256), (256, 256), (256, 10)]
+    pol = cq.QuantPolicy(mode)
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, device=dev)
+    try:
+        state = cq.QarGroup([a * b for a, b in shapes], 1, pol, dev)
+        r_g = state.residual_views()
+        r_t = [torch.zeros(cq.shard_size(a * b, 1, pol.block), device=dev)
+               for a, b in shapes]
+        for step in range(3):
+            xs = [_rand(s, 30 + 3 * step + i, dev, 0.1)
+                  for i, s in enumerate(shapes)]
+            v_g, r_g = cq.quantized_allreduce_group(xs, r_g, None, pol, state)
+            per = [cq.quantized_allreduce(x, r, None, pol)
+                   for x, r in zip(xs, r_t)]
+            r_t = [r for _, r in per]
+            for (v, r), vg, rg in zip(per, v_g, r_g):
+                assert _same_bits(v, vg) and _same_bits(r, rg), (mode, step)
+    finally:
+        multihost.shutdown()
+
+
 def test_dp_mlp_on_the_card_world_of_one(dev, tmp_path):
     """comm_mode='AllReduce' over NCCL at world size 1 with an explicit
-    mesh: int8 launches each leg once per quantized parameter and step,
+    mesh: int8 launches each leg once per step (the three quantized
+    weights as one group),
     equals kernels='off' bit for bit over 3 SGD steps, and 'off' equals
     local mode bit for bit."""
     from hetu_tpu_torch.examples import cnn_main
@@ -998,7 +1095,7 @@ def test_dp_mlp_on_the_card_world_of_one(dev, tmp_path):
         dp = dict(comm_mode="AllReduce", mesh=mesh, comm_quant="int8",
                   comm_quant_min_size=1024)
         l_q, c_q, p_q = run(**dp)
-        assert c_q["quant_blocks"] == c_q["dequant_blocks"] == 3 * 3
+        assert c_q["quant_blocks"] == c_q["dequant_blocks"] == 3
         l_o, c_o, p_o = run(kernels="off", **dp)
         assert sum(c_o.values()) == 0
         assert np.array_equal(l_q, l_o)

@@ -129,11 +129,26 @@ def run(c, x, y_, y, loss, op):
                      comm_mode="AllReduce", **quant_kw(c))
     if c.get("init"):
         ex.load(c["init"])
+    if c.get("per_op"):
+        # the per-op path: each marked op alone, in the walk
+        # (quantized_allreduce per tensor), no group
+        for sub in ex.subexecutors.values():
+            sub.qar_groups, sub.qar_deferred = {}, set()
     feed = {x: data[c["feed"] + "_x"], y_: data[c["feed"] + "_y"]}
+    steps = c["steps"]
+    if c.get("resume"):
+        # two steps on other data, then the checkpoint of another run's
+        # first step, read mid-run (its residuals into the live entries)
+        other = {x: data[c["feed"] + "_x"][::-1].copy(),
+                 y_: data[c["feed"] + "_y"]}
+        for _ in range(2):
+            ex.run("train", feed_dict=other)
+        ex.load(c["resume"])
+        steps -= 1
     losses = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        for _ in range(c["steps"]):
+        for _ in range(steps):
             lv, yv, _ = ex.run("train", feed_dict=feed,
                                convert_to_numpy_ret_vals=True)
             losses.append(lv)
@@ -147,7 +162,9 @@ def run(c, x, y_, y, loss, op):
         "qar": [n.param_node.name for n in ex.qar_ops],
         "qresid": len(ex.state["qresid"]), "report": ex.comm_quant_report,
         "marks": sum(bool(getattr(n, "comm_quant", False))
-                     for n in op.inputs)}
+                     for n in op.inputs),
+        "grouped": sorted(len(ops) for sub in ex.subexecutors.values()
+                          for ops, _ in sub.qar_groups.values())}
     if c.get("save"):
         ex.save(c["save"])
     return ex
@@ -245,6 +262,16 @@ def _cases(tmp):
                   quant="int8", ef=False),
              dict(mlp, name="sgd_fp8", opt="sgd", lr=0.05, quant="fp8",
                   ef=True),
+             dict(mlp, name="sgd_int8_per_op", opt="sgd", lr=0.05,
+                  quant="int8", ef=True, per_op=True),
+             dict(mlp, name="sgd_fp8_per_op", opt="sgd", lr=0.05,
+                  quant="fp8", ef=True, per_op=True),
+             dict(mlp, name="adam_fp8_noef_per_op", opt="adam", lr=1e-3,
+                  quant="fp8", ef=False, per_op=True),
+             dict(mlp, name="sgd_int8_step1", opt="sgd", lr=0.05,
+                  quant="int8", ef=True, steps=1, save=f"{tmp}/step1_ckpt"),
+             dict(mlp, name="sgd_int8_resumed", opt="sgd", lr=0.05,
+                  quant="int8", ef=True, resume=f"{tmp}/step1_ckpt"),
              dict(mlp, name="adam_off", opt="adam", lr=1e-3, quant="off",
                   ef=True),
              dict(mlp, name="adam_int8", opt="adam", lr=1e-3, quant="int8",
@@ -386,6 +413,73 @@ def test_quantized_matches_jax_on_eight_devices(runs, name):
     assert meta["qresid"] == len(jex.state["qresid"])
     report = dict(jex.comm_quant_report, dp=2)   # two ranks, eight devices
     assert meta["report"] == report
+
+
+@pytest.mark.parametrize("name", ["sgd_int8", "sgd_fp8", "adam_fp8_noef"])
+def test_grouped_all_reduce_equals_the_per_op_path(runs, name):
+    """The executor's one group per optimizer node (the three quantized
+    weights) against each marked op alone through quantized_allreduce,
+    a group of one each: bit for bit at two gloo ranks."""
+    _, _, ranks, _ = runs
+    l_g, p_g, y_g, m_g = _port(ranks, name)
+    l_o, p_o, y_o, m_o = _port(ranks, name + "_per_op")
+    assert m_g["grouped"] == [3] and m_o["grouped"] == []
+    np.testing.assert_array_equal(l_g, l_o)
+    np.testing.assert_array_equal(y_g, y_o)
+    assert sorted(p_g) == sorted(p_o)
+    for k in p_g:
+        np.testing.assert_array_equal(p_g[k], p_o[k], err_msg=k)
+
+
+def test_a_node_whose_marked_op_another_node_reads_is_not_grouped(tmp_path):
+    """At a gloo world of one: the optimizer node's three marked inputs run
+    as one group; where another node of the target also reads one of them
+    (a norm of an all-reduced gradient), that node's marked ops are
+    computed one by one in the walk, with the same values."""
+    import hetu_tpu_torch as pt
+    from hetu_tpu_torch.parallel import multihost
+    data = _data()
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, device="cpu")
+    try:
+        kw = dict(ctx=pt.cpu(0), seed=0, comm_mode="AllReduce",
+                  mesh=multihost.global_mesh(1), comm_quant="int8",
+                  comm_quant_min_size=1024)
+        x, y_, _, loss, op = build(pt, "mlp", "sgd", 0.05)
+        feed = {x: data["mlp_x"], y_: data["mlp_y"]}
+        grouped = pt.Executor({"train": [loss, op]}, **kw)
+        sub = grouped.subexecutors["train"]
+        assert [len(ops) for ops, _ in sub.qar_groups.values()] == [3]
+        norm = pt.reduce_sum_op(op.inputs[0] * op.inputs[0], [0, 1])
+        alone = pt.Executor({"train": [loss, op, norm]}, **kw)
+        sub = alone.subexecutors["train"]
+        assert sub.qar_groups == {} and sub.qar_deferred == set()
+        for _ in range(2):
+            want = grouped.run("train", feed_dict=feed,
+                               convert_to_numpy_ret_vals=True)
+            got = alone.run("train", feed_dict=feed,
+                            convert_to_numpy_ret_vals=True)
+            np.testing.assert_array_equal(got[0], want[0])
+        for n in grouped.param_nodes:
+            np.testing.assert_array_equal(
+                alone.state["params"][id(n)].numpy(),
+                grouped.state["params"][id(n)].numpy())
+    finally:
+        multihost.shutdown()
+
+
+def test_load_mid_run_continues_as_an_uninterrupted_run(runs):
+    """An int8 executor with error feedback that took two steps of its own
+    loads the checkpoint of another run's first step (parameters and the
+    residuals, copied into its live residual views) and takes two more:
+    bit for bit the uninterrupted run's last two steps."""
+    _, _, ranks, _ = runs
+    l_u, p_u, y_u, _ = _port(ranks, "sgd_int8")
+    l_r, p_r, y_r, m_r = _port(ranks, "sgd_int8_resumed")
+    assert m_r["qresid"] == 3
+    np.testing.assert_array_equal(l_r, l_u[1:])
+    np.testing.assert_array_equal(y_r, y_u)
+    for k in p_u:
+        np.testing.assert_array_equal(p_r[k], p_u[k], err_msg=k)
 
 
 def test_off_mode_is_the_default_bit_for_bit_and_int8_engages(runs):
