@@ -33,6 +33,7 @@ kernels.
     python3 chip_smoke.py --csr-kernels    # build, the CSR kernels only
     python3 chip_smoke.py --opt-kernels    # build, the optimizer kernels only
     python3 chip_smoke.py --quant-kernels  # build, the quantize kernels only
+    python3 chip_smoke.py --embed-kernels  # build, the embedding gradient only
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -44,7 +45,8 @@ the fused CE's, forward and backward) are built, checked and timed, and
 prints no result line: a quick check of a kernel change. ``--csr-kernels``
 does the same for ``csr_spmm`` and ``csr_spmv`` on the GCN's adjacency,
 ``--opt-kernels`` for ``fused_sgd`` and ``fused_adam``, ``--quant-kernels``
-for ``quant_blocks`` and ``dequant_blocks``.
+for ``quant_blocks`` and ``dequant_blocks``, ``--embed-kernels`` for
+``fused_embed_grad`` (at the CTR and the BERT path's shapes).
 """
 import argparse
 import concurrent.futures
@@ -190,16 +192,20 @@ TOL.update({"csr_spmm": {"rel_l2": 1e-6}, "csr_spmv": {"rel_l2": 1e-6}})
 # and the dense ones are cuBLAS's on both sides, so rel L2 <= GCN_REL.
 GCN_EPOCHS, GCN_LR, GCN_REL = 30, 0.5, 1e-5
 GCN_LAUNCHES = {"csr_spmm": 3, "fused_sgd": 1}
-# The embedding gradient's segment sum (fused_embed_grad): at the main
+# The embedding gradient's segment sum (fused_embed_grad): at the CTR
 # path's shape, WDL-Criteo's step (the first batch's 128 x 26 ids over the
 # full vocabulary, d = 128), and at the other shapes the CTR models and the
 # edge cases give it: one id 3,328 times (one long run), d = 1 (DeepFM's
-# first-order table), d = 8 (Deep Crossing, WDL-Adult) and one row. Kernel
-# and plain version add each id's rows in sorted order into one f32
-# accumulator: bit-equal expected, each output held by its relative L2
-# error.
+# first-order table), d = 8 (Deep Crossing, WDL-Adult) and one row, in the
+# compact form (keys = ranks); then at the BERT path's two lookups at
+# phase 2 (32 x 512 token ids, about 4,100 of them the padding id 0, into
+# the 30,522-row table; their type ids into the 2-row one; d = 768), in the
+# dense form the backward runs (keys = ids, into the table). Kernel and
+# plain version add each id's pieces of a chunk in row order and fold them
+# in chunk order: each output must be bit-equal to the plain version and to
+# a rerun, and within rel L2 1e-6 of it.
 EMBED_CASES = [("wdl", 128), ("single_id", 128), ("d1", 1), ("d8", 8),
-               ("n1", 128)]
+               ("n1", 128), ("bert_token", 768), ("bert_type", 768)]
 TOL["fused_embed_grad"] = {"rel_l2": 1e-6}
 # WDL-Criteo (examples/ctr/models/wdl_criteo.py) at its published widths
 # and the full Criteo-Kaggle vocabulary (its own default): 26 slots x 128
@@ -1020,55 +1026,105 @@ def gcn_phase(ht, gnn_main, cs, registry, counted, dev, bw, f32):
                         "csr_spmv": mv[None][1]["csr_spmv"]}
 
 
-def _embed_inputs(case, d, first_ids, gen, dev):
-    """(vec, idx) of one EMBED_CASES case; ids as float32, as fed."""
+def _embed_inputs(case, d, first_ids, bert_batch, gen, dev):
+    """(vec, idx, vocab, form) of one EMBED_CASES case; CTR ids as float32,
+    as fed; BERT's as the batch holds them."""
     ids = first_ids.reshape(-1)
-    idx = {"wdl": first_ids, "n1": ids[:1],
-           "single_id": torch.full_like(ids, 4321.0)}.get(case, ids)
-    return torch.randn((idx.numel(), d), generator=gen, device=dev), idx
+    idx, vocab, form = {
+        "wdl": (first_ids, CTR_VOCAB, "compact"),
+        "n1": (ids[:1], CTR_VOCAB, "compact"),
+        "single_id": (torch.full_like(ids, 4321.0), CTR_VOCAB, "compact"),
+        "bert_token": (bert_batch["input_ids"], 30522, "dense"),
+        "bert_type": (bert_batch["segment_ids"], 2, "dense")}.get(
+            case, (ids, CTR_VOCAB, "compact"))
+    return (torch.randn((idx.numel(), d), generator=gen, device=dev), idx,
+            vocab, form)
 
 
-def embed_grad_phase(eg, registry, first_ids, dev, bw, f32):
-    """fused_embed_grad against its plain version on the same sorted rows
-    at EMBED_CASES, each timed: replayed (``ms``), launched through the
-    registry one call at a time, and eagerly the plain version and
-    torch.segment_reduce (the library's sorted segment sum, a yardstick
-    only), all after the prep the path runs first."""
+def embed_grad_phase(eg, registry, first_ids, bert_batch, dev, bw, f32):
+    """fused_embed_grad against its plain version at EMBED_CASES, after the
+    prep the path runs first, each timed: replayed (``ms``), launched
+    through the registry one call at a time, and eagerly the plain
+    version, torch.segment_reduce on the sorted rows (the library's sorted
+    segment sum, a yardstick only) and, at BERT's lookups, the two
+    backwards PyTorch has for a gather: aten's embedding_dense_backward
+    and index_put_ with accumulate (``indexing_backward``, which the BERT
+    path ran before), each into the table; and the form the path calls
+    (embed_grad_rows or embed_grad_dense: the sort, the zeroed output, the
+    kernel)."""
     gen = torch.Generator(device=dev).manual_seed(8)
     cases = []
     for case, d in EMBED_CASES:
-        vec, idx = _embed_inputs(case, d, first_ids, gen, dev)
-        sv, _, _, count, offs = eg._prep(vec, idx, CTR_VOCAB)
-        got, want = eg._segsum_kernel(sv, offs), eg._segsum_plain(sv, offs)
+        vec, idx, vocab, form = _embed_inputs(case, d, first_ids, bert_batch,
+                                              gen, dev)
+        flat, order, sidx = eg._prep(vec, idx)
+        seg, _, count = eg._ranks(sidx, vocab)
+        key, rows = (seg, flat.shape[0]) if form == "compact" else (sidx,
+                                                                      vocab)
+        out = torch.zeros((rows, d), device=dev)
+        got = eg._segsum_kernel(flat, order, key, out.clone())
+        again = eg._segsum_kernel(flat, order, key, out.clone())
+        want = eg._segsum_plain(flat, order, key, out.clone())
         torch.cuda.synchronize()
         rel = rel_l2(got, want)
-        check(rel <= TOL["fused_embed_grad"]["rel_l2"], f"fused_embed_grad "
-              f"{case} differs from the plain version by rel L2 {rel}")
-        n = sv.shape[0]
-        lengths = (offs[1:] - offs[:-1]).long()
+        bits = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        rerun = bool(torch.equal(again.view(torch.int32),
+                                 got.view(torch.int32)))
+        check(rel <= TOL["fused_embed_grad"]["rel_l2"] and bits and rerun,
+              f"fused_embed_grad {case}: rel L2 {rel} from the plain "
+              f"version, bit-equal {bits}, bit-equal on a rerun {rerun}")
+        n = flat.shape[0]
+        lengths = torch.bincount(seg, minlength=n)[:int(count)]
+        sv = flat.index_select(0, order)
+        # the rows the kernel writes: the compact form's count, the dense
+        # form's distinct ids inside the table
+        kept = torch.unique_consecutive(sidx[(sidx >= 0) & (sidx < vocab)])
+        written = int(count) if form == "compact" else kept.numel()
 
         def library():
             return torch.segment_reduce(sv, "sum", lengths=lengths,
                                         unsafe=True)
 
         lib = library()
-        c = {"case": case, "shape": [n, d], "unique": int(count),
-             "longest": int(lengths.max()),
-             "bit_equal": bool(torch.equal(got, want)),
+        c = {"case": case, "form": form, "shape": [n, d], "out_rows": rows,
+             "unique": int(count), "longest": int(lengths.max()),
+             "chunk": eg.chunk_rows(n, d), "bit_equal": bits,
+             "rerun_bit_equal": rerun,
              "max_abs_err": float((got - want).abs().max()), "rel_l2": rel,
-             "library_rel_l2": rel_l2(lib, want),
-             # read sv and the offsets once, write out once; at most one
-             # add per element of sv
-             "bound": bound(8 * n * d + 4 * (n + 1), n * d, bw, f32),
-             "ms": graph_ms(lambda: eg._segsum_kernel(sv, offs)),
+             "library_rel_l2": rel_l2(lib, want[:int(count)] if form ==
+                                      "compact" else want[kept.long()]),
+             # read the rows, order (int64) and the keys once, write each
+             # summed row once; at most one add per element of the rows
+             "bound": bound(4 * n * d + 12 * n + 4 * written * d, n * d, bw,
+                            f32),
+             "ms": graph_ms(lambda: eg._segsum_kernel(flat, order, key, out)),
+             # the chunk and the fold launch's device µs
+             "kernels_us": device_split(
+                 lambda: eg._segsum_kernel(flat, order, key, out)),
              "launched_ms": time_ms(lambda: registry.dispatch(
-                 "fused_embed_grad", sv, offs)),
-             "plain_ms": time_ms(lambda: eg._segsum_plain(sv, offs),
-                                 iters=10, warmup=2),
+                 "fused_embed_grad", flat, order, key, out)),
+             "plain_ms": time_ms(lambda: eg._segsum_plain(flat, order, key,
+                                                          out),
+                                 iters=5, warmup=1),
              # eagerly: a capture that fails on a host sync inside the
              # library would leave the stream unusable
              "library_ms": time_ms(library, iters=50)}
+        if form == "compact":
+            c["form_launched_ms"] = time_ms(
+                lambda: eg.embed_grad_rows(vec, idx, vocab), iters=50)
+        else:
+            ids = idx.reshape(-1).long()
+            table = torch.zeros((vocab, d), device=dev)
+            c["form_launched_ms"] = time_ms(
+                lambda: eg.embed_grad_dense(vec, idx, (vocab, d)), iters=50)
+            c["embedding_dense_backward_ms"] = time_ms(
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    vec, ids, vocab, -1, False), iters=50)
+            c["indexing_backward_ms"] = time_ms(
+                lambda: table.index_put_((ids,), vec, accumulate=True),
+                iters=50)
         cases.append(c)
+        del flat, order, sidx, seg, out, got, again, want, sv, lib, kept
     return cases
 
 
@@ -1191,9 +1247,11 @@ def ctr_off_step(ctr_main, counted, dev):
          launches=counts[None], off_launches=counts["off"])
 
 
-def ctr_phase(ht, ctr_main, eg, registry, counted, dev, bw, f32):
+def ctr_phase(ht, ctr_main, eg, registry, counted, bert_batch, dev, bw,
+              f32):
     """WDL-Criteo at the full Criteo vocabulary: fused_embed_grad against
-    its plain version; the first step's gradients against kernels="off";
+    its plain version (also at BERT's phase-2 lookups, ``bert_batch``); the
+    first step's gradients against kernels="off";
     CTR_STEPS steps through Executor.run (ctr_main.run), the launch counts
     zeroed just before each step and read just after; the rows no step
     looked up unchanged; the step profiled; then the explicit gradient
@@ -1202,7 +1260,8 @@ def ctr_phase(ht, ctr_main, eg, registry, counted, dev, bw, f32):
     data = ctr_main.load_data("wdl_criteo", CTR_VOCAB)
     first_ids = torch.from_numpy(data[0][1][:CTR_BATCH]).to(dev)
     rows0 = torch.unique(first_ids.long())
-    embed = embed_grad_phase(eg, registry, first_ids, dev, bw, f32)
+    embed = embed_grad_phase(eg, registry, first_ids, bert_batch, dev, bw,
+                             f32)
     emit("fused_embed_grad_checked", tolerance=TOL["fused_embed_grad"],
          cases=embed)
 
@@ -1348,7 +1407,8 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
     cfg = bert.BERT_BASE
     want = {"flash_attention_fwd": 2 * cfg.n_layers,   # forward + remat
             "flash_attention_bwd": cfg.n_layers,
-            "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1}
+            "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
+            "fused_embed_grad": 2}                   # token and type tables
     params = bert.init_params(0, cfg, dev)
     batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
                                       seed=0, device=dev)
@@ -1410,7 +1470,8 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
         (loss, acc, cls, opt), counts = bert_forward.counted(
             lambda: step(cls, opt, fb))
         ft_want = {"flash_attention_fwd": 2 * cfg.n_layers,
-                   "flash_attention_bwd": cfg.n_layers}
+                   "flash_attention_bwd": cfg.n_layers,
+                   "fused_embed_grad": 2}
         check(counts == ft_want, f"finetune step {i} launched {counts}, "
               f"expected {ft_want}")
         ft_losses.append(float(loss))
@@ -1421,6 +1482,13 @@ def bert_train_phase(bert, tfm, bert_forward, bert_pretrain, registry, dev):
     return summary["launches_per_step"]
 
 
+def phase2_batch(bert, bert_forward, dev):
+    """BERT-base's synthetic phase-2 batch (PHASE2_SEQ tokens, PHASE2_PRED
+    MLM slots a row), as bert_phase2 trains on it."""
+    return bert_forward.phase1_batch(bert.BERT_BASE, BERT_BATCH, PHASE2_SEQ,
+                                     PHASE2_PRED, seed=0, device=dev)
+
+
 def bert_phase2(bert, tfm, bert_forward, bert_pretrain, registry, dev, cfg,
                 want):
     """BERT-base at its phase-2 shape (PHASE2_SEQ tokens, PHASE2_PRED MLM
@@ -1429,8 +1497,7 @@ def bert_phase2(bert, tfm, bert_forward, bert_pretrain, registry, dev, cfg,
     just before it and read just after, and the device time of a step."""
     import tempfile
     params = bert.init_params(0, cfg, dev)
-    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, PHASE2_SEQ,
-                                      PHASE2_PRED, seed=0, device=dev)
+    batch = phase2_batch(bert, bert_forward, dev)
     first_loss, _ = bert_grad_gate(bert, tfm, bert_forward, registry, cfg,
                                    params, batch, want, "phase2")
     del params, batch
@@ -1915,9 +1982,11 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
     kern["csr_spmm"] = dict(spmm[1], max_abs_err=max(
         c["max_abs_err"] for c in spmm), epoch_ms=sum(c["ms"] for c in spmm))
     kern["csr_spmv"] = spmv[0]
-    # fused_embed_grad at WDL-Criteo's step, the first case
+    # fused_embed_grad at WDL-Criteo's step, the first case, and at
+    # BERT-base's two phase-2 lookups
     kern["fused_embed_grad"] = dict(embed[0], max_abs_err=max(
-        c["max_abs_err"] for c in embed))
+        c["max_abs_err"] for c in embed), phase2={
+            c["case"]: _timed(c) for c in embed if c["form"] == "dense"})
     # the quantized all-reduce's legs at one int8 step of the DP MLP (fp8
     # in the quant_comm_checked line); bit-equal at every case, so 0
     for k in ("quant_blocks", "dequant_blocks"):
@@ -1958,6 +2027,9 @@ def main(argv=None):
     ap.add_argument("--quant-kernels", action="store_true",
                     help="build, check and time the quantized "
                          "all-reduce's kernels, and stop")
+    ap.add_argument("--embed-kernels", action="store_true",
+                    help="build, check and time the embedding gradient's "
+                         "kernel, and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
@@ -1993,6 +2065,14 @@ def main(argv=None):
     if args.quant_kernels:
         emit_quant(*quant_phase(quant_comm, comm_quant, registry, dev, bw,
                                 f32))
+        return 0
+    if args.embed_kernels:
+        data = ctr_main.load_data("wdl_criteo", CTR_VOCAB)
+        first_ids = torch.from_numpy(data[0][1][:CTR_BATCH]).to(dev)
+        emit("fused_embed_grad_checked", tolerance=TOL["fused_embed_grad"],
+             cases=embed_grad_phase(embed_grad, registry, first_ids,
+                                    phase2_batch(bert, bert_forward, dev),
+                                    dev, bw, f32))
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -2094,8 +2174,9 @@ def main(argv=None):
 
     # -- 9. WDL-Criteo at the full Criteo vocabulary -----------------------
     torch.cuda.empty_cache()
-    embed, ctr_launches = ctr_phase(ht, ctr_main, embed_grad, registry,
-                                    bert_forward.counted, dev, bw, f32)
+    embed, ctr_launches = ctr_phase(
+        ht, ctr_main, embed_grad, registry, bert_forward.counted,
+        phase2_batch(bert, bert_forward, dev), dev, bw, f32)
     launches.update(ctr_launches)
 
     print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm,

@@ -120,7 +120,7 @@ def kernel_group(name):
         return "csr_spmm"
     if "spmv_chunk_kernel" in name or "spmv_merge_kernel" in name:
         return "csr_spmv"
-    if "segsum_kernel" in name:
+    if "segsum_chunk_kernel" in name or "segsum_fold_kernel" in name:
         return "fused_embed_grad"
     if "sgd_kernel" in name:
         return "fused_sgd"

@@ -4,9 +4,9 @@
 ``embedding_lookup_op`` gathers rows of a table; autograd takes the
 table's gradient through ``kernels/embed_grad.py``'s
 :class:`~hetu_tpu_torch.kernels.embed_grad.EmbeddingLookup`, whose
-backward is the sorted segment sum (``fused_embed_grad``) and one scatter
-over the unique rows: the sum of each id's rows in one fixed order, where
-PyTorch's own gather backward (``index_add_``) adds with atomics.
+backward is the sorted segment sum (``fused_embed_grad``), written
+straight into the table-shaped gradient: the sum of each id's rows in one
+fixed order, where ``index_add_`` adds with atomics.
 
 ``embedding_lookup_gradient_op`` is the explicit form. In dense mode it is
 the ``(vocab, dim)`` table gradient (``embed_grad_dense``); in rows mode

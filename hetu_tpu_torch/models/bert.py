@@ -8,7 +8,9 @@ vector, and a classifier head for serving.
 ``make_pretrain_step`` (MLM + NSP pretraining) and ``make_finetune_step``
 (the classifier) run the ported kernels on the card: flash attention
 forward and backward in every encoder layer, the fused linear+CE forward
-and backward for the MLM loss. The steps use the trunk's AdamW
+and backward for the MLM loss, and in the backward the embedding gradient's
+segment sum for the token and the type embedding (both gathered by
+``kernels/embed_grad.py:lookup``). The steps use the trunk's AdamW
 (``transformer.adamw_update``) and update params and optimizer state in
 place. ``param_specs`` is mesh code and comes with the parallel slices.
 """
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from . import transformer as tfm
+from ..kernels import embed_grad
 from ..kernels.fused_ce import fused_linear_nll, should_fuse
 from ..ndarray import resolve_device
 
@@ -109,7 +112,7 @@ def encode(params, input_ids, segment_ids, cfg: BertConfig, mesh=None,
     final as it is."""
     trunk = cfg.trunk()
     h = tfm.embed_tokens(params, input_ids, trunk)
-    h = h + params["type_emb"][segment_ids.long()].to(h.dtype)
+    h = h + embed_grad.lookup(params["type_emb"], segment_ids).to(h.dtype)
     if cfg.post_ln:
         h = tfm._layer_norm(h, params["lnf_scale"], params["lnf_bias"],
                             cfg.ln_eps)

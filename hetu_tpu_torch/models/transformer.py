@@ -10,7 +10,9 @@ they are not kernels to port) with f32 accumulation, cast back where the
 reference casts. Attention runs the ported flash kernels
 (``kernels/flash_attention.py``) or the unfused ``dot`` form; the LM loss
 runs the ported fused linear+CE kernels (``kernels/fused_ce.py``) or the
-materialising form. ``encode`` is a Python loop over the layers in place
+materialising form. The token embedding is gathered by
+``kernels/embed_grad.py:lookup``, so its gradient is the sorted segment sum
+``fused_embed_grad``. ``encode`` is a Python loop over the layers in place
 of the reference's ``lax.scan``; under ``cfg.remat`` each block is
 recomputed in the backward (``torch.utils.checkpoint``), as
 ``jax.checkpoint`` does there.
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels import registry
+from ..kernels import embed_grad, registry
 from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ce import fused_linear_nll, should_fuse
 from ..ndarray import resolve_device
@@ -380,7 +382,7 @@ def embed_tokens(params, tokens, cfg: TransformerConfig):
     """(..., T) integer tokens -> (..., T, D) embeddings (+ learned
     positions, unless the dialect carries positions via rope)."""
     T = tokens.shape[-1]
-    h = params["embed"][tokens.long()].to(cfg.dtype)
+    h = embed_grad.lookup(params["embed"], tokens).to(cfg.dtype)
     if cfg.use_pos_emb:
         h = h + params["pos"][:T].to(cfg.dtype)
     return h

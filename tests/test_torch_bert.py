@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from hetu_tpu.models import bert as jb, transformer as jt
 from hetu_tpu_torch.interop import tree_from_numpy
-from hetu_tpu_torch.kernels import registry
+from hetu_tpu_torch.kernels import embed_grad as teg, registry
 from hetu_tpu_torch.models import bert as tb, transformer as tt
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -295,6 +295,10 @@ def test_bert_forward_example_runs_on_the_cpu():
      "csr_spmv"),
     ("(anonymous namespace)::spmv_merge_kernel(int const*, long, ...)",
      "csr_spmv"),
+    ("void (anonymous namespace)::segsum_chunk_kernel<4>(float const*, ...)",
+     "fused_embed_grad"),
+    ("void (anonymous namespace)::segsum_fold_kernel<1>(int const*, ...)",
+     "fused_embed_grad"),
 ])
 def test_profile_groups_each_kernel_under_its_port(name, group):
     """The step profile's groups (``bert_forward.kernel_group``) put each
@@ -418,6 +422,46 @@ def test_lm_train_step_matches_jax(tied, accum):
     _assert_state_close(tp, topt, jp, jopt)
 
 
+EMBED_REL = 1e-5
+
+
+def test_embedding_gradients_with_long_runs_match_jax_grad(bert_pair):
+    """The first step's gradients of ``embed`` and ``type_emb`` through the
+    port's ``lookup`` (the segment sum's plain version, two dispatches: the
+    token and the type embedding) against ``jax.grad`` of the JAX package's
+    pretraining loss from the same params, on a batch whose padding (id 0)
+    and type ids give runs longer than a chunk: rel L2 at most EMBED_REL
+    each (f32 through two layers; the JAX side's scatter-add and the MLM
+    head's tied dW sum in another order)."""
+    hf, jp, tp = bert_pair
+    jc, tc = _configs(hf, attn_impl="flash", fused_mlm_ce=True)
+    rng = np.random.RandomState(8)
+    ids = rng.randint(1, 97, (B, T)).astype(np.int32)
+    mask = np.ones((B, T), np.int32)
+    for b, length in enumerate((T, 9, 4, 20)):
+        ids[b, length:] = 0
+        mask[b, length:] = 0
+    lb = dict(input_ids=ids, input_mask=mask,
+              segment_ids=(np.arange(T)[None, :] >= 6).astype(np.int32)
+              .repeat(B, 0),
+              mlm_positions=rng.randint(1, 4, (B, P)).astype(np.int32),
+              mlm_ids=rng.randint(0, 97, (B, P)).astype(np.int32),
+              mlm_weights=np.ones((B, P), np.float32),
+              nsp_label=rng.randint(0, 2, (B,)).astype(np.int32))
+    chunk = teg.chunk_rows(B * T, SMALL["d_model"])
+    for key in ("input_ids", "segment_ids"):
+        assert np.bincount(lb[key].ravel()).max() > 3 * chunk
+    jbatch = {k: jnp.asarray(v) for k, v in lb.items()}
+    want = jax.grad(lambda p: jb.pretrain_loss(p, jbatch, jc)[0])(jp)
+    registry.reset_stats()
+    _, got = tt.value_and_grad(tb.pretrain_loss, tp, _tb(lb), tc,
+                               has_aux=True)
+    assert registry.dispatch_stats()[("fused_embed_grad", "plain")] == 2
+    for name in ("embed", "type_emb"):
+        g, w = got[name].numpy(), np.asarray(want[name])
+        assert np.linalg.norm(g - w) <= EMBED_REL * np.linalg.norm(w), name
+
+
 def test_remat_gives_the_same_gradients(batch):
     """cfg.remat recomputes each block in the backward: the same loss and
     gradients as keeping the activations, and the recompute runs the
@@ -460,7 +504,7 @@ def test_train_step_updates_in_place_under_the_callers_mode(batch):
     assert registry.dispatch_stats() == {
         ("flash_attention_fwd", "off"): 4, ("flash_attention_bwd", "off"): 2,
         ("fused_linear_nll_fwd", "off"): 1,
-        ("fused_linear_nll_bwd", "off"): 1}
+        ("fused_linear_nll_bwd", "off"): 1, ("fused_embed_grad", "off"): 2}
 
 
 def test_bert_pretrain_example_runs_on_the_cpu():

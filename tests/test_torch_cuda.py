@@ -607,6 +607,7 @@ def test_bert_train_step_on_the_card_matches_the_cpu(dev):
     assert counts["flash_attention_bwd"] == 4
     assert counts["fused_linear_nll_fwd"] == 2
     assert counts["fused_linear_nll_bwd"] == 2
+    assert counts["fused_embed_grad"] == 4         # 2 steps x (token, type)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
@@ -799,10 +800,22 @@ def test_gcn_on_the_card_matches_the_cpu(dev):
 # ---------------------------------------------------------------------------
 
 def _embed_case(case, dev):
-    """(vec, idx) on the card: WDL-Criteo's step (128 x 26 ids over the
-    full vocabulary, d = 128), one id 3,328 times, d = 1 (DeepFM's
-    first-order table), d = 8 (Deep Crossing, WDL-Adult), one row."""
+    """(vec, idx, vocab) on the card: WDL-Criteo's step (128 x 26 ids over
+    the full vocabulary, d = 128), one id 3,328 times, d = 1 (DeepFM's
+    first-order table), d = 8 (Deep Crossing, WDL-Adult), one row, and
+    BERT-base's two lookups at phase 2 (32 x 512 token ids, about 4,100 of
+    them the padding id 0, over 30,522 rows; their type ids over 2 rows;
+    d = 768)."""
     rng = np.random.RandomState(11)
+    if case.startswith("bert"):
+        from hetu_tpu_torch.examples import bert_forward
+        from hetu_tpu_torch.models import bert
+        b = bert_forward.phase1_batch(bert.BERT_BASE, 32, 512, 76, seed=0,
+                                      device=dev)
+        idx, vocab = ((b["input_ids"], 30522) if case == "bert_token"
+                      else (b["segment_ids"], 2))
+        vec = rng.randn(idx.numel(), 768).astype(np.float32)
+        return torch.from_numpy(vec).to(dev), idx, vocab
     n, d, vocab = {"d1": (3328, 1, 1000), "d8": (3328, 8, 1000),
                    "n1": (1, 128, 1000)}.get(case, (3328, 128, 33762577))
     idx = rng.randint(0, vocab, n)
@@ -813,23 +826,68 @@ def _embed_case(case, dev):
             torch.from_numpy(idx.astype(np.float32)).to(dev), vocab)
 
 
-@pytest.mark.parametrize("case", ["wdl", "single_id", "d1", "d8", "n1"])
+EMBED_CASES = ["wdl", "single_id", "d1", "d8", "n1", "bert_token",
+               "bert_type"]
+
+
+@pytest.mark.parametrize("case", EMBED_CASES)
 def test_embed_grad_kernel_matches_plain(dev, case):
-    """The kernel adds each id's rows in the plain version's order:
-    bit-equal."""
+    """The kernel adds each id's pieces and folds them in the plain
+    version's order: bit-equal, and bit-equal to a rerun, in the compact
+    form (keys = ranks) and the dense one (keys = ids, into the table)."""
     from hetu_tpu_torch.kernels import embed_grad as eg
     vec, idx, vocab = _embed_case(case, dev)
-    sv, _, rows, count, offs = eg._prep(vec, idx, vocab)
-    got = registry.dispatch("fused_embed_grad", sv, offs)
-    torch.cuda.synchronize()
-    assert registry.launch_counts()["fused_embed_grad"] == 1
-    assert got.shape == sv.shape
-    _bit_equal(got, eg._segsum_plain(sv, offs), f"{case} segment sum")
+    flat, order, sidx = eg._prep(vec, idx)
+    seg, rows, count = eg._ranks(sidx, vocab)
+    n, d = flat.shape
+    forms = [("compact", seg, n)] + (
+        [("dense", sidx, vocab)] if vocab * d < 2**31 else [])
+    got = {}
+    for form, key, out_rows in forms:
+        registry.reset_launch_counts()
+        got[form] = registry.dispatch("fused_embed_grad", flat, order, key,
+                                      torch.zeros((out_rows, d), device=dev))
+        again = eg._segsum_kernel(flat, order, key,
+                                  torch.zeros_like(got[form]))
+        torch.cuda.synchronize()
+        assert registry.launch_counts()["fused_embed_grad"] == 2
+        want = eg._segsum_plain(flat, order, key, torch.zeros_like(got[form]))
+        _bit_equal(got[form], want, f"{case} {form} segment sum")
+        _bit_equal(again, got[form], f"{case} {form} rerun")
     k = int(count)
-    assert (got[k:] == 0).all() and (rows[k:] == vocab).all()
+    assert (got["compact"][k:] == 0).all()
     with registry.active("off"):
         want_rows, want, want_count = eg.embed_grad_rows(vec, idx, vocab)
     assert torch.equal(rows, want_rows) and int(want_count) == k
+    assert (rows[k:] == vocab).all()
+
+
+def test_embed_grad_scalar_path_and_refusals(dev):
+    """A row view 4 bytes off 16-byte alignment: the entry takes the
+    scalar path (``segsum_chunk_kernel<1>`` in the profile), bit-equal to
+    the plain version; the C entry refuses a chunk above kMaxChunk."""
+    from hetu_tpu_torch.kernels import embed_grad as eg
+    vec, idx, _ = _embed_case("wdl", dev)
+    storage = torch.cat([vec.flatten(), vec.new_zeros(1)])
+    view = storage[1:].view(vec.shape)
+    # 128 ids below 50,000, each 26 times: runs across chunks
+    flat, order, keys = eg._prep(view, (idx[:128] % 50000)
+                                 .repeat_interleave(26))
+    out = torch.zeros((50000, 128), device=dev)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = eg._segsum_kernel(flat, order, keys, out.clone())
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert any("segsum_chunk_kernel<1>" in nm for nm in names), names
+    want = eg._segsum_plain(flat, order, keys, out.clone())
+    torch.cuda.synchronize()
+    _bit_equal(got, want, "scalar path")
+    lib = eg._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [flat.data_ptr(), order.data_ptr(), keys.data_ptr(),
+            out.data_ptr(), out.data_ptr(), flat.shape[0], 128, 50000]
+    assert lib.hetu_embed_grad_segsum(*args, eg.MAX_CHUNK + 1, stream) == 1
 
 
 def test_lookup_gradient_on_the_card_matches_plain(dev):
@@ -855,15 +913,20 @@ def test_lookup_gradient_on_the_card_matches_plain(dev):
 def test_ineligible_embed_grad_calls_raise(dev):
     from hetu_tpu_torch.kernels import embed_grad as eg
     vec, idx, vocab = _embed_case("d8", dev)
-    sv, _, _, _, offs = eg._prep(vec, idx, vocab)
-    bad = [((sv.double(), offs), "float32"),
-           ((sv, offs.long()), "int32"),
-           ((sv.t(), offs), "contiguous"),
-           ((sv, offs[::2]), "contiguous"),
-           ((sv, offs.cpu()), "cpu"),
-           ((sv, offs[:-1]), "shape"),
-           ((sv[:0], offs[:1]), "n, dim >= 1"),
-           ((sv.reshape(-1), offs), "n, dim")]
+    flat, order, sidx = eg._prep(vec, idx)
+    out = torch.zeros((vocab, 8), device=dev)
+    bad = [((flat.double(), order, sidx, out), "float32"),
+           ((flat, order.int(), sidx, out), "int64"),
+           ((flat, order, sidx.long(), out), "int32"),
+           ((flat, order, sidx, out.double()), "float32"),
+           ((flat.t(), order, sidx, out), "contiguous"),
+           ((flat, order[::2], sidx[::2], out), "contiguous"),
+           ((flat, order, sidx.cpu(), out), "cpu"),
+           ((flat, order, sidx, out.cpu()), "cpu"),
+           ((flat, order[:-1], sidx[:-1], out), "shape"),
+           ((flat, order, sidx, out[:, :4].contiguous()), "out has shape"),
+           ((flat[:0], order[:0], sidx[:0], out), "n, dim >= 1"),
+           ((flat.reshape(-1), order, sidx, out), "n, dim")]
     for args, why in bad:
         with pytest.raises(registry.KernelEligibilityError, match=why):
             registry.dispatch("fused_embed_grad", *args)
