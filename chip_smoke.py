@@ -25,8 +25,14 @@ published widths and the full Criteo-Kaggle vocabulary (33,762,577 rows)
 for 30 steps through ``Executor.run``, checks its first step's loss and
 gradients against ``kernels="off"`` and that the rows no step looked up
 kept their bits, and runs one ``embedding_lookup_gradient_op`` program in
-dense and in rows mode. Each path is checked to have gone through its
-kernels.
+dense and in rows mode; then trains ResNet-18 of ``examples/cnn`` at full
+width (batch 128, synthetic CIFAR10, SGD at lr 0.1) through
+``cnn_main.build`` and ``Executor.run`` for 30 steps in float32, its
+first step against ``kernels="off"``, and 10 in bf16 compute; and trains
+the graph-API transformer LM of ``examples/nlp/hetu_transformer.py`` at
+its trainer's default widths for 30 Adam steps with dropout, its first
+step at dropout 0 against ``kernels="off"``. Each path is checked to have
+gone through its kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -34,6 +40,7 @@ kernels.
     python3 chip_smoke.py --opt-kernels    # build, the optimizer kernels only
     python3 chip_smoke.py --quant-kernels  # build, the quantize kernels only
     python3 chip_smoke.py --embed-kernels  # build, the embedding gradient only
+    python3 chip_smoke.py --zoo            # build, ResNet-18 and the LM only
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -46,7 +53,8 @@ prints no result line: a quick check of a kernel change. ``--csr-kernels``
 does the same for ``csr_spmm`` and ``csr_spmv`` on the GCN's adjacency,
 ``--opt-kernels`` for ``fused_sgd`` and ``fused_adam``, ``--quant-kernels``
 for ``quant_blocks`` and ``dequant_blocks``, ``--embed-kernels`` for
-``fused_embed_grad`` (at the CTR and the BERT path's shapes).
+``fused_embed_grad`` (at the CTR and the BERT path's shapes); ``--zoo``
+builds and runs the ResNet-18 and LM phases (sections 10-11) alone.
 """
 import argparse
 import concurrent.futures
@@ -261,6 +269,31 @@ TOL.update({"quant_blocks": "bit-equal", "dequant_blocks": "bit-equal"})
 DP_MODES, DP_CHECK_STEPS, DP_CURVE_STEPS = ("off", "int8", "fp8"), 5, 20
 DP_CURVE_TOL = {"int8": 2e-2, "fp8": 1e-1}
 DP_LAUNCHES = {"quant_blocks": 1, "dequant_blocks": 1}
+# ResNet-18 (examples/cnn/models/ResNet.py at full width: stem 64, stages
+# 64/128/256/512, 62 parameter tensors, 11,173,962 parameters) on the
+# MLP's synthetic CIFAR10 in NCHW, batch 128, SGD at lr 0.1 (the
+# reference's default), through cnn_main.build and Executor.run: 30 steps
+# in float32, then 10 in bf16 compute over float32 parameters. Per step
+# fused_sgd launches as often as opt_plan splits its 62 tensors (48 a
+# launch: 2) and no other registered kernel launches. The first float32
+# step against kernels="off" from the same seed, both with
+# cudnn.deterministic set for that step (the two executors could
+# otherwise pick other cuDNN algorithms): the loss within rel RESNET_REL,
+# each parameter and BatchNorm running stat within relative L2 RESNET_REL.
+# cudnn.benchmark stays off (cuDNN's heuristic picks the algorithms).
+RESNET_STEPS, RESNET_BF16_STEPS, RESNET_LR, RESNET_REL = 30, 10, 0.1, 1e-5
+RESNET_BF16_WARMUP = 3
+# The graph-API transformer LM (examples/nlp/hetu_transformer.py) at
+# train_hetu_transformer.py's default widths: B 8, T 32, d 64, 2 layers, 4
+# heads, d_ff 256, dropout 0.1, on seeded ids over a 1,000-id vocabulary,
+# Adam 1e-3, 30 steps. Per step 2 fused_embed_grad launches (the token and
+# the position table) and fused_adam as often as opt_plan splits its 38
+# tensors (1). The first step at dropout 0 against kernels="off": the loss
+# and each parameter within rel (L2) LM_REL.
+LM_VOCAB, LM_BATCH, LM_SEQ, LM_STEPS, LM_LR, LM_REL = (1000, 8, 32, 30, 1e-3,
+                                                      1e-5)
+LM_WIDTHS = dict(d_model=64, n_heads=4, n_layers=2, d_ff=256)
+LM_DROPOUT = 0.1
 
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
@@ -1941,9 +1974,200 @@ def train(ht, cnn_main, data, opt, lr, steps, kernels=None, ctx=None,
     return losses, step_ms, val, ex
 
 
+def _param_rel(ex_a, ex_b):
+    """The largest relative L2 distance between two executors' parameters
+    and op state (BatchNorm's running stats), and its tensor's name."""
+    errs = {}
+    for n_a, n_b in zip(ex_a.param_nodes, ex_b.param_nodes):
+        errs[n_a.name] = rel_l2(ex_a.state["params"][id(n_a)],
+                                ex_b.state["params"][id(n_b)])
+    for i, (n_a, n_b) in enumerate(zip(ex_a._stateful_nodes(),
+                                       ex_b._stateful_nodes())):
+        for k, v in ex_a.state["op_state"][id(n_a)].items():
+            errs[f"op_state{i}/{k}"] = rel_l2(
+                v, ex_b.state["op_state"][id(n_b)][k])
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _opt_launches(fused_opt, train_op):
+    """Launches of one optimizer apply over ``train_op``'s parameters, as
+    opt_plan splits them (one per MAX_TENSORS tensors, whatever their
+    alignment)."""
+    sizes = tuple(int(np.prod(v.shape)) for v in train_op.vars)
+    return len(fused_opt.opt_plan(sizes, (True,) * len(sizes)).launches)
+
+
+def _steps(ex, target, counted, n, feed=None):
+    """``n`` steps of ``target``: (losses, the launches of each step, step
+    ms on the host clock to a synchronize, device ms a step by CUDA
+    events). Each step's launches are zeroed just before it and read just
+    after."""
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        out, counts = counted(lambda: ex.run(target, feed_dict=feed))
+        losses.append(out[0].handle.float().reshape(()))
+        per_step.append(counts)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    return (torch.stack(losses).cpu().numpy(), per_step, host_ms,
+            start.elapsed_time(end) / n)
+
+
+def resnet_phase(ht, cnn_main, fused_opt, counted, mlp_data):
+    """ResNet-18 at full width (RESNET_* above): returns the launches of
+    its main-path runs."""
+    tx, ty, vx, vy, _, num_class = mlp_data
+    data = (tx.reshape(-1, 3, 32, 32), ty, vx.reshape(-1, 3, 32, 32), vy,
+            3072, num_class)
+
+    def executor(**kw):
+        loss, y, y_, op = cnn_main.build("resnet18", "CIFAR10", BATCH, "sgd",
+                                         RESNET_LR, data=data)
+        return ht.Executor({"train": [loss, y, op]}, seed=0, **kw), op
+
+    ex, op = executor()
+    check(torch.backends.cudnn.allow_tf32 is False
+          and torch.backends.cuda.matmul.allow_tf32 is False,
+          "the executor must keep f32 convolutions and products in full f32")
+    check(torch.backends.cudnn.benchmark is False,
+          "cudnn.benchmark must stay off")
+    per_step = _opt_launches(fused_opt, op)
+    want = {"fused_sgd": per_step}
+    n_params = sum(ex.state["params"][id(n)].numel() for n in ex.param_nodes)
+    check(len(op.vars) == 62 and n_params == 11_173_962,
+          f"ResNet-18 has {len(op.vars)} tensors, {n_params} parameters")
+    off, _ = executor(kernels="off")
+    # the first step, the kernels against their plain versions
+    torch.backends.cudnn.deterministic = True
+    try:
+        first, counts0, _, _ = _steps(ex, "train", counted, 1)
+        off_first, off_counts, _, _ = _steps(off, "train", counted, 1)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(off_counts == [{}], f"kernels='off' launched {off_counts}")
+    loss_rel = abs(float(first[0]) - float(off_first[0])) / abs(
+        float(off_first[0]))
+    check(loss_rel <= RESNET_REL, f"resnet18 first loss {first[0]} vs "
+          f"kernels='off' {off_first[0]}: rel {loss_rel}")
+    state_rel, worst = _param_rel(ex, off)
+    check(state_rel <= RESNET_REL, f"resnet18 after the first step: {worst} "
+          f"differs from kernels='off' by rel L2 {state_rel}")
+    del off
+    torch.cuda.empty_cache()
+    # the rest of the f32 run, timed
+    rest, counts, step_ms, device_ms = _steps(ex, "train", counted,
+                                              RESNET_STEPS - 1)
+    losses = np.concatenate([first, rest])
+    counts = counts0 + counts
+    check(np.isfinite(losses).all(), f"resnet18 losses {losses}")
+    last = float(np.mean(losses[-10:]))
+    check(last < float(losses[0]), f"resnet18: mean of the last 10 losses "
+          f"{last} is not below the first {losses[0]}")
+    check(all(c == want for c in counts),
+          f"resnet18 steps launched {counts}, expected {want} each")
+    emit("resnet18", dtype="float32", steps=RESNET_STEPS, batch=BATCH,
+         lr=RESNET_LR, params=n_params, tensors=len(op.vars),
+         first_loss=float(losses[0]), last_loss=float(losses[-1]),
+         mean_last10=last, step_ms=step_ms, device_ms_per_step=device_ms,
+         samples_per_s=BATCH / step_ms * 1e3, launches_per_step=want,
+         first_step_vs_off={"loss_rel": loss_rel, "state_rel_l2": state_rel,
+                            "worst": worst, "tolerance": RESNET_REL,
+                            "cudnn_deterministic": True},
+         cudnn={"benchmark": False, "allow_tf32": False})
+    launches = RESNET_STEPS * per_step
+    del ex
+    torch.cuda.empty_cache()
+    # bf16 compute over f32 parameters
+    ex, op = executor(dtype="bfloat16")
+    # the first bf16 steps carry cuDNN's set-up of the bf16 convolutions:
+    # timed after RESNET_BF16_WARMUP
+    warm, counts, _, _ = _steps(ex, "train", counted, RESNET_BF16_WARMUP)
+    losses, more, step_ms, device_ms = _steps(
+        ex, "train", counted, RESNET_BF16_STEPS - RESNET_BF16_WARMUP)
+    losses, counts = np.concatenate([warm, losses]), counts + more
+    check(np.isfinite(losses).all(), f"resnet18 bf16 losses {losses}")
+    check(all(c == want for c in counts),
+          f"resnet18 bf16 steps launched {counts}, expected {want} each")
+    f32 = all(ex.state["params"][id(n)].dtype == torch.float32
+              for n in ex.param_nodes) and all(
+        v.dtype == torch.float32 for s in ex.state["op_state"].values()
+        for v in s.values()) and all(
+        v.dtype == torch.float32 for slots in ex.state["slots"].values()
+        for s in slots for v in (s.values() if isinstance(s, dict) else ()))
+    check(f32, "bf16 compute left a parameter, slot or running stat in "
+          "another dtype than float32")
+    emit("resnet18", dtype="bfloat16", steps=RESNET_BF16_STEPS, batch=BATCH,
+         timed_after=RESNET_BF16_WARMUP,
+         first_loss=float(losses[0]), last_loss=float(losses[-1]),
+         step_ms=step_ms, device_ms_per_step=device_ms,
+         samples_per_s=BATCH / step_ms * 1e3, launches_per_step=want,
+         state_float32=f32)
+    return {"fused_sgd": launches + RESNET_BF16_STEPS * per_step}
+
+
+def lm_phase(ht, hetu_transformer, fused_opt, counted):
+    """The graph-API transformer LM (LM_* above): returns the launches of
+    its main-path run."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, LM_VOCAB, (LM_BATCH, LM_SEQ + 1)).astype(np.float32)
+
+    def executor(dropout, **kw):
+        tokens = ht.Variable(name="tokens", trainable=False)
+        labels = ht.Variable(name="labels", trainable=False)
+        loss, _, _ = hetu_transformer.transformer_lm(
+            tokens, labels, LM_VOCAB, LM_BATCH, LM_SEQ, dropout_prob=dropout,
+            **LM_WIDTHS)
+        op = ht.optim.AdamOptimizer(LM_LR).minimize(loss)
+        ex = ht.Executor({"train": [loss, op]}, seed=0, **kw)
+        return ex, op, {tokens: ids[:, :-1], labels: ids[:, 1:]}
+
+    # the first step at dropout 0, the kernels against their plain versions
+    ex0, op, feed0 = executor(0.0)
+    off, _, feed_off = executor(0.0, kernels="off")
+    want = {"fused_adam": _opt_launches(fused_opt, op), "fused_embed_grad": 2}
+    first, c0, _, _ = _steps(ex0, "train", counted, 1, feed0)
+    off_first, off_counts, _, _ = _steps(off, "train", counted, 1, feed_off)
+    check(c0 == [want], f"the LM's first step launched {c0}, expected {want}")
+    check(off_counts == [{}], f"kernels='off' launched {off_counts}")
+    loss_rel = abs(float(first[0]) - float(off_first[0])) / abs(
+        float(off_first[0]))
+    state_rel, worst = _param_rel(ex0, off)
+    check(loss_rel <= LM_REL and state_rel <= LM_REL,
+          f"the LM's first step against kernels='off': loss rel {loss_rel}, "
+          f"{worst} rel L2 {state_rel}")
+    del ex0, off
+    # the main path: dropout on, LM_STEPS steps
+    ex, op, feed = executor(LM_DROPOUT)
+    losses, counts, step_ms, device_ms = _steps(ex, "train", counted,
+                                                LM_STEPS, feed)
+    check(np.isfinite(losses).all(), f"LM losses {losses}")
+    check(all(c == want for c in counts),
+          f"LM steps launched {counts}, expected {want} each")
+    emit("transformer_lm", vocab=LM_VOCAB, batch=LM_BATCH, seq=LM_SEQ,
+         dropout=LM_DROPOUT, lr=LM_LR, steps=LM_STEPS, tensors=len(op.vars),
+         params=sum(ex.state["params"][id(n)].numel() for n in ex.param_nodes),
+         first_loss=float(losses[0]), last_loss=float(losses[-1]),
+         step_ms=step_ms, device_ms_per_step=device_ms,
+         tokens_per_s=LM_BATCH * LM_SEQ / step_ms * 1e3,
+         launches_per_step=want,
+         first_step_vs_off={"dropout": 0.0, "loss_rel": loss_rel,
+                            "state_rel_l2": state_rel, "worst": worst,
+                            "tolerance": LM_REL})
+    return {k: LM_STEPS * v for k, v in want.items()}
+
+
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
-                 quant, launches):
-    """The ``kernels`` JSON object: one entry per ported kernel."""
+                 quant, launches, by_path):
+    """The ``kernels`` JSON object: one entry per ported kernel; its
+    ``launches`` sum the main paths' runs, ``launches_by_path`` splits
+    them where the zoo's paths (sections 10-11) add to them."""
     replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
                 "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
                 "flash_attention_fwd": "hetu_tpu/kernels/flash_attention.py:111",
@@ -1994,6 +2218,8 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
     return {"kernels": [dict(
         name=k, route="cuda", source="hetu_tpu_torch/csrc/" + sources[k],
         replaces=replaces[k], launches=launches[k],
+        **({"launches_by_path": by_path[k]} if len(by_path.get(k, {})) > 1
+           else {}),
         max_abs_err=v["max_abs_err"], tolerance=TOL[k], ms=v["ms"],
         plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
         bound_by=v["bound"][1], library_ms=v["library_ms"],
@@ -2030,11 +2256,15 @@ def main(argv=None):
     ap.add_argument("--embed-kernels", action="store_true",
                     help="build, check and time the embedding gradient's "
                          "kernel, and stop")
+    ap.add_argument("--zoo", action="store_true",
+                    help="build, train ResNet-18 and the graph-API LM "
+                         "(sections 10-11), and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
-                                         cnn_main, ctr_main, gnn_main)
+                                         cnn_main, ctr_main, gnn_main,
+                                         hetu_transformer)
     from hetu_tpu_torch.kernels import (_build, csr_spmm, embed_grad,
                                         flash_attention, fused_ce, fused_opt,
                                         quant_comm, registry)
@@ -2073,6 +2303,11 @@ def main(argv=None):
              cases=embed_grad_phase(embed_grad, registry, first_ids,
                                     phase2_batch(bert, bert_forward, dev),
                                     dev, bw, f32))
+        return 0
+    if args.zoo:
+        resnet_phase(ht, cnn_main, fused_opt, bert_forward.counted,
+                     cnn_main.load_dataset("CIFAR10"))
+        lm_phase(ht, hetu_transformer, fused_opt, bert_forward.counted)
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -2179,8 +2414,22 @@ def main(argv=None):
         phase2_batch(bert, bert_forward, dev), dev, bw, f32)
     launches.update(ctr_launches)
 
+    # -- 10. ResNet-18 at full width (the CNN zoo) --------------------------
+    # -- 11. the graph-API transformer LM ------------------------------------
+    # their launches add to the kernels' counts; by_path keeps them apart
+    by_path = {k: {"earlier phases": v} for k, v in launches.items()}
+    torch.cuda.empty_cache()
+    for path, got in (("resnet18", resnet_phase(
+            ht, cnn_main, fused_opt, bert_forward.counted, data)),
+                      ("transformer_lm", lm_phase(
+            ht, hetu_transformer, fused_opt, bert_forward.counted))):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+            by_path.setdefault(k, {})[path] = v
+
     print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm,
-                                  spmv, embed, quant, launches)), flush=True)
+                                  spmv, embed, quant, launches, by_path)),
+          flush=True)
     print(json.dumps({"phase": "done",
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)

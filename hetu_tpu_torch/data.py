@@ -111,3 +111,64 @@ def normalize_cifar(num_class=10, onehot=True):
     test_x = (test_x - mean) / std
     return (train_x.astype(np.float32), train_y,
             test_x.astype(np.float32), test_y)
+
+
+# ---------------------------------------------------------------------------
+# augmentation (reference data.py:129-173): host numpy. Each random helper
+# draws from the ``np.random.RandomState`` it is given, where the reference
+# falls back to numpy's global state.
+# ---------------------------------------------------------------------------
+
+def _image_crop(images, rng):
+    """Each image shifted by a random crop of its 4-pixel zero padding."""
+    n, c, h, w = images.shape
+    pad = 4
+    padded = np.pad(images, ((0, 0), (0, 0), (pad, pad), (pad, pad)),
+                    "constant")
+    out = np.empty_like(images)
+    for i in range(n):
+        top = rng.randint(0, 2 * pad + 1)
+        left = rng.randint(0, 2 * pad + 1)
+        out[i] = padded[i, :, top:top + h, left:left + w]
+    return out
+
+
+def _image_flip(images, rng):
+    """About half of the images mirrored left to right."""
+    flip = rng.rand(images.shape[0]) < 0.5
+    out = images.copy()
+    out[flip] = out[flip][:, :, :, ::-1]
+    return out
+
+
+def _image_whitening(images):
+    """Each image to zero mean and unit variance (its deviation floored at
+    1 / sqrt(its size))."""
+    mean = images.mean(axis=(1, 2, 3), keepdims=True)
+    std = np.maximum(images.std(axis=(1, 2, 3), keepdims=True),
+                     1.0 / np.sqrt(np.prod(images.shape[1:])))
+    return (images - mean) / std
+
+
+def _image_noise(images, rng, mean=0, std=0.01):
+    return images + rng.normal(mean, std, size=images.shape).astype(
+        images.dtype)
+
+
+def data_augmentation(images, mode="train", flip=False, crop=False,
+                      whiten=False, noise=False, rng=None):
+    """NCHW ``images`` cropped, flipped and noised (``mode="train"``) and
+    whitened, as asked; ``rng`` is the ``np.random.RandomState`` the random
+    steps draw from (a fresh one when None)."""
+    rng = rng if rng is not None else np.random.RandomState()
+    images = np.asarray(images, dtype=np.float32)
+    if mode == "train":
+        if crop:
+            images = _image_crop(images, rng)
+        if flip:
+            images = _image_flip(images, rng)
+    if whiten:
+        images = _image_whitening(images)
+    if noise and mode == "train":
+        images = _image_noise(images, rng)
+    return images

@@ -104,10 +104,17 @@ def counted(fn):
     return out, {k: v for k, v in registry.launch_counts().items() if v}
 
 
+# substrings of cuDNN's convolution kernels' names (forward, data and
+# filter gradients, implicit GEMMs, layout transforms)
+CONV_KERNELS = ("cudnn", "convolve", "conv2d", "fprop", "dgrad", "wgrad",
+                "nchwToNhwc", "nhwcToNchw", "implicit_gemm")
+
+
 def kernel_group(name):
     """The group of a device kernel's name: each ported kernel of
-    ``csrc/``, the dense products (cuBLAS), the optimizer's foreach
-    kernels, and the rest."""
+    ``csrc/``, the convolutions (cuDNN, with its layout transforms), the
+    dense products (cuBLAS), the optimizer's foreach kernels, and the
+    rest."""
     if "flash_fwd_" in name:
         return "flash_attention_fwd"
     if "flash_bwd_" in name:
@@ -126,6 +133,8 @@ def kernel_group(name):
         return "fused_sgd"
     if "adam_kernel" in name:
         return "fused_adam"
+    if any(s in name for s in CONV_KERNELS):
+        return "cudnn"
     if any(s in name for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "dense_matmul"
     if "multi_tensor_apply" in name or "foreach" in name:
@@ -133,9 +142,11 @@ def kernel_group(name):
     return "other"
 
 
-def profile(fn, ms, iters, path):
+def profile(fn, ms, iters, path, ops=()):
     """Device time of one call of ``fn`` by kernel group (kernel events
-    only), over ``iters`` profiled calls; the tables go to ``path``."""
+    only), over ``iters`` profiled calls; the tables go to ``path``.
+    ``ops_us`` gives the device time under each PyTorch op named in
+    ``ops`` (all its kernels, whatever their names)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -144,6 +155,8 @@ def profile(fn, ms, iters, path):
         torch.cuda.synchronize()
     table = prof.key_averages()
     groups, kernels = {}, []
+    ops_us = {e.key: e.device_time_total / iters for e in table
+              if e.key in ops}
     for e in table:
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or e.self_device_time_total <= 0):
@@ -157,8 +170,11 @@ def profile(fn, ms, iters, path):
     with open(path, "w") as f:
         f.write(table.table(sort_by="self_device_time_total", row_limit=40))
     device_ms = sum(groups.values()) / 1e3
-    return {"device_ms": device_ms, "device_busy_share": device_ms / ms,
-            "groups_us": groups, "top_kernels": kernels[:10]}
+    out = {"device_ms": device_ms, "device_busy_share": device_ms / ms,
+           "groups_us": groups, "top_kernels": kernels[:10]}
+    if ops:
+        out["ops_us"] = ops_us
+    return out
 
 
 def run(device, batch_size=32, seq_len=128, n_requests=8, iters=20,

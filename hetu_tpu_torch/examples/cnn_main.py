@@ -1,7 +1,12 @@
 """CNN example trainer on the port (counterpart of ``examples/cnn/main.py``)
-for the models this slice supports: ``mlp`` and ``logreg``.
+for the zoo of ``examples/cnn/models`` (``cnn_models.MODELS``: mlp, logreg,
+cnn_3_layers, lenet, alexnet, vgg16, vgg19, resnet18, resnet34, rnn, lstm,
+vit).
 
 Usage:
+    python -m hetu_tpu_torch.examples.cnn_main --model resnet18 --dataset CIFAR10
+    python -m hetu_tpu_torch.examples.cnn_main --model resnet18 --dataset CIFAR10 \
+        --dtype bfloat16 --num-epochs 0 --steps 30 --profile profile_out
     python -m hetu_tpu_torch.examples.cnn_main --model mlp --dataset CIFAR10
     python -m hetu_tpu_torch.examples.cnn_main --model logreg --dataset MNIST --gpu -1
     python -m hetu_tpu_torch.runner -w 2 \
@@ -14,50 +19,38 @@ on the cards otherwise, one card per worker); ``HETU_COMM_QUANT`` (int8,
 fp8) quantizes the gradient all-reduce of the large parameters, as in the
 JAX example. Only rank 0 logs; the loss and accuracy it logs are the
 global batch's.
+
+``--dtype bfloat16`` computes in bf16 over float32 parameters and slots
+(the executor's ``dtype``). After the epochs rank 0 prints one JSON line:
+the mean step time on the host clock (each step ends in fetching its
+loss, a synchronisation) over the last epoch's steps after ``WARMUP``,
+samples a second, and the kernel launches of one step. ``--profile DIR``
+adds the device time of one step by kernel group (cuDNN, ``fused_sgd``,
+...) and under the convolutions' ops (``ops_us``) from ``torch.profiler``
+over ``PROFILE_STEPS`` steps, with the device's busy share; the table goes to
+``DIR/profile_cnn_<model>_<dtype>.txt``.
 """
 import argparse
+import json
 import logging
-from time import time
+import os
+from time import perf_counter, time
 
 import numpy as np
+import torch
 
 import hetu_tpu_torch as ht
-from hetu_tpu_torch import init
+from hetu_tpu_torch.examples import cnn_models
 
 logger = logging.getLogger(__name__)
+WARMUP = 3
+PROFILE_STEPS = 5
+# the convolutions' ops, forward and backward: the profile's ``ops_us``
+# gives their device time whatever cuDNN's engines are named
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
 
 
-# -- models (copies of examples/cnn/models/MLP.py and LogReg.py) -----------
-
-def fc(x, shape, name, with_relu=True):
-    weight = init.random_normal(shape=shape, stddev=0.1, name=name + '_weight')
-    bias = init.random_normal(shape=shape[-1:], stddev=0.1, name=name + '_bias')
-    x = ht.matmul_op(x, weight)
-    x = x + ht.broadcastto_op(bias, x)
-    if with_relu:
-        x = ht.relu_op(x)
-    return x
-
-
-def mlp(x, y_, num_class=10, input_dim=3072):
-    """MLP for flattened CIFAR10 (3072) or MNIST (784)."""
-    x = fc(x, (input_dim, 256), 'mlp_fc1', with_relu=True)
-    x = fc(x, (256, 256), 'mlp_fc2', with_relu=True)
-    y = fc(x, (256, num_class), 'mlp_fc3', with_relu=False)
-    loss = ht.softmaxcrossentropy_op(y, y_)
-    loss = ht.reduce_mean_op(loss, [0])
-    return loss, y
-
-
-def logreg(x, y_, num_class=10, input_dim=784):
-    weight = init.zeros((input_dim, num_class), name='logreg_weight')
-    bias = init.zeros((num_class,), name='logreg_bias')
-    logit = ht.matmul_op(x, weight) + ht.broadcastto_op(bias, ht.matmul_op(x, weight))
-    loss = ht.reduce_mean_op(ht.softmaxcrossentropy_op(logit, y_), [0])
-    return loss, logit
-
-
-MODELS = {'mlp': mlp, 'logreg': logreg}
+MODELS = cnn_models.MODELS
 
 OPTIMIZERS = {
     'sgd': lambda lr: ht.optim.SGDOptimizer(learning_rate=lr),
@@ -70,23 +63,30 @@ OPTIMIZERS = {
 }
 
 
-def load_dataset(dataset):
-    """(train_x, train_y, valid_x, valid_y, input_dim, num_class), inputs
-    flattened for the dense models."""
+def load_dataset(dataset, model='mlp'):
+    """(train_x, train_y, valid_x, valid_y, input_dim, num_class), as
+    ``examples/cnn/main.py`` shapes them for ``model``: rows for the dense
+    and recurrent models, NCHW images for the convolutional ones (MNIST as
+    (N, 1, 28, 28) for ``lenet`` and ``cnn_3_layers``)."""
     if dataset == 'MNIST':
         (train_x, train_y), (valid_x, valid_y), _ = ht.data.mnist()
+        if model in ('cnn_3_layers', 'lenet'):
+            train_x = train_x.reshape(-1, 1, 28, 28)
+            valid_x = valid_x.reshape(-1, 1, 28, 28)
         return train_x, train_y, valid_x, valid_y, 784, 10
     num_class = 10 if dataset == 'CIFAR10' else 100
     train_x, train_y, valid_x, valid_y = ht.data.normalize_cifar(
         num_class=num_class)
-    return (train_x.reshape(train_x.shape[0], -1), train_y,
-            valid_x.reshape(valid_x.shape[0], -1), valid_y, 3072, num_class)
+    if model in cnn_models.FLAT:
+        train_x = train_x.reshape(train_x.shape[0], -1)
+        valid_x = valid_x.reshape(valid_x.shape[0], -1)
+    return train_x, train_y, valid_x, valid_y, 3072, num_class
 
 
 def build(model, dataset, batch_size, opt, learning_rate, data=None):
     """The graph of one run: returns (loss, y, y_, train_op)."""
     train_x, train_y, valid_x, valid_y, input_dim, num_class = (
-        data if data is not None else load_dataset(dataset))
+        data if data is not None else load_dataset(dataset, model))
     x = ht.dataloader_op([
         ht.Dataloader(train_x, batch_size, 'train'),
         ht.Dataloader(valid_x, batch_size, 'validate'),
@@ -95,9 +95,21 @@ def build(model, dataset, batch_size, opt, learning_rate, data=None):
         ht.Dataloader(train_y, batch_size, 'train'),
         ht.Dataloader(valid_y, batch_size, 'validate'),
     ])
-    loss, y = MODELS[model](x, y_, num_class, input_dim)
+    fn = MODELS[model]
+    if model in ('mlp', 'logreg'):
+        loss, y = fn(x, y_, num_class, input_dim)
+    elif model == 'vit':
+        # the attention's reshapes take the static batch size
+        loss, y = fn(x, y_, num_class, batch=batch_size)
+    else:
+        loss, y = fn(x, y_, num_class)
     train_op = OPTIMIZERS[opt](learning_rate).minimize(loss)
     return loss, y, y_, train_op
+
+
+def _sync(executor):
+    if executor.config.device.type == 'cuda':
+        torch.cuda.synchronize()
 
 
 def main(argv=None):
@@ -118,7 +130,14 @@ def main(argv=None):
                         help='training steps per epoch (default: every batch)')
     parser.add_argument('--seed', type=int, default=None,
                         help='parameter seed (default: a random one)')
+    parser.add_argument('--dtype', default='float32',
+                        choices=['float32', 'bfloat16'],
+                        help='compute dtype (parameters stay float32)')
+    parser.add_argument('--profile', default=None, metavar='DIR',
+                        help='device time of a step by kernel group')
     args = parser.parse_args(argv)
+    if args.profile and args.gpu < 0:
+        raise SystemExit("--profile measures the card; it needs --gpu >= 0")
 
     device_id = 0
     if args.comm_mode in ('AllReduce', 'Hybrid'):
@@ -132,7 +151,7 @@ def main(argv=None):
                                   args.opt, args.learning_rate)
     eval_nodes = {'train': [loss, y, y_, train_op], 'validate': [loss, y, y_]}
     executor = ht.Executor(eval_nodes, ctx=executor_ctx, seed=args.seed,
-                           comm_mode=args.comm_mode)
+                           comm_mode=args.comm_mode, dtype=args.dtype)
     if executor.comm_quant_report is not None:
         log("comm_quant %s: %s", executor.config.comm_quant_policy,
             executor.comm_quant_report)
@@ -147,10 +166,14 @@ def main(argv=None):
         loss_all = 0
         correct_predictions = []
         start = time()
+        step_s = []
         for _ in range(n_train_batches):
+            t0 = perf_counter()
+            ht.kernels.registry.reset_launch_counts()
             loss_val, predict_y, y_val, _ = executor.run(
                 'train', eval_node_list=[loss, y, y_, train_op])
             loss_all += loss_val.asnumpy()
+            step_s.append(perf_counter() - t0)
             correct_predictions.extend(
                 np.equal(np.argmax(y_val.asnumpy(), 1),
                          np.argmax(predict_y.asnumpy(), 1)).astype(float))
@@ -175,6 +198,29 @@ def main(argv=None):
             log("Validation accuracy = %f", np.mean(correct_predictions))
     log("Running time of total %d epoch = %fs", args.num_epochs,
         running_time)
+    timed = step_s[WARMUP:] or step_s
+    step_ms = sum(timed) / len(timed) * 1e3
+    res = {"summary": "cnn_main", "model": args.model,
+           "dataset": args.dataset, "batch_size": args.batch_size,
+           "dtype": args.dtype, "device": str(executor.config.device),
+           "params": sum(executor.state["params"][id(n)].numel()
+                         for n in executor.param_nodes),
+           "step_ms": step_ms,
+           "samples_per_s": args.batch_size / step_ms * 1e3,
+           "launches_per_step": {
+               k: v for k, v in ht.kernels.registry.launch_counts().items()
+               if v}}
+    if args.profile:
+        from hetu_tpu_torch.examples import bert_forward
+        os.makedirs(args.profile, exist_ok=True)
+        _sync(executor)
+        res["profile"] = bert_forward.profile(
+            lambda: executor.run('train'), step_ms, PROFILE_STEPS,
+            os.path.join(args.profile,
+                         f"profile_cnn_{args.model}_{args.dtype}.txt"),
+            ops=CONV_OPS)
+    if device_id == 0:
+        print(json.dumps(res), flush=True)
     if args.comm_mode in ('AllReduce', 'Hybrid'):
         ht.mpi_nccl_finish(comm)
 

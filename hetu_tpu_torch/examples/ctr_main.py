@@ -1,10 +1,13 @@
 """CTR training on the port (counterpart of ``examples/ctr/run_hetu.py`` in
-local mode): a model of ``ctr_models`` fed by ``Dataloader``s, with a
-``train`` and a ``validate`` target, reporting loss, accuracy and AUC.
+local mode and under ``--comm AllReduce``): a model of ``ctr_models`` fed
+by ``Dataloader``s, with a ``train`` and a ``validate`` target, reporting
+loss, accuracy and AUC.
 
     python -m hetu_tpu_torch.examples.ctr_main [--model wdl_criteo]
         [--batch-size 128] [--dim 100000] [--nepoch 1] [--steps N] [--val]
         [--profile DIR] [--gpu 0 | -1]
+    python -m hetu_tpu_torch.runner -w 2 python -m \
+        hetu_tpu_torch.examples.ctr_main --comm AllReduce --dim 1000 --gpu -1
 
 ``--dim`` is the Criteo vocabulary (``HETU_CTR_DIM``, default 100000 as
 in the reference; ``33762577`` is full Criteo-Kaggle). The data is the
@@ -21,8 +24,15 @@ line with the time to initialize the parameters and place them on the
 device. ``--profile DIR`` adds the device time of one step by kernel group
 from ``torch.profiler`` (kernel events only) and the device's busy share;
 the table goes to ``DIR/profile_ctr_<model>.txt``. ``--gpu -1`` runs on
-the CPU (the kernels' plain versions; times are the CPU's). The comm modes
-``PS``, ``Hybrid`` and ``AllReduce`` are not ported yet and raise.
+the CPU (the kernels' plain versions; times are the CPU's).
+
+``--comm AllReduce`` trains data-parallel under ``hetu_tpu_torch.runner``,
+one process per device (gloo on the CPU with ``--gpu -1``, NCCL on the
+cards, one card per worker), as ``run_hetu.py`` passes ``comm_mode`` to its
+executor: each rank takes its share of every batch, and the table's
+dense gradient is all-reduced with the others. Only rank 0 prints; the
+loss, accuracy and AUC are the global batch's. The comm modes ``PS`` and
+``Hybrid`` come with slice 4b and raise.
 """
 import argparse
 import json
@@ -40,8 +50,7 @@ from hetu_tpu_torch.graph.node import find_topo_sort
 
 MODELS = ("wdl_adult", "wdl_criteo", "dfm_criteo", "dcn_criteo", "dc_criteo")
 COMM_SLICES = {"PS": "4b (PS and Hybrid for CTR)",
-               "Hybrid": "4b (PS and Hybrid for CTR)",
-               "AllReduce": "3 (data parallel)"}
+               "Hybrid": "4b (PS and Hybrid for CTR)"}
 WARMUP = 3
 
 
@@ -91,11 +100,14 @@ class Trainer:
     """One CTR model on ``device``: the executor with the targets
     ``train``, ``validate`` and ``grads`` (the loss and every parameter's
     gradient on the first training batch, without an update). ``data`` is
-    ``load_data(model, dim, seed)``, when the caller has it already."""
+    ``load_data(model, dim, seed)``, when the caller has it already.
+    ``comm_mode="AllReduce"`` trains data-parallel over the process group
+    this process joined (``grads``' per-rank gradients have no placement
+    then: it serves local mode)."""
 
     def __init__(self, device, model="wdl_criteo", batch_size=128,
                  dim=100000, seed=0, kernels=None, data=None,
-                 **model_kwargs):
+                 comm_mode=None, **model_kwargs):
         if model not in MODELS:
             raise ValueError(f"model must be one of {MODELS}, got {model!r}")
         self.device = device
@@ -113,7 +125,8 @@ class Trainer:
             {"train": [self.loss, self.y, self.labels, train_op],
              "validate": [self.loss, self.y, self.labels],
              "grads": [self.loss] + grads},
-            ctx=_ctx(device), seed=seed, kernels=kernels)
+            ctx=_ctx(device), seed=seed, kernels=kernels,
+            comm_mode=comm_mode)
         _sync(device)
         # parameters drawn on the host and placed on the device
         self.init_ms = (time.perf_counter() - t0) * 1e3
@@ -177,11 +190,12 @@ def _evaluate(values):
 
 def run(device, model="wdl_criteo", batch_size=128, dim=100000, nepoch=1,
         steps=None, val=False, profile_dir=None, profile_iters=3, seed=0,
-        kernels=None, trainer=None):
+        kernels=None, trainer=None, comm_mode=None):
     """Yields one dict per epoch, then the summary dict. ``steps`` caps the
     training steps of an epoch; ``trainer`` is a :class:`Trainer` to use
     instead of a new one."""
-    tr = trainer or Trainer(device, model, batch_size, dim, seed, kernels)
+    tr = trainer or Trainer(device, model, batch_size, dim, seed, kernels,
+                            comm_mode=comm_mode)
     n_train = tr.ex.get_batch_num("train")
     steps = min(steps or n_train, n_train)
     times, per_step = [], []
@@ -243,18 +257,26 @@ def main(argv=None):
     parser.add_argument("--profile", default=None, metavar="DIR")
     parser.add_argument("--gpu", type=int, default=0)
     args = parser.parse_args(argv)
-    if args.comm is not None:
+    if args.comm in COMM_SLICES:
         raise SystemExit(f"--comm {args.comm}: hetu_tpu_torch runs local "
-                         f"mode only; {args.comm} comes with slice "
+                         f"mode and AllReduce; {args.comm} comes with slice "
                          f"{COMM_SLICES[args.comm]}")
-    device = "cpu" if args.gpu < 0 else torch.device("cuda", args.gpu)
     if args.profile and args.gpu < 0:
         raise SystemExit("--profile measures the card; it needs --gpu >= 0")
-    if args.gpu >= 0:
-        print(torch.cuda.get_device_name(args.gpu), flush=True)
+    rank, gpu = 0, args.gpu
+    if args.comm == "AllReduce":
+        comm, rank = ht.mpi_nccl_init(init_nccl=args.gpu >= 0)
+        gpu = comm.local_rank() if args.gpu >= 0 else -1
+    device = "cpu" if gpu < 0 else torch.device("cuda", gpu)
+    if gpu >= 0 and rank == 0:
+        print(torch.cuda.get_device_name(gpu), flush=True)
     for res in run(device, args.model, args.batch_size, args.dim,
-                   args.nepoch, args.steps, args.val, args.profile):
-        print(json.dumps(res), flush=True)
+                   args.nepoch, args.steps, args.val, args.profile,
+                   comm_mode=args.comm):
+        if rank == 0:
+            print(json.dumps(res), flush=True)
+    if args.comm == "AllReduce":
+        ht.mpi_nccl_finish(comm)
 
 
 if __name__ == "__main__":

@@ -43,12 +43,43 @@ over a GSPMD mesh; the results are the JAX executor's:
   from rank 0 once at build, so ranks cannot start apart.
 - **Fetched values** are the global batch's. A fetched batch input is
   its global value. A value computed from a cut batch input is placed
-  by its shape: a 0-d value is taken for a batch mean, and is the mean
-  of the ranks' values; a value whose axis 0 is the share's length is
-  gathered along axis 0 in rank order. Any other value computed from a
-  cut input raises ``ValueError`` naming its node. Values that no cut
-  input reaches (parameters, the all-reduced gradients) are the same on
-  every rank and are returned as they are.
+  by its shape: a value whose axis 0 is the share's length is gathered
+  along axis 0 in rank order; a value of one element (0-d, or a mean
+  over axis 0 that kept its axes, as the CTR models' ``(1,)`` loss) is
+  taken for a batch mean, and is the mean of the ranks' values. Any
+  other value computed from a cut input raises ``ValueError`` naming its
+  node. Values that no cut input reaches (parameters, the all-reduced
+  gradients) are the same on every rank and are returned as they are.
+
+Op state, random bits and the compute dtype, as the reference threads
+them:
+
+- **Op state.** A stateful op (BatchNorm's running mean and variance)
+  has its state in ``state["op_state"]``, made from its ``state_init``;
+  each step hands it to ``compute_stateful`` and a training run replaces
+  it with what the op returned (a ``validate`` run reads it only). The
+  state keeps its own dtype under bf16 compute. ``save`` writes it as
+  the reference does: ``aux["op_state"]``, keyed by the stateful node's
+  index.
+- **Random bits.** ``TraceContext.next_rng(node)`` is a
+  ``torch.Generator`` on the executor's device, seeded from the executor
+  seed, the step and the node's index in the target's topological order
+  (not its global id, which depends on how many nodes earlier code
+  built). A dropout gradient op asking for its forward node's generator
+  in the same step draws the same mask. The bits differ from
+  ``jax.random``'s.
+- **Compute dtype.** ``dtype="bfloat16"`` (or ``torch.bfloat16``) casts
+  every floating input of every op to bf16, parameters and feeds
+  included; the parameters, the optimizer slots and the updates stay
+  float32 (the gradients are cast to float32 before the optimizer, and
+  before a data-parallel all-reduce), as the reference's mixed
+  precision. A bf16 value fetched as numpy comes back as float32 (numpy
+  has no bfloat16).
+
+Float32 convolutions and products run in full float32: the executor sets
+``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` to False. ``cudnn.benchmark`` is left
+off, so cuDNN picks its algorithms by heuristic, the same each run.
 
 Lint, plan, telemetry, watch, pilot, elastic and PS arrive with later
 slices; so does capturing the step in a CUDA graph.
@@ -104,20 +135,41 @@ def _resolve_device(ctx, mesh, dp_rank: int, dp: int) -> torch.device:
     return dev
 
 
+def _compute_dtype(dtype) -> torch.dtype:
+    """The compute dtype: float32 (``np.float32``, ``"float32"``,
+    ``torch.float32``) or bfloat16 (``"bfloat16"``, ``torch.bfloat16``)."""
+    if isinstance(dtype, torch.dtype):
+        t = dtype
+    elif isinstance(dtype, str):
+        t = getattr(torch, dtype, None)
+    else:
+        try:
+            t = {np.dtype(np.float32): torch.float32}.get(np.dtype(dtype))
+        except TypeError:
+            t = None
+    if t not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16 (\"bfloat16\" "
+                         f"or torch.bfloat16), got {dtype!r}")
+    return t
+
+
 class HetuConfig:
     """Execution configuration (reference executor.py:103): the device,
-    the seed, the comm mode with its dp mesh and quantization policy, and
-    the kernel mode. Options of the reference that the port has not yet
-    reached raise, naming their slice."""
+    the seed, the compute dtype, the comm mode with its dp mesh and
+    quantization policy, and the kernel mode. Options of the reference
+    that the port has not yet reached raise, naming their slice."""
 
     def __init__(self, eval_node_list, ctx=None, seed=None, comm_mode=None,
-                 mesh=None, dp_axis="dp", gpipe=False, comm_quant=None,
-                 comm_quant_block=None, comm_quant_min_size=None,
-                 comm_quant_error_feedback=None, comm_quant_force=(),
-                 kernels=None):
+                 mesh=None, dp_axis="dp", gpipe=False, dtype=np.float32,
+                 comm_quant=None, comm_quant_block=None,
+                 comm_quant_min_size=None, comm_quant_error_feedback=None,
+                 comm_quant_force=(), kernels=None):
         self.eval_node_list = eval_node_list
         self.ctx = ctx
         self.seed = seed if seed is not None else np.random.randint(0, 2**31 - 1)
+        # compute dtype (reference executor.py:124-128): bf16 compute over
+        # f32 master parameters, slots and updates
+        self.compute_dtype = _compute_dtype(dtype)
         if comm_mode not in COMM_MODES:
             raise ValueError(f"comm_mode must be one of {COMM_MODES}, got "
                              f"{comm_mode!r}")
@@ -162,15 +214,23 @@ class HetuConfig:
 
 class TraceContext:
     """Per-step services handed to ``Op.compute`` (the reference's per-trace
-    context): the step's values, the parameters, autodiff and the
-    gradient all-reduce."""
+    context): the step's values, the parameters, the op state, random
+    bits, autodiff and the gradient all-reduce."""
 
     def __init__(self, config: HetuConfig, training: bool, env: dict,
-                 params: dict, n_grad_contexts: int, qresid_in: dict):
+                 params: dict, n_grad_contexts: int, qresid_in: dict,
+                 step: int = 0, node_index: dict = None,
+                 op_state_in: dict = None):
         self.config = config
         self.training = training
         self.env = env
         self.params = params            # id(node) -> state tensor
+        self.step = step
+        # each node's position in the target's topological order: what the
+        # random bits are seeded from (reference executor.py:345-353)
+        self._node_index = node_index or {}
+        self.op_state_in = op_state_in or {}
+        self.op_state_updates: dict[int, Any] = {}
         self.param_updates: dict[int, Any] = {}
         self.slot_updates: dict[int, Any] = {}
         # error-feedback residuals by quantized AllReduce op id: this
@@ -181,6 +241,25 @@ class TraceContext:
         # one backward per GradientContext; the graph is kept for the next
         # context while any remains
         self._grads_left = n_grad_contexts
+
+    @property
+    def sync_group(self):
+        """The dp group a batch statistic is summed over (BatchNorm), or
+        None where this process holds the whole batch."""
+        return self.config.dp_group if self.config.dp_size > 1 else None
+
+    def next_rng(self, node: Op) -> torch.Generator:
+        """A generator on the executor's device for ``node``'s random bits
+        in this step, seeded from (executor seed, step, the node's index in
+        the topological order). The same node gets the same generator state
+        every time it asks in one step."""
+        i = self._node_index.get(id(node), node.id)
+        seed = np.random.SeedSequence(
+            [int(self.config.seed), int(self.step), int(i)]).generate_state(
+                1, np.uint64)[0]
+        gen = torch.Generator(device=self.config.device)
+        gen.manual_seed(int(seed))
+        return gen
 
     def gradient_of(self, gctx, x: Op):
         key = id(gctx)
@@ -206,6 +285,7 @@ class TraceContext:
         ``ops``' order."""
         cfg = self.config
         resid = [self.qresid_in.get(id(op)) for op in ops]
+        xs = [_f32(x) for x in xs]
         with torch.no_grad():
             values, new = cq.quantized_allreduce_group(
                 xs, None if any(r is None for r in resid) else resid,
@@ -216,12 +296,14 @@ class TraceContext:
         return values
 
     def allreduce(self, x, param_node=None, op=None):
-        """The mean of the dp ranks' ``x``; the identity without a mesh. An
-        op the executor marked takes the quantized all-reduce."""
+        """The mean of the dp ranks' ``x``, in float32 (a bf16 gradient is
+        summed in f32 for the f32 master parameters); the identity without
+        a mesh. An op the executor marked takes the quantized all-reduce."""
         cfg = self.config
         group = cfg.dp_group
         if group is None:
             return x
+        x = _f32(x)
         with torch.no_grad():
             if op is not None and op.comm_quant \
                     and cfg.comm_quant_policy.active \
@@ -235,6 +317,14 @@ class TraceContext:
             y = x.detach().clone(memory_format=torch.contiguous_format)
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
             return y.div_(cfg.dp_size)
+
+
+def _f32(x):
+    """A floating tensor of a lower precision as float32."""
+    if isinstance(x, torch.Tensor) and x.is_floating_point() \
+            and x.dtype != torch.float32:
+        return x.float()
+    return x
 
 
 class SubExecutor:
@@ -253,6 +343,8 @@ class SubExecutor:
                            if n.is_placeholder and getattr(n, "is_feed", False)]
         self.dataloader_nodes = [n for n in self.topo if n.is_dataloader]
         self.optimizer_nodes = [n for n in self.topo if n.is_optimizer]
+        self.stateful_nodes = [n for n in self.topo if n.stateful]
+        self.node_index = {id(n): i for i, n in enumerate(self.topo)}
         # optimizer ops last: they update parameters in place, so every
         # other node must have read the pre-step values first
         self.order = ([n for n in self.topo if not n.is_optimizer]
@@ -326,6 +418,15 @@ class SubExecutor:
                 groups[id(node)] = (ops, state)
         return groups
 
+    def _cast(self, value):
+        """A floating tensor in the compute dtype (bf16 mode); anything
+        else as it is."""
+        cdtype = self.config.compute_dtype
+        if isinstance(value, torch.Tensor) and value.is_floating_point() \
+                and value.dtype != cdtype:
+            return value.to(cdtype)
+        return value
+
     def _leaf(self, node: Op, value):
         # a fed ND_Sparse_Array is no tensor: it never requires grad
         if id(node) in self.grad_x_ids and isinstance(value, torch.Tensor) \
@@ -343,7 +444,7 @@ class SubExecutor:
                 cut[id(node)] = local.shape[0]
                 whole[id(node)] = value
                 value = local
-        return self._leaf(node, value)
+        return self._leaf(node, self._cast(value))
 
     def _place(self, node: Op, v, cut: dict, whole: dict):
         """A fetched value computed from a cut batch input, as the global
@@ -354,22 +455,22 @@ class SubExecutor:
         lens = {cut[i] for i in self.batch_deps[id(node)] if i in cut}
         if isinstance(v, torch.Tensor):
             v = v.detach()
-            if v.ndim == 0:         # a batch mean: the mean of the ranks'
-                t = v.clone()
-                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=cfg.dp_group)
-                return t / cfg.dp_size
-            if len(lens) == 1 and v.shape[0] in lens:
+            if v.ndim and len(lens) == 1 and v.shape[0] in lens:
                 out = v.new_empty((v.shape[0] * cfg.dp_size,) + v.shape[1:])
                 multihost.collective(dist.all_gather_into_tensor, out,
                                      v.contiguous(), group=cfg.dp_group)
                 return out
+            if v.numel() == 1:      # a batch mean: the mean of the ranks'
+                t = v.clone()
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=cfg.dp_group)
+                return t / cfg.dp_size
         shape = tuple(getattr(v, "shape", ()))
         raise ValueError(
             f"cannot fetch {node.name!r} under data parallelism: it is "
             f"computed from this rank's share of the batch (shares of "
-            f"{sorted(lens)} rows), but it is neither 0-d (a batch mean) nor "
-            f"batch-major (shape {shape}); fetch a batch mean or per-sample "
-            "values instead")
+            f"{sorted(lens)} rows), but it is neither one element (a batch "
+            f"mean) nor batch-major (shape {shape}); fetch a batch mean or "
+            "per-sample values instead")
 
     def run(self, feed_dict=None, convert_to_numpy_ret_vals=False,
             eval_node_list=None):
@@ -380,7 +481,7 @@ class SubExecutor:
         cut: dict[int, int] = {}
         whole: dict[int, Any] = {}
         for node in self.param_nodes:
-            env[id(node)] = self._leaf(node, params[id(node)])
+            env[id(node)] = self._leaf(node, self._cast(params[id(node)]))
         for node in self.feed_nodes:
             if node not in feed_dict:
                 raise ValueError(f"Missing feed for placeholder {node.name!r}")
@@ -398,7 +499,10 @@ class SubExecutor:
                                         whole)
 
         tc = TraceContext(self.config, self.training, env, params,
-                          self.n_grad_contexts, ex.state["qresid"])
+                          self.n_grad_contexts, ex.state["qresid"],
+                          ex.state["step"], self.node_index,
+                          {id(n): ex.state["op_state"][id(n)]
+                           for n in self.stateful_nodes})
         slots_in = {id(n): ex.state["slots"][id(n)] for n in self.optimizer_nodes}
         with registry.active(self.config.kernels), \
                 torch.set_grad_enabled(self.n_grad_contexts > 0):
@@ -416,14 +520,24 @@ class SubExecutor:
                     node.apply_updates(env, slots_in[id(node)], tc)
                     env[id(node)] = None
                     continue
-                env[id(node)] = self._leaf(
-                    node, node.compute([env[id(i)] for i in node.inputs], tc))
+                vals = [env[id(i)] for i in node.inputs]
+                if self.config.compute_dtype != torch.float32:
+                    # every op boundary in the compute dtype: a stateful
+                    # op's f32 output must not pull the next op back to f32
+                    # (reference executor.py:468-478)
+                    vals = [self._cast(v) for v in vals]
+                if node.stateful:
+                    out = self._stateful(node, vals, tc)
+                else:
+                    out = node.compute(vals, tc)
+                env[id(node)] = self._leaf(node, out)
 
         if self.training:
             for node in self.param_nodes:
                 params[id(node)] = tc.param_updates.get(id(node), params[id(node)])
             for node in self.optimizer_nodes:
                 ex.state["slots"][id(node)] = tc.slot_updates[id(node)]
+            ex.state["op_state"].update(tc.op_state_updates)
             ex.state["qresid"].update(tc.qresid_updates)
             ex.state["step"] += 1
 
@@ -456,14 +570,26 @@ class SubExecutor:
                                        convert_to_numpy_ret_vals))
         return results
 
+    @staticmethod
+    def _stateful(node: Op, vals, tc: TraceContext):
+        """A stateful op's output; its new state (detached, each leaf in
+        its old dtype: bf16 compute must not round the f32 running stats,
+        reference executor.py:494-499) goes to ``tc.op_state_updates``."""
+        state_in = tc.op_state_in[id(node)]
+        out, new = node.compute_stateful(vals, state_in, tc)
+        tc.op_state_updates[id(node)] = {
+            k: v.detach().to(state_in[k].dtype) for k, v in new.items()}
+        return out
+
 
 def _output(v: torch.Tensor, param_ptrs: set, to_numpy: bool):
     """One eval result, detached; a copy where it shares a parameter's
-    storage (training updates parameters in place)."""
+    storage (training updates parameters in place). As numpy, a bf16
+    value comes back as float32."""
     v = v.detach()
     if v.untyped_storage().data_ptr() in param_ptrs:
         v = v.clone()
-    return v.cpu().numpy() if to_numpy else NDArray(v)
+    return NDArray(v).asnumpy() if to_numpy else NDArray(v)
 
 
 def _tree_map(fn, tree):
@@ -486,9 +612,11 @@ class Executor:
         config = self.config = HetuConfig(all_nodes, ctx=ctx, seed=seed,
                                           comm_mode=comm_mode, **kwargs)
         self.comm_mode = config.comm_mode
-        # float32 matrix products in full float32 (the PyTorch default,
-        # stated here: TF32 would keep about three decimal digits)
+        # float32 matrix products and convolutions in full float32 (TF32
+        # would keep about three decimal digits; PyTorch enables it for
+        # cuDNN's convolutions by default)
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
         full_topo = find_topo_sort(all_nodes)
         for node in full_topo:
@@ -562,13 +690,15 @@ class Executor:
                 {n.param_node.name: params[id(n.param_node)].numel()
                  for n in self.qar_ops}, qpol, config.dp_size)
 
-        slots = {}
+        slots, op_state = {}, {}
         for node in full_topo:
             if node.is_optimizer:
                 slots[id(node)] = node.init_slots(
                     {id(v): params[id(v)] for v in node.vars})
-        self.state = {"params": params, "slots": slots, "qresid": qresid,
-                      "step": 0}
+            if node.stateful:
+                op_state[id(node)] = self._place_state(node.state_init())
+        self.state = {"params": params, "slots": slots, "op_state": op_state,
+                      "qresid": qresid, "step": 0}
 
         self.subexecutors = {name: SubExecutor(name, nodes, self)
                              for name, nodes in self.eval_node_dict.items()}
@@ -604,6 +734,12 @@ class Executor:
         k = b // dp
         return value[self.config.dp_rank * k:(self.config.dp_rank + 1) * k]
 
+    def _place_state(self, state: dict) -> dict:
+        """An op's state (a dict of host arrays) on the executor's device,
+        each leaf in its own dtype."""
+        return {k: torch.from_numpy(np.array(v)).to(self.config.device)
+                for k, v in state.items()}
+
     def _place_param(self, node, value) -> torch.Tensor:
         """A host value as this parameter's device-resident tensor (the same
         placement rule for init, load and interop)."""
@@ -638,9 +774,17 @@ class Executor:
         return names
 
     def _opt_nodes(self):
+        return self._nodes_of("optimizer_nodes")
+
+    def _stateful_nodes(self):
+        """The stateful nodes in the order the checkpoint numbers them
+        (reference executor.py:2365)."""
+        return self._nodes_of("stateful_nodes")
+
+    def _nodes_of(self, attr):
         seen, out = set(), []
         for sub in self.subexecutors.values():
-            for n in sub.optimizer_nodes:
+            for n in getattr(sub, attr):
                 if id(n) not in seen:
                     seen.add(id(n))
                     out.append(n)
@@ -649,9 +793,10 @@ class Executor:
     # -- checkpoint in the reference's on-disk format (executor.py:2289) --
     def save(self, file_path: str):
         """One ``<param>.npy`` per parameter plus ``executor_state.pkl``
-        with ``step``, ``slots`` and the error-feedback residuals
-        ``qresid`` (each in its parameter's full shape, float32) — what
-        ``hetu_tpu``'s ``load`` reads. Under data parallelism every rank
+        with ``step``, ``slots``, the op state ``op_state`` (BatchNorm's
+        running stats, keyed by the stateful node's index) and the
+        error-feedback residuals ``qresid`` (each in its parameter's full
+        shape, float32) — what ``hetu_tpu``'s ``load`` reads. Under data parallelism every rank
         calls it (the residuals are gathered from their shards) and dp
         rank 0 writes."""
         qresid = {str(i): self._full_qresid(n)
@@ -668,7 +813,10 @@ class Executor:
                     lambda t: t.detach().cpu().numpy(),
                     self.state["slots"][id(n)])
                     for i, n in enumerate(self._opt_nodes())},
-                "op_state": {},
+                "op_state": {str(i): _tree_map(
+                    lambda t: t.detach().cpu().numpy(),
+                    self.state["op_state"][id(n)])
+                    for i, n in enumerate(self._stateful_nodes())},
                 "qresid": qresid,
             }
             with open(os.path.join(file_path, "executor_state.pkl"),
@@ -714,6 +862,10 @@ class Executor:
                         lambda a: torch.from_numpy(np.array(a)).to(
                             self.config.device),
                         aux["slots"][str(i)])
+            for i, n in enumerate(self._stateful_nodes()):
+                if str(i) in aux.get("op_state", {}):
+                    self.state["op_state"][id(n)] = self._place_state(
+                        aux["op_state"][str(i)])
             # each residual in full shape, cut to this dp rank's shard and
             # copied into its entry (a view of its group's buffer)
             for i, n in enumerate(self._qresid_ordered()):

@@ -5,7 +5,11 @@
 step by the executor. Autodiff is graph-level via
 ``hetu_tpu_torch.graph.gradients`` (``torch.autograd.grad`` over the
 evaluated forward), so ops carry no symbolic ``gradient`` method; the
-explicit ``*_gradient_op`` constructors exist for API parity.
+explicit ``*_gradient_op`` constructors exist for API parity. Stateful ops
+(BatchNorm's running stats) declare their state through ``stateful``/
+``state_init`` and the executor threads it from step to step; an op that
+draws random bits (dropout) sets ``needs_rng`` and takes a generator from
+the step context (``tc.next_rng``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ class Op:
     is_dataloader = False
     is_optimizer = False
     is_gradient = False
+    stateful = False         # has state threaded by the executor
+    needs_rng = False        # draws random bits in a training step
 
     def __init__(self, inputs: Sequence["Op"], ctx=None, name: Optional[str] = None):
         self.id = next(_id_counter)
@@ -60,14 +66,27 @@ class Op:
         """Eager computation: list of tensors -> tensor."""
         raise NotImplementedError(type(self).__name__)
 
+    def compute_stateful(self, input_vals, state, tc):
+        """Stateful computation -> ``(output, new_state)``."""
+        raise NotImplementedError(type(self).__name__)
+
+    def state_init(self):
+        """Initial state of a stateful op: a dict of numpy arrays."""
+        raise NotImplementedError(type(self).__name__)
+
     def infer_meta(self, inputs, training: bool = False) -> torch.Tensor:
         """Abstract-evaluate this op on ``meta`` tensors: input shapes/dtypes
         -> an output meta tensor, without touching any data.
 
         ``inputs`` items may be bare shape tuples (assumed float32),
-        tensors or arrays."""
+        tensors or arrays. A stateful op is evaluated through
+        ``compute_stateful`` over its ``state_init`` on meta tensors."""
         metas = [_as_meta(s) for s in inputs]
-        return self.compute(metas, _AbstractTraceContext(training))
+        tc = _AbstractTraceContext(training)
+        if self.stateful:
+            state = {k: _as_meta(v) for k, v in self.state_init().items()}
+            return self.compute_stateful(metas, state, tc)[0]
+        return self.compute(metas, tc)
 
     def infer_shape(self, input_shapes):
         """Shape inference via abstract evaluation (reference Node.py:95)."""
@@ -124,6 +143,11 @@ class _AbstractTraceContext:
 
     def __init__(self, training: bool = False):
         self.training = bool(training)
+        self.sync_group = None
+
+    def next_rng(self, node):
+        """No generator: meta tensors draw no bits."""
+        return None
 
 
 class FunctionalOp(Op):

@@ -18,6 +18,19 @@ from .matmul import (
     matmul_op, batch_matmul_op, matrix_dot_op, SparseInputOp, csrmv_op,
     csrmm_op,
 )
+from .conv import (
+    conv2d_op, conv2d_gradient_of_data_op, conv2d_gradient_of_filter_op,
+    conv2d_broadcastto_op, conv2d_reducesum_op,
+    max_pool2d_op, max_pool2d_gradient_op, avg_pool2d_op,
+    avg_pool2d_gradient_op,
+)
+from .norm import (
+    batch_normalization_op, layer_normalization_op, instance_normalization2d_op,
+    BatchNormOp,
+)
+from .dropout import (
+    dropout_op, dropout_gradient_op, dropout2d_op, dropout2d_gradient_op,
+)
 from .gnn import distgcn_15d_op
 from .embedding import (
     IndexedRows, embedding_lookup_op, embedding_lookup_gradient_op,

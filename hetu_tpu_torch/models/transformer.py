@@ -186,8 +186,8 @@ def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "a mesh (dp/tp/sp/ep sharding) is not ported to hetu_tpu_torch "
-            "yet: it comes with the parallel slices (ROADMAP Queue 1, "
-            "slices 3, 5c and 8)")
+            "yet: it comes with slice 8 (meshes, TP, PP, ZeRO; ROADMAP "
+            "Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -562,8 +562,8 @@ def _check_train_options(cfg, mesh, zero1=False):
     if zero1:
         raise NotImplementedError(
             "zero1=True (optimizer state sharded over a dp mesh) is not "
-            "ported to hetu_tpu_torch yet: it comes with the parallel "
-            "slices (ROADMAP Queue 1, slices 3 and 5c)")
+            "ported to hetu_tpu_torch yet: it comes with slice 8 (meshes, "
+            "TP, PP, ZeRO; ROADMAP Queue 1)")
     if cfg.dropout_rate > 0.0:
         raise NotImplementedError(
             "dropout_rate > 0 (training-time dropout) is not ported to "

@@ -100,7 +100,12 @@ class NDArray:
         return np.dtype(str(self.handle.dtype).replace("torch.", ""))
 
     def asnumpy(self) -> np.ndarray:
-        return self.handle.detach().cpu().numpy()
+        """The value on the host; bf16 comes back as float32 (numpy has no
+        bfloat16)."""
+        h = self.handle.detach()
+        if h.dtype == torch.bfloat16:
+            h = h.float()
+        return h.cpu().numpy()
 
     def __array__(self, dtype=None, copy=None):
         arr = self.asnumpy()

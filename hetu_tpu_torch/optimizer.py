@@ -214,10 +214,14 @@ class OptimizerOp(Op):
     def apply_updates(self, env, slots, tc):
         """Apply every var's update in place (under ``torch.no_grad()``),
         one :meth:`Optimizer.apply_group` per device; records the new
-        slots in ``tc.slot_updates``."""
+        slots in ``tc.slot_updates``. ``tc.params`` holds the float32
+        master parameters, also under bf16 compute."""
         opt = self.optimizer
-        grads = [env[id(g)] for g in self.inputs]
         params = [tc.params[id(var)] for var in self.vars]
+        # mixed precision: the f32 master parameters take f32 gradients
+        # (reference optimizer.py:243-244)
+        grads = [g if g.dtype == p.dtype else g.to(p.dtype)
+                 for g, p in zip((env[id(g)] for g in self.inputs), params)]
         new_params, new_slots = list(params), list(slots)
         with torch.no_grad():
             if opt.clip_grad_norm is not None:

@@ -13,6 +13,7 @@ gradient sums an id's rows in sorted order (the JAX side scatter-adds
 them in XLA's order) and the dense products sum in another order too
 (ATen against Eigen), and the difference compounds over 20 updates.
 """
+import json
 import os
 import subprocess
 import sys
@@ -47,7 +48,7 @@ def _data(model, steps):
                                        n_train=steps * BATCH, n_test=64)
 
 
-def _reference(model, data):
+def _reference(model, data, **ex_kw):
     """The JAX model on ``test_ctr_models.py``'s loaders (train only)."""
     models = import_example_models("ctr")
     (train, _) = data
@@ -63,7 +64,8 @@ def _reference(model, data):
         loss, _, _, train_op = getattr(models, model)(
             *(loader(x) for x in train), feature_dimension=DIM,
             embedding_size=EMB, **KWARGS.get(model, {}))
-    return jt.Executor({"train": [loss, train_op]}, ctx=jt.cpu(0), seed=42)
+    return jt.Executor({"train": [loss, train_op]}, ctx=jt.cpu(0), seed=42,
+                       **ex_kw)
 
 
 def _port(model, data):
@@ -150,8 +152,8 @@ def test_ctr_main_trains_on_the_cpu_and_launches_nothing():
     assert summary["batch_size"] == 32 and summary["launches_per_step"] == {}
     with pytest.raises(SystemExit, match="slice 4b"):
         ctr_main.main(["--comm", "Hybrid", "--gpu", "-1"])
-    with pytest.raises(SystemExit, match="slice 3"):
-        ctr_main.main(["--comm", "AllReduce", "--gpu", "-1"])
+    with pytest.raises(SystemExit, match="slice 4b"):
+        ctr_main.main(["--comm", "PS", "--gpu", "-1"])
 
 
 def test_gradients_probe_sees_the_first_batch_under_either_mode():
@@ -186,6 +188,95 @@ def test_a_cpu_ctr_step_loads_neither_jax_nor_hetu_tpu():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert p.returncode == 0, p.stderr
     assert "LOADED []" in p.stdout, p.stdout
+
+
+# --comm AllReduce: two gloo ranks of the port's Trainer (port imports
+# only, a file store in tmp_path), each from the JAX executor's saved
+# initial state, against the JAX executor's AllReduce run on its 8-device
+# mesh; the first of each model's batches is cut into two shares.
+DP_MODELS, DP_STEPS = ("wdl_criteo", "dfm_criteo", "wdl_adult"), 6
+DP_WORKER = r'''
+import json
+import sys
+import numpy as np
+import hetu_tpu_torch as ht
+from hetu_tpu_torch.examples import ctr_main, ctr_models
+from hetu_tpu_torch.parallel import multihost
+
+spec = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+multihost.initialize("file://" + sys.argv[3], 2, rank, device="cpu")
+out = {}
+for model in spec["models"]:
+    if model == "wdl_adult":
+        data = ctr_models.load_adult_data(n_train=spec["n"], n_test=64)
+        kw = {}
+    else:
+        data = ctr_models.load_criteo_data(feature_dimension=spec["dim"],
+                                           n_train=spec["n"], n_test=64)
+        kw = dict(embedding_size=spec["emb"], **spec["kwargs"].get(model, {}))
+    tr = ctr_main.Trainer("cpu", model, batch_size=spec["batch"],
+                          dim=spec["dim"], seed=1, data=data,
+                          comm_mode="AllReduce", **kw)
+    tr.ex.load(spec["init"] + "/" + model)
+    out[model + "/losses"] = np.array(
+        [float(tr.step()[0]) for _ in range(spec["steps"])])
+    for name, n in zip(tr.ex._param_file_names(), tr.ex.param_nodes):
+        out[model + "/p/" + name] = tr.ex.state["params"][id(n)].numpy()
+multihost.shutdown()
+np.savez(sys.argv[4], **out)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "hetu_tpu")]
+'''
+
+
+def test_ctr_allreduce_two_ranks_match_jax_on_eight_devices(tmp_path):
+    import jax
+    from test_torch_quant_comm import run_ranks
+    assert jax.device_count() == 8
+    want = {}
+    for model in DP_MODELS:
+        data = _data(model, DP_STEPS)
+        jex = _reference(model, data, comm_mode="AllReduce")
+        jex.save(str(tmp_path / "init" / model))
+        losses = np.array([float(np.mean(jex.run(
+            "train", convert_to_numpy_ret_vals=True)[0]))
+            for _ in range(DP_STEPS)])
+        want[model] = (losses, _params(jex, np.asarray))
+    spec = dict(models=DP_MODELS, n=DP_STEPS * BATCH, dim=DIM, emb=EMB,
+                batch=BATCH, steps=DP_STEPS, kwargs=KWARGS,
+                init=str(tmp_path / "init"))
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    ranks = [dict(np.load(o)) for o in run_ranks(tmp_path, DP_WORKER,
+                                                 tmp_path / "spec.json")]
+    for k in ranks[0]:
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+    for model, (losses, params) in want.items():
+        got = ranks[0]
+        np.testing.assert_allclose(got[model + "/losses"], losses,
+                                   **LOSS_TOL, err_msg=model)
+        assert sorted(k.split("/p/")[1] for k in got
+                      if k.startswith(model + "/p/")) == sorted(params)
+        for name, v in params.items():
+            np.testing.assert_allclose(got[f"{model}/p/{name}"], v,
+                                       **STATE_TOL, err_msg=name)
+
+
+def test_ctr_main_allreduce_under_the_runner():
+    """``ctr_main --comm AllReduce`` on two gloo ranks through the port's
+    runner, end to end: rank 0 prints the epoch and the summary."""
+    from test_torch_quant_comm import port_env
+    p = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.runner", "-w", "2",
+         sys.executable, "-m", "hetu_tpu_torch.examples.ctr_main", "--comm",
+         "AllReduce", "--gpu", "-1", "--dim", str(DIM), "--steps", "2",
+         "--batch-size", str(BATCH)], capture_output=True, text=True,
+        timeout=300, env=port_env(), cwd=REPO)
+    assert p.returncode == 0, p.stderr[-3000:]
+    rows = [json.loads(line) for line in p.stdout.splitlines()
+            if line.startswith("{")]
+    assert [r.get("epoch") for r in rows] == [0, None]
+    assert rows[0]["steps"] == 2 and np.isfinite(rows[0]["losses"]).all()
+    assert rows[1]["summary"] == "ctr_main"
 
 
 def parity_report():

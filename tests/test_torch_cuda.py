@@ -1169,3 +1169,77 @@ def test_dp_mlp_on_the_card_world_of_one(dev, tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(p_dp, p_loc))
     finally:
         multihost.shutdown()
+
+
+# -- the CNN zoo's graph ops on the card (conv, pooling, BatchNorm, dropout) --
+
+def _zoo_run(model, ctx, steps=3, **kw):
+    """``model`` of cnn_models on 16 seeded images, ``steps`` SGD steps at
+    lr 0.01 from the executor seed 0: (losses, parameters, launches)."""
+    from hetu_tpu_torch.examples import cnn_models
+    rng = np.random.RandomState(0)
+    shape = (1, 28, 28) if model in ("lenet", "cnn_3_layers") else (3, 32, 32)
+    xv = rng.randn(16, *shape).astype(np.float32)
+    yv = np.eye(10, dtype=np.float32)[rng.randint(0, 10, 16)]
+    x = ht.Variable(name="x", trainable=False)
+    y_ = ht.Variable(name="y_", trainable=False)
+    loss, _ = cnn_models.MODELS[model](x, y_, 10)
+    op = ht.optim.SGDOptimizer(0.01).minimize(loss)
+    ex = ht.Executor({"train": [loss, op]}, ctx=ctx, seed=0, **kw)
+    registry.reset_launch_counts()
+    losses = [float(ex.run("train", feed_dict={x: xv, y_: yv})[0].asnumpy())
+              for _ in range(steps)]
+    return (np.array(losses), [ex.state["params"][id(n)].cpu()
+                               for n in ex.param_nodes],
+            registry.launch_counts(), ex)
+
+
+@pytest.mark.parametrize("model,steps", [("lenet", 3), ("cnn_3_layers", 3),
+                                         ("resnet18", 1)])
+def test_zoo_model_on_the_card_matches_the_cpu(dev, model, steps):
+    """cuDNN's convolutions in full float32 (no TF32) and the port's
+    BatchNorm on the card against the same steps on the CPU: losses
+    within rtol 1e-4 (the two sum the convolutions in other orders;
+    ResNet-18's first loss alone, since a ReLU input within rounding of 0
+    can take the other side and move its later steps by more)."""
+    got, p_gpu, counts, ex = _zoo_run(model, ht.gpu(0), steps)
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    want, p_cpu, _, _ = _zoo_run(model, ht.cpu(0), steps)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    launches = -(-len(p_gpu) // fused_opt.MAX_TENSORS)
+    assert counts["fused_sgd"] == steps * launches
+    assert sum(counts.values()) == counts["fused_sgd"]
+    for s in ex.state["op_state"].values():
+        assert all(v.is_cuda and v.dtype == torch.float32 for v in s.values())
+
+
+def test_zoo_bf16_on_the_card_keeps_float32_state(dev):
+    got, params, counts, ex = _zoo_run("resnet18", ht.gpu(0),
+                                       dtype="bfloat16")
+    assert np.isfinite(got).all() and counts["fused_sgd"] == 3 * 2
+    assert all(p.dtype == torch.float32 for p in params)
+    for s in ex.state["op_state"].values():
+        assert all(v.dtype == torch.float32 for v in s.values())
+
+
+def test_dropout_masks_on_the_card(dev):
+    """The mask drawn on the card keeps its share within 4 sigma, the
+    gradient op redraws it in the same step, and a seed repeats it."""
+    def step(seed):
+        x = ht.Variable(name="x", value=np.ones((300, 200), np.float32))
+        g1 = ht.Variable(name="g1", value=np.ones((300, 200), np.float32),
+                         trainable=False)
+        fwd = ht.dropout_op(x, 0.7)
+        regrad = ht.dropout_gradient_op(g1, 0.7, fwd)
+        loss = ht.reduce_sum_op(fwd, [0, 1])
+        op = ht.optim.SGDOptimizer(0.0).minimize(loss)
+        ex = ht.Executor({"train": [fwd, regrad, op]}, seed=seed)
+        return ex.run("train", convert_to_numpy_ret_vals=True)[:2]
+
+    out, regrad = step(0)
+    kept = (out != 0).mean()
+    assert abs(kept - 0.7) < 4 * np.sqrt(0.7 * 0.3 / out.size)
+    np.testing.assert_array_equal(regrad, out)
+    np.testing.assert_array_equal(step(0)[0], out)
+    assert (step(1)[0] != out).any()
