@@ -31,8 +31,14 @@ width (batch 128, synthetic CIFAR10, SGD at lr 0.1) through
 first step against ``kernels="off"``, and 10 in bf16 compute; and trains
 the graph-API transformer LM of ``examples/nlp/hetu_transformer.py`` at
 its trainer's default widths for 30 Adam steps with dropout, its first
-step at dropout 0 against ``kernels="off"``. Each path is checked to have
-gone through its kernels.
+step at dropout 0 against ``kernels="off"``; and trains WDL-Criteo under
+``comm_mode="Hybrid"`` against a local parameter-server cluster (the
+script is worker 0; the table on four host servers, 16 M of the
+vocabulary's rows, the dense MLP on the card) for 30 steps with BSP + prefetch
+and 30 with prefetch off, after holding its first steps against local
+mode and its first step against ``kernels="off"``, and pushes an explicit
+``embedding_lookup_gradient_op`` through the rows route. Each path is
+checked to have gone through its kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -41,6 +47,7 @@ gone through its kernels.
     python3 chip_smoke.py --quant-kernels  # build, the quantize kernels only
     python3 chip_smoke.py --embed-kernels  # build, the embedding gradient only
     python3 chip_smoke.py --zoo            # build, ResNet-18 and the LM only
+    python3 chip_smoke.py --ps             # build, the Hybrid phase only
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -54,7 +61,8 @@ does the same for ``csr_spmm`` and ``csr_spmv`` on the GCN's adjacency,
 ``--opt-kernels`` for ``fused_sgd`` and ``fused_adam``, ``--quant-kernels``
 for ``quant_blocks`` and ``dequant_blocks``, ``--embed-kernels`` for
 ``fused_embed_grad`` (at the CTR and the BERT path's shapes); ``--zoo``
-builds and runs the ResNet-18 and LM phases (sections 10-11) alone.
+builds and runs the ResNet-18 and LM phases (sections 10-11) alone;
+``--ps`` the Hybrid phase (section 12) alone.
 """
 import argparse
 import concurrent.futures
@@ -229,6 +237,30 @@ CTR_VOCAB, CTR_DIM, CTR_BATCH, CTR_STEPS, CTR_REL = (33762577, 128, 128, 30,
                                                       1e-6)
 CTR_LAUNCHES = {"fused_embed_grad": 1, "fused_sgd": 1}
 CTR_SAMPLE, CTR_PROFILE_STEPS, CTR_OFF_VOCAB = 10**6, 3, 100000
+# WDL-Criteo under comm_mode="Hybrid" (section 12): the same model and
+# widths, its table on HYB_SERVERS host PS servers of a local cluster
+# (the smoke is worker 0), the dense MLP on the card. HYB_VOCAB rows, cut
+# from the full 33,762,577: the servers draw the table at about 4.4 s a
+# million rows, one server after the other (on an H100 host, 18.0 s for
+# 4 M rows on four servers and 20.4 s on one: tools/ps_hybrid_ms.py,
+# PERF.md section 4), so the full vocabulary would take about 150 s, and
+# 16 M rows (8.2 GB) about 70 s; the init is timed. HYB_STEPS steps with BSP + prefetch, then HYB_STEPS with prefetch
+# off. Per step 1 fused_sgd (the four dense parameters) and
+# no fused_embed_grad: the push carries the lookups' row gradients, and no
+# table gradient exists on the card. Gates at CTR_OFF_VOCAB rows, each on
+# a fresh cluster of HYB_SERVERS servers (the table's rows split over
+# them as in the main run): the first HYB_GATE_STEPS steps (prefetch
+# off) against local mode on the card from the same initial table and
+# dense parameters (the losses, the touched rows, the rows' update
+# w_after - w_before and the dense parameters within rel HYB_REL: the
+# host sums an id's row gradients in another order than fused_embed_grad);
+# the first step bit-equal to kernels="off"; and an explicit
+# embedding_lookup_gradient_op pushed to the PS (the rows route: one
+# fused_embed_grad in its compact form), whose rows on the server must
+# equal -lr times its plain sums bit for bit.
+HYB_VOCAB, HYB_SERVERS, HYB_STEPS, HYB_GATE_STEPS, HYB_REL = (
+    16000000, 4, 30, 5, 1e-5)
+HYB_LAUNCHES = {"fused_sgd": 1}
 # The quantized all-reduce's blockwise quantize (quant_blocks) and
 # dequantize (dequant_blocks), in int8 and fp8 at blocks 256 (the default
 # and the main path's), 128, 64 and 7. The single-tensor forms (groups of
@@ -1360,6 +1392,209 @@ def ctr_phase(ht, ctr_main, eg, registry, counted, bert_batch, dev, bw,
     return embed, {"fused_embed_grad": epoch["launches"]["fused_embed_grad"]}
 
 
+def _hybrid_trainer(ctr_main, dev, data, vocab, kernels=None, **ps_options):
+    tr = ctr_main.Trainer(dev, "wdl_criteo", CTR_BATCH, vocab, data=data,
+                          kernels=kernels, comm_mode="Hybrid",
+                          ps_options=ps_options)
+    rt = tr.ex.ps_runtime
+    (table,) = [q for q in rt.params.values() if q.sparse]
+    on_card = {n.name: tuple(tr.param(n).shape) for n in tr.ex.param_nodes}
+    check(table.node is tr.tables[0] and table.node.name not in on_card
+          and len(on_card) == 4,
+          f"under Hybrid the card holds {on_card}; the table must be on "
+          "the servers")
+    return tr, rt, table
+
+
+def hybrid_gates(ht, ctr_main, registry, counted, dev):
+    """The Hybrid step at CTR_OFF_VOCAB rows: its first steps against local
+    mode from the same initial values, its first step against
+    kernels="off", each on a fresh cluster of HYB_SERVERS servers (the
+    servers draw the same table from the same seed and ps id)."""
+    from hetu_tpu_torch.ps import local_cluster as lc
+    data = ctr_main.load_data("wdl_criteo", CTR_OFF_VOCAB)
+    ids = data[0][1].astype(np.int64)
+    touched1 = np.unique(ids[:CTR_BATCH])
+    touched = np.unique(ids[:HYB_GATE_STEPS * CTR_BATCH])
+    first = {}
+    for kernels in (None, "off"):
+        with lc.local_cluster(n_servers=HYB_SERVERS):
+            tr, rt, table = _hybrid_trainer(ctr_main, dev, data,
+                                            CTR_OFF_VOCAB, kernels,
+                                            prefetch=False)
+            if kernels is None:
+                t0 = rt.pull_sparse_rows(table, np.arange(CTR_OFF_VOCAB))
+                d0 = {n.name: tr.param(n).clone() for n in tr.ex.param_nodes}
+            out, counts = counted(tr.step)
+            first[kernels] = (
+                out[0].cpu().numpy(), counts,
+                {n.name: tr.param(n).cpu().numpy()
+                 for n in tr.ex.param_nodes},
+                rt.pull_sparse_rows(table, touched1))
+            if kernels is None:
+                losses = [float(out[0].mean())] + [
+                    float(tr.step()[0].mean())
+                    for _ in range(HYB_GATE_STEPS - 1)]
+                rows = rt.pull_sparse_rows(table, touched)
+                dense = {n.name: tr.param(n).cpu().numpy()
+                         for n in tr.ex.param_nodes}
+            tr.ex.close()
+    (loss_k, counts, params_k, rows_k), (loss_o, off_counts, params_o,
+                                         rows_o) = first[None], first["off"]
+    check(counts == HYB_LAUNCHES and off_counts == {},
+          f"the first Hybrid step launched {counts}, under kernels='off' "
+          f"{off_counts}")
+    check(np.array_equal(loss_k, loss_o) and np.array_equal(rows_k, rows_o)
+          and all(np.array_equal(params_k[k], params_o[k]) for k in params_k),
+          "the first Hybrid step differs from kernels='off'")
+
+    loc = ctr_main.Trainer(dev, "wdl_criteo", CTR_BATCH, CTR_OFF_VOCAB,
+                           data=data)
+    with torch.no_grad():
+        loc.param(loc.tables[0]).copy_(torch.from_numpy(t0))
+        for n in loc.params:
+            if n is not loc.tables[0]:
+                loc.param(n).copy_(d0[n.name])
+    local = [float(loc.step()[0].mean()) for _ in range(HYB_GATE_STEPS)]
+    local_rows = loc.param(loc.tables[0]).index_select(
+        0, torch.from_numpy(touched).to(dev)).cpu().numpy()
+    loss_rel = float(np.max(np.abs(np.array(losses) - local)
+                            / np.abs(local)))
+    delta, local_delta = rows - t0[touched], local_rows - t0[touched]
+    rows_rel = float(np.linalg.norm(rows - local_rows)
+                     / np.linalg.norm(local_rows))
+    update_rel = float(np.linalg.norm(delta - local_delta)
+                       / np.linalg.norm(local_delta))
+    local_dense = {n.name: loc.param(n).cpu().numpy() for n in loc.params
+                   if n is not loc.tables[0]}
+    check(sorted(local_dense) == sorted(dense),
+          f"dense parameters {sorted(dense)}, local {sorted(local_dense)}")
+    dense_rel = {k: float(np.linalg.norm(dense[k] - v) / np.linalg.norm(v))
+                 for k, v in local_dense.items()}
+    # the table moves by about 1e-4 of its rows in these steps: the update
+    # is held on its own scale, so that a push off by a factor shows
+    check(loss_rel <= HYB_REL and rows_rel <= HYB_REL
+          and update_rel <= HYB_REL
+          and max(dense_rel.values()) <= HYB_REL,
+          f"Hybrid against local mode: losses rel {loss_rel}, touched rows "
+          f"rel L2 {rows_rel}, their update rel L2 {update_rel}, dense "
+          f"parameters rel L2 {dense_rel} (limit {HYB_REL})")
+    emit("ctr_hybrid_gates", vocab=CTR_OFF_VOCAB, steps=HYB_GATE_STEPS,
+         losses=losses, local_losses=local, loss_max_rel=loss_rel,
+         touched_rows=int(touched.size), rows_rel_l2=rows_rel,
+         rows_max_abs=float(np.abs(rows - local_rows).max()),
+         update_rel_l2=update_rel, dense_rel_l2=dense_rel,
+         servers=HYB_SERVERS, first_step_vs_off="bit-equal",
+         launches=counts, tolerance=HYB_REL)
+    del loc
+
+
+def hybrid_rows_program(ht, ctr_main, eg, registry, counted, dev):
+    """An explicit embedding_lookup_gradient_op pushed to the PS: the
+    executor flips it to rows mode, one fused_embed_grad in its compact
+    form, and the server adds -lr times the sums to a zero table."""
+    from hetu_tpu_torch.ps import local_cluster as lc
+    data = ctr_main.load_data("wdl_criteo", CTR_OFF_VOCAB)
+    ids = torch.from_numpy(data[0][1][:CTR_BATCH]).to(dev)
+    vec = torch.randn(tuple(ids.shape) + (CTR_DIM,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(11))
+    with lc.local_cluster(n_servers=1):
+        table = ht.init.zeros((CTR_OFF_VOCAB, CTR_DIM), name="ps_rows_table",
+                              is_embed=True)
+        idx_ = ht.Variable(name="idx", trainable=False)
+        vec_ = ht.Variable(name="vec", trainable=False)
+        look = ht.reduce_mean_op(ht.embedding_lookup_op(table, idx_),
+                                 [0, 1, 2])
+        g = ht.embedding_lookup_gradient_op(vec_, idx_,
+                                            (CTR_OFF_VOCAB, CTR_DIM))
+        push = ht.parameterServerCommunicate_op(g, ps_id=table.name)
+        ex = ht.Executor({"train": [look, push]}, ctx=ctr_main._ctx(dev),
+                         comm_mode="PS", prefetch=False)
+        check(g.rows_mode and push.ps_param_node is table,
+              "the push's gradient op did not take the rows route")
+        _, counts = counted(lambda: ex.run(
+            "train", feed_dict={idx_: ids, vec_: vec}))
+        rt = ex.ps_runtime
+        with registry.active("off"):
+            rows, sums, count = eg.embed_grad_rows(vec, ids, CTR_OFF_VOCAB)
+        k = int(count)
+        rows = rows[:k].long().cpu().numpy()
+        got = rt.pull_sparse_rows(rt.params[id(table)], rows)
+        want = -rt._prescale_lr(0) * sums[:k].cpu().numpy()
+        ex.close()
+    check(counts == {"fused_embed_grad": 1},
+          f"the rows-route program launched {counts}")
+    check(np.array_equal(got, want), "the server's rows differ from -lr "
+          "times the plain sums")
+    emit("ctr_ps_rows_route", ids=int(ids.numel()), unique=k,
+         vocab=CTR_OFF_VOCAB, dim=CTR_DIM, server_rows="bit-equal",
+         launches=counts)
+    return counts.get("fused_embed_grad", 0)
+
+
+def hybrid_phase(ht, ctr_main, eg, registry, counted, dev):
+    """WDL-Criteo under Hybrid at HYB_VOCAB rows on HYB_SERVERS servers:
+    the gates, then HYB_STEPS steps with BSP + prefetch and HYB_STEPS with
+    prefetch off through ctr_main.run, the launch counts zeroed just
+    before each step and read just after. Each loop's line has the wall
+    and device time of a step and its PS legs on the host clock."""
+    import tempfile
+    from hetu_tpu_torch.ps import local_cluster as lc
+    hybrid_gates(ht, ctr_main, registry, counted, dev)
+    rows_launches = hybrid_rows_program(ht, ctr_main, eg, registry, counted,
+                                        dev)
+    # a server answers InitTensor once its share of the table is drawn
+    os.environ.setdefault("DMLC_PS_RECV_TIMEOUT_MS", "900000")
+    data = ctr_main.load_data("wdl_criteo", HYB_VOCAB)
+    launched = 0
+    with lc.local_cluster(n_servers=HYB_SERVERS):
+        t0 = time.perf_counter()
+        tr, rt, table = _hybrid_trainer(ctr_main, dev, data, HYB_VOCAB,
+                                        bsp=True, prefetch=True)
+        init_s = time.perf_counter() - t0
+        for mode in ("bsp_prefetch", "prefetch_off"):
+            if mode == "prefetch_off":
+                tr.ex.close()           # later steps push on this thread
+            before = dict(rt.perf)
+            with tempfile.TemporaryDirectory() as prof:
+                it = ctr_main.run(dev, trainer=tr, steps=HYB_STEPS,
+                                  profile_dir=prof,
+                                  profile_iters=CTR_PROFILE_STEPS)
+                epoch = next(it)
+                summary = next(it)
+            check(epoch["launches_per_step"] == HYB_LAUNCHES
+                  and epoch["launches_same_every_step"]
+                  and epoch["launches"] == {"fused_sgd": HYB_STEPS},
+                  f"{mode}: a Hybrid step launched "
+                  f"{epoch['launches_per_step']}, {HYB_STEPS} steps "
+                  f"{epoch['launches']}; expected {HYB_LAUNCHES} a step")
+            check(np.isfinite(epoch["losses"]).all(),
+                  f"{mode}: losses {epoch['losses']}")
+            n = HYB_STEPS + CTR_PROFILE_STEPS
+            legs_ms = {k[:-2]: (summary["ps"][k] - before[k]) / n * 1e3
+                       for k in ("pre_step_s", "post_step_s", "pull_rpc_s",
+                                 "push_rpc_s")}
+            prof = summary["profile"]
+            launched += epoch["launches"].get("fused_sgd", 0)
+            emit("ctr_hybrid_train", mode=mode, vocab=HYB_VOCAB,
+                 servers=HYB_SERVERS, dim=CTR_DIM, batch=CTR_BATCH,
+                 steps=HYB_STEPS, init_s=init_s,
+                 device_params=sum(tr.param(q).numel()
+                                   for q in tr.ex.param_nodes),
+                 step_ms=summary["step_ms"],
+                 samples_per_s=summary["samples_per_s"],
+                 device_ms=prof["device_ms"],
+                 device_busy_share=prof["device_busy_share"],
+                 groups_us=prof["groups_us"], ps_legs_ms=legs_ms,
+                 ps_counts={k: summary["ps"][k] - before[k] for k in (
+                     "sync_pulls", "prefetch_hits", "prefetch_misses",
+                     "async_pushes")},
+                 losses=epoch["losses"], train_auc=epoch["train_auc"],
+                 launches_per_step=epoch["launches_per_step"])
+        tr.ex.close()
+    return {"fused_sgd": launched}, {"fused_embed_grad": rows_launches}
+
+
 def bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, batch,
                    want, phase):
     """The first step's gradients with the kernels against kernels="off",
@@ -2259,6 +2494,9 @@ def main(argv=None):
     ap.add_argument("--zoo", action="store_true",
                     help="build, train ResNet-18 and the graph-API LM "
                          "(sections 10-11), and stop")
+    ap.add_argument("--ps", action="store_true",
+                    help="build, train WDL-Criteo under Hybrid against a "
+                         "local PS cluster (section 12), and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
@@ -2308,6 +2546,10 @@ def main(argv=None):
         resnet_phase(ht, cnn_main, fused_opt, bert_forward.counted,
                      cnn_main.load_dataset("CIFAR10"))
         lm_phase(ht, hetu_transformer, fused_opt, bert_forward.counted)
+        return 0
+    if args.ps:
+        hybrid_phase(ht, ctr_main, embed_grad, registry,
+                     bert_forward.counted, dev)
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -2423,6 +2665,15 @@ def main(argv=None):
             ht, cnn_main, fused_opt, bert_forward.counted, data)),
                       ("transformer_lm", lm_phase(
             ht, hetu_transformer, fused_opt, bert_forward.counted))):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+            by_path.setdefault(k, {})[path] = v
+
+    # -- 12. WDL-Criteo under Hybrid, against a local PS cluster -----------
+    torch.cuda.empty_cache()
+    hybrid, rows_route = hybrid_phase(ht, ctr_main, embed_grad, registry,
+                                      bert_forward.counted, dev)
+    for path, got in (("ctr_hybrid", hybrid), ("ps_rows_route", rows_route)):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
             by_path.setdefault(k, {})[path] = v

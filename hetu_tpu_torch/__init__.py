@@ -19,6 +19,11 @@ from .graph.executor import (
     Executor, HetuConfig, SubExecutor,
     wrapped_mpi_nccl_init, mpi_nccl_init, mpi_nccl_finish, new_group_comm,
 )
+from .ps import (
+    worker_init, worker_finish, get_worker_communicate,
+    scheduler_init, scheduler_finish, server_init, server_finish,
+)
+from .cstable import CacheSparseTable
 from .context import context, get_current_context, DeviceGroup
 from .dataloader import dataloader_op, Dataloader, DataloaderOp
 from .ndarray import (
@@ -26,6 +31,7 @@ from .ndarray import (
     NDArray, ND_Sparse_Array, DLContext,
 )
 from . import optimizer as optim
+from . import lr_scheduler as lr
 from . import initializers as init
 from . import data
 from . import metrics

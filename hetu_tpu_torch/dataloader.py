@@ -89,11 +89,18 @@ class Dataloader:
         self._peeked = (np.asarray(d["peeked"]) if "peeked" in d else None)
 
     def get_arr(self) -> np.ndarray:
-        # a state_dict saved by hetu_tpu may carry a prefetched batch
         if self._peeked is not None:
             batch, self._peeked = self._peeked, None
             return batch
         return self._next_batch()
+
+    def peek_arr(self) -> np.ndarray:
+        """The batch the next ``get_arr`` will return, without consuming
+        it: the PS runtime pulls batch N+1's embedding rows while step N
+        runs."""
+        if self._peeked is None:
+            self._peeked = self._next_batch()
+        return self._peeked
 
 
 class DataloaderOp(Op):
@@ -112,6 +119,9 @@ class DataloaderOp(Op):
 
     def get_batch(self, name):
         return self.dataloaders[name].get_arr()
+
+    def peek_batch(self, name):
+        return self.dataloaders[name].peek_arr()
 
     def compute(self, input_vals, tc):
         raise AssertionError("Dataloader batches are supplied by the executor")

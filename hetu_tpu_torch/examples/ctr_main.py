@@ -1,13 +1,16 @@
-"""CTR training on the port (counterpart of ``examples/ctr/run_hetu.py`` in
-local mode and under ``--comm AllReduce``): a model of ``ctr_models`` fed
-by ``Dataloader``s, with a ``train`` and a ``validate`` target, reporting
-loss, accuracy and AUC.
+"""CTR training on the port (counterpart of ``examples/ctr/run_hetu.py``):
+a model of ``ctr_models`` fed by ``Dataloader``s, with a ``train`` and a
+``validate`` target, reporting loss, accuracy and AUC, in local mode and
+under the comm modes ``AllReduce``, ``PS`` and ``Hybrid``.
 
     python -m hetu_tpu_torch.examples.ctr_main [--model wdl_criteo]
         [--batch-size 128] [--dim 100000] [--nepoch 1] [--steps N] [--val]
         [--profile DIR] [--gpu 0 | -1]
     python -m hetu_tpu_torch.runner -w 2 python -m \
         hetu_tpu_torch.examples.ctr_main --comm AllReduce --dim 1000 --gpu -1
+    python -m hetu_tpu_torch.runner -c cluster.yml python -m \
+        hetu_tpu_torch.examples.ctr_main --comm Hybrid [--cache LFUOpt]
+        [--bsp] [--bound 100]
 
 ``--dim`` is the Criteo vocabulary (``HETU_CTR_DIM``, default 100000 as
 in the reference; ``33762577`` is full Criteo-Kaggle). The data is the
@@ -31,8 +34,18 @@ one process per device (gloo on the CPU with ``--gpu -1``, NCCL on the
 cards, one card per worker), as ``run_hetu.py`` passes ``comm_mode`` to its
 executor: each rank takes its share of every batch, and the table's
 dense gradient is all-reduced with the others. Only rank 0 prints; the
-loss, accuracy and AUC are the global batch's. The comm modes ``PS`` and
-``Hybrid`` come with slice 4b and raise.
+loss, accuracy and AUC are the global batch's.
+
+``--comm Hybrid`` and ``--comm PS`` run under a parameter-server cluster
+(``hetu_tpu_torch.runner -c`` with a yaml that lists ``servers:``): the
+embedding tables live on the servers, and each step pulls the batch's
+rows and pushes their gradients (``graph/ps_runtime.py``). Under Hybrid
+the dense parameters stay on the device (all-reduced over the workers);
+under PS they live on the servers too. ``--cache`` puts the
+bounded-staleness cache (``--bound`` versions) in front of each table,
+and ``--bsp`` adds a worker barrier after each step's pushes.
+The summary line adds the PS runtime's counters and its host seconds
+(``ps``).
 """
 import argparse
 import json
@@ -49,8 +62,7 @@ from hetu_tpu_torch.examples import bert_forward, ctr_models
 from hetu_tpu_torch.graph.node import find_topo_sort
 
 MODELS = ("wdl_adult", "wdl_criteo", "dfm_criteo", "dcn_criteo", "dc_criteo")
-COMM_SLICES = {"PS": "4b (PS and Hybrid for CTR)",
-               "Hybrid": "4b (PS and Hybrid for CTR)"}
+PS_MODES = ("PS", "Hybrid")
 WARMUP = 3
 
 
@@ -103,11 +115,14 @@ class Trainer:
     ``load_data(model, dim, seed)``, when the caller has it already.
     ``comm_mode="AllReduce"`` trains data-parallel over the process group
     this process joined (``grads``' per-rank gradients have no placement
-    then: it serves local mode)."""
+    then: it serves local mode). Under ``"PS"`` and ``"Hybrid"`` the tables
+    live on the parameter server, and there is no ``grads`` target (no
+    table gradient exists on the device); ``ps_options`` go to the
+    executor (``bsp``, ``prefetch``, ``cstable_policy``, ``cache_bound``)."""
 
     def __init__(self, device, model="wdl_criteo", batch_size=128,
                  dim=100000, seed=0, kernels=None, data=None,
-                 comm_mode=None, **model_kwargs):
+                 comm_mode=None, ps_options=None, **model_kwargs):
         if model not in MODELS:
             raise ValueError(f"model must be one of {MODELS}, got {model!r}")
         self.device = device
@@ -119,18 +134,20 @@ class Trainer:
         self.params = [n for n in topo if n.is_placeholder and n.trainable]
         self.tables = [n.embed_node for n in topo
                        if hasattr(n, "embed_node")]
-        grads = ht.gradients(self.loss, self.params)
+        targets = {"train": [self.loss, self.y, self.labels, train_op],
+                   "validate": [self.loss, self.y, self.labels]}
+        if comm_mode not in PS_MODES:
+            targets["grads"] = [self.loss] + ht.gradients(self.loss,
+                                                          self.params)
         t0 = time.perf_counter()
-        self.ex = ht.Executor(
-            {"train": [self.loss, self.y, self.labels, train_op],
-             "validate": [self.loss, self.y, self.labels],
-             "grads": [self.loss] + grads},
-            ctx=_ctx(device), seed=seed, kernels=kernels,
-            comm_mode=comm_mode)
+        self.ex = ht.Executor(targets, ctx=_ctx(device), seed=seed,
+                              kernels=kernels, comm_mode=comm_mode,
+                              **(ps_options or {}))
         _sync(device)
-        # parameters drawn on the host and placed on the device
+        # parameters drawn on the host and placed on the device (under the
+        # PS modes: the tables declared and initialized on the servers)
         self.init_ms = (time.perf_counter() - t0) * 1e3
-        self.n_params = sum(self.param(n).numel() for n in self.params)
+        self.n_params = sum(int(np.prod(n.shape)) for n in self.params)
 
     def param(self, node) -> torch.Tensor:
         return self.ex.state["params"][id(node)]
@@ -190,12 +207,12 @@ def _evaluate(values):
 
 def run(device, model="wdl_criteo", batch_size=128, dim=100000, nepoch=1,
         steps=None, val=False, profile_dir=None, profile_iters=3, seed=0,
-        kernels=None, trainer=None, comm_mode=None):
+        kernels=None, trainer=None, comm_mode=None, ps_options=None):
     """Yields one dict per epoch, then the summary dict. ``steps`` caps the
     training steps of an epoch; ``trainer`` is a :class:`Trainer` to use
     instead of a new one."""
     tr = trainer or Trainer(device, model, batch_size, dim, seed, kernels,
-                            comm_mode=comm_mode)
+                            comm_mode=comm_mode, ps_options=ps_options)
     n_train = tr.ex.get_batch_num("train")
     steps = min(steps or n_train, n_train)
     times, per_step = [], []
@@ -227,7 +244,7 @@ def run(device, model="wdl_criteo", batch_size=128, dim=100000, nepoch=1,
     ms = sum(timed) / len(timed) * 1e3
     res = {"summary": "ctr_main", "model": tr.model,
            "batch_size": tr.batch_size,
-           "vocab": [tuple(tr.param(t).shape) for t in tr.tables],
+           "vocab": [tuple(t.shape) for t in tr.tables],
            "params": tr.n_params, "init_ms": tr.init_ms,
            "step_ms": ms, "samples_per_s": tr.batch_size / ms * 1e3,
            "launches_per_step": per_step[-1],
@@ -238,6 +255,9 @@ def run(device, model="wdl_criteo", batch_size=128, dim=100000, nepoch=1,
         res["profile"] = bert_forward.profile(
             tr.step, ms, profile_iters,
             os.path.join(profile_dir, f"profile_ctr_{tr.model}.txt"))
+    if tr.ex.ps_runtime is not None:
+        tr.ex.ps_runtime.drain()          # the last step's pushes land
+        res["ps"] = dict(tr.ex.ps_runtime.perf)
     yield res
 
 
@@ -246,6 +266,10 @@ def main(argv=None):
     parser.add_argument("--model", default="wdl_criteo", choices=MODELS)
     parser.add_argument("--comm", default=None,
                         choices=[None, "PS", "Hybrid", "AllReduce"])
+    parser.add_argument("--cache", default=None,
+                        choices=[None, "LRU", "LFU", "LFUOpt"])
+    parser.add_argument("--bsp", action="store_true")
+    parser.add_argument("--bound", type=int, default=100)
     parser.add_argument("--batch-size", type=int, default=128)
     parser.add_argument("--nepoch", type=int, default=1)
     parser.add_argument("--steps", type=int, default=None,
@@ -257,26 +281,37 @@ def main(argv=None):
     parser.add_argument("--profile", default=None, metavar="DIR")
     parser.add_argument("--gpu", type=int, default=0)
     args = parser.parse_args(argv)
-    if args.comm in COMM_SLICES:
-        raise SystemExit(f"--comm {args.comm}: hetu_tpu_torch runs local "
-                         f"mode and AllReduce; {args.comm} comes with slice "
-                         f"{COMM_SLICES[args.comm]}")
     if args.profile and args.gpu < 0:
         raise SystemExit("--profile measures the card; it needs --gpu >= 0")
-    rank, gpu = 0, args.gpu
-    if args.comm == "AllReduce":
-        comm, rank = ht.mpi_nccl_init(init_nccl=args.gpu >= 0)
-        gpu = comm.local_rank() if args.gpu >= 0 else -1
-    device = "cpu" if gpu < 0 else torch.device("cuda", gpu)
-    if gpu >= 0 and rank == 0:
-        print(torch.cuda.get_device_name(gpu), flush=True)
-    for res in run(device, args.model, args.batch_size, args.dim,
-                   args.nepoch, args.steps, args.val, args.profile,
-                   comm_mode=args.comm):
-        if rank == 0:
-            print(json.dumps(res), flush=True)
-    if args.comm == "AllReduce":
-        ht.mpi_nccl_finish(comm)
+    if args.comm in PS_MODES and not os.environ.get("DMLC_PS_ROOT_URI"):
+        raise SystemExit(
+            f"--comm {args.comm} trains against a parameter-server cluster: "
+            "run it under python -m hetu_tpu_torch.runner -c <cluster yaml "
+            "with servers:>")
+    rank, gpu, comm = 0, args.gpu, None
+    if args.comm in PS_MODES:
+        ht.worker_init()
+    try:
+        if args.comm in ("AllReduce", "Hybrid"):
+            comm, rank = ht.mpi_nccl_init(init_nccl=args.gpu >= 0)
+            gpu = comm.local_rank() if args.gpu >= 0 else -1
+        device = "cpu" if gpu < 0 else torch.device("cuda", gpu)
+        if gpu >= 0 and rank == 0:
+            print(torch.cuda.get_device_name(gpu), flush=True)
+        ps_options = None
+        if args.comm in PS_MODES:
+            ps_options = dict(bsp=args.bsp, cstable_policy=args.cache,
+                              cache_bound=args.bound)
+        for res in run(device, args.model, args.batch_size, args.dim,
+                       args.nepoch, args.steps, args.val, args.profile,
+                       comm_mode=args.comm, ps_options=ps_options):
+            if rank == 0:
+                print(json.dumps(res), flush=True)
+    finally:
+        if args.comm in PS_MODES:
+            ht.worker_finish()
+        if comm is not None:
+            ht.mpi_nccl_finish(comm)
 
 
 if __name__ == "__main__":

@@ -81,13 +81,40 @@ Float32 convolutions and products run in full float32: the executor sets
 ``torch.backends.cudnn.allow_tf32`` to False. ``cudnn.benchmark`` is left
 off, so cuDNN picks its algorithms by heuristic, the same each run.
 
-Lint, plan, telemetry, watch, pilot, elastic and PS arrive with later
+The PS and Hybrid comm modes (``graph/ps_runtime.py``) keep every
+sparse embedding table on the parameter server, and under ``"PS"`` the
+dense parameters too:
+
+- **Tables.** A variable read through an embedding lookup is a sparse
+  table. Before each step the executor pulls the batch's rows of each
+  table (once for the union of the ids, where several lookups share a
+  table) and enters them as the lookup's output, a leaf that requires
+  grad: it takes the table's place among its gradient context's ``xs``,
+  so the push carries ``d loss / d rows``, ``(batch, slots, width)``, and
+  no table-sized gradient exists on the device. An explicit
+  ``embedding_lookup_gradient_op`` whose only consumer is a push flips to
+  rows mode and pushes ``fused_embed_grad``'s compact form.
+- **Dense parameters** under ``"PS"`` enter each step from their last
+  pulled values; under ``"Hybrid"`` they stay on the device and are
+  all-reduced over the dp group (deduced, as for ``"AllReduce"``, where
+  the process group holds more than one process). On dp ranks each rank
+  pulls the rows of its share of the batch and pushes its row gradients
+  divided by dp, so the server sums the global batch's gradient.
+- **Pushes.** After the step each push op's gradient (float32) goes to
+  the server: on the executor's thread with ``prefetch=False``, else on
+  the runtime's push stream, with the pull of the next batch's rows
+  queued behind it; ``bsp=True`` adds a worker barrier after a step's
+  pushes. ``close()`` drains the streams; ``save``/``load`` include the
+  server's parameters.
+
+Lint, plan, telemetry, watch, pilot and elastic arrive with later
 slices; so does capturing the step in a CUDA graph.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import time
 import warnings
 from typing import Any
 
@@ -100,11 +127,17 @@ from ..context import DeviceGroup
 from ..kernels import registry
 from ..ndarray import NDArray, ND_Sparse_Array
 from ..parallel import multihost
+from . import ps_runtime
 from .node import Op, find_topo_sort
 from .ops.comm import AllReduceCommunicateOp
-from .ops.embedding import IndexedRows
+from .ops.embedding import IndexedRows, embed_grad_push_routable
+from .ops.ps import ParameterServerCommunicateOp, ParameterServerSparsePullOp
 
 COMM_MODES = (None, "AllReduce", "PS", "Hybrid")
+
+# the value a PS-resident table takes in a step: only its lookups read it,
+# and their rows are staged
+_PS_RESIDENT = object()
 
 
 def _resolve_device(ctx, mesh, dp_rank: int, dp: int) -> torch.device:
@@ -163,7 +196,8 @@ class HetuConfig:
                  mesh=None, dp_axis="dp", gpipe=False, dtype=np.float32,
                  comm_quant=None, comm_quant_block=None,
                  comm_quant_min_size=None, comm_quant_error_feedback=None,
-                 comm_quant_force=(), kernels=None):
+                 comm_quant_force=(), kernels=None, bsp=False, prefetch=True,
+                 cstable_policy=None, cache_bound=100):
         self.eval_node_list = eval_node_list
         self.ctx = ctx
         self.seed = seed if seed is not None else np.random.randint(0, 2**31 - 1)
@@ -174,6 +208,15 @@ class HetuConfig:
             raise ValueError(f"comm_mode must be one of {COMM_MODES}, got "
                              f"{comm_mode!r}")
         self.comm_mode = comm_mode
+        # the PS modes (reference executor.py:96-118): BSP adds a worker
+        # barrier after each step's pushes; prefetch pushes on a stream of
+        # their own and pulls the next batch's rows behind them;
+        # cstable_policy puts a bounded-staleness cache of cache_bound in
+        # front of each table.
+        self.bsp = bool(bsp)
+        self.prefetch = bool(prefetch)
+        self.cstable_policy = cstable_policy
+        self.cache_bound = cache_bound
         if gpipe:
             raise NotImplementedError(
                 "gpipe=True: pipeline parallelism arrives with slice 8 (TP, "
@@ -190,7 +233,7 @@ class HetuConfig:
             raise ValueError(
                 f"mesh must be a torch.distributed DeviceMesh with a "
                 f"{dp_axis!r} dimension, got {mesh!r}")
-        if mesh is None and comm_mode == "AllReduce" \
+        if mesh is None and comm_mode in ("AllReduce", "Hybrid") \
                 and multihost.process_count() > 1:
             mesh = multihost.global_mesh()
         self.mesh = mesh
@@ -238,6 +281,8 @@ class TraceContext:
         self.qresid_in = qresid_in
         self.qresid_updates: dict[int, Any] = {}
         self.grad_cache: dict[int, dict[int, Any]] = {}
+        # the gradients of this step's PS pushes, by push op
+        self.ps_grad_outputs: dict[int, Any] = {}
         # one backward per GradientContext; the graph is kept for the next
         # context while any remains
         self._grads_left = n_grad_contexts
@@ -277,6 +322,26 @@ class TraceContext:
                 id(n): torch.zeros_like(v) if g is None else g
                 for n, v, g in zip(gctx.xs, xs, grads)}
         return self.grad_cache[key][id(x)]
+
+    def ps_push_pull(self, op, grad):
+        """A PS push inside the step: keep its gradient for the post-step
+        push, in float32 (the server keeps float32); a rows-mode pair keeps
+        its int32 ids. On dp ranks a gradient is divided by dp: the server
+        sums the ranks' pushes into the global batch's gradient."""
+        dp = self.config.dp_size
+
+        def f32(g):
+            g = _f32(g.detach())
+            return g / dp if dp > 1 else g
+
+        if isinstance(grad, IndexedRows):
+            out = IndexedRows(grad.rows, f32(grad.grads))
+        elif isinstance(grad, tuple):     # one table, several lookups
+            out = tuple(f32(g) for g in grad)
+        else:
+            out = f32(grad)
+        self.ps_grad_outputs[id(op)] = out
+        return None
 
     def allreduce_group(self, ops, xs, state):
         """The quantized all-reduce of the marked ``ops`` (inputs of one
@@ -356,17 +421,51 @@ class SubExecutor:
         # reference's re-trace treats it as an independent input)
         self.grad_x_ids = {id(x) for g in gctxs.values() for x in g.xs}
 
+        # -- PS bookkeeping (reference executor.py:575-600) -----------------
+        ps = executor.ps_runtime
+        self.ps_staged_ops = []    # lookups and sparse pulls of PS tables
+        self.ps_sparse_vars = []   # PS-resident tables in the topo
+        self.ps_dense_vars = []    # PS-hosted dense params, fed per step
+        self.ps_comm_ops = []      # the pushes, in topo order
+        if ps is not None:
+            for n in self.topo:
+                embed = getattr(n, "embed_node", None)
+                if embed is not None and id(embed) in ps.params \
+                        and ps.params[id(embed)].sparse:
+                    self.ps_staged_ops.append(n)
+                if isinstance(n, ParameterServerCommunicateOp) \
+                        and n.ps_param_node is not None:
+                    self.ps_comm_ops.append(n)
+                if n.is_placeholder and id(n) in ps.params:
+                    (self.ps_sparse_vars if ps.params[id(n)].sparse
+                     else self.ps_dense_vars).append(n)
+            for op in self.ps_staged_ops:
+                idx_node = op.inputs[1]
+                if not (idx_node in self.feed_nodes
+                        or idx_node in self.dataloader_nodes):
+                    raise ValueError(
+                        f"PS-hosted lookup {op.name!r}: the index input "
+                        f"{idx_node.name!r} must be a feed or dataloader "
+                        "node (its value is needed on the host to pull rows)")
+        # a table read by several lookups pulls the union of their ids once
+        self._staged_by_table: dict[int, list] = {}
+        for op in self.ps_staged_ops:
+            self._staged_by_table.setdefault(id(op.embed_node), []).append(op)
+
         # -- device-resident datasets (reference executor.py:609-630) -------
         # A small, sequential (no shuffle/func, drop_last) dataset uploads to
         # the device ONCE and the step slices its batch by a cursor: no
-        # host-to-device copy per step.
+        # host-to-device copy per step. A PS lookup's ids are needed on the
+        # host, so their loader stays there.
         self.resident_dl: dict[int, tuple] = {}
         self._dl_cursor: dict[int, int] = {}
         limit = float(os.environ.get("HETU_DEVICE_DATA_MB", "1024")) * 1e6
+        ps_idx = {id(op.inputs[1]) for op in self.ps_staged_ops}
         for n in self.dataloader_nodes:
             dl = n.dataloaders.get(self.name)
             if (dl is not None and dl.func is None and not dl.shuffle
-                    and dl.drop_last and dl._data.nbytes <= limit):
+                    and dl.drop_last and id(n) not in ps_idx
+                    and dl._data.nbytes <= limit):
                 self.resident_dl[id(n)] = (
                     executor._prepare_input(dl._data), dl.batch_size,
                     dl.batch_num)
@@ -487,9 +586,11 @@ class SubExecutor:
                 raise ValueError(f"Missing feed for placeholder {node.name!r}")
             env[id(node)] = self._enter(
                 node, ex._prepare_input(feed_dict[node]), cut, whole)
+        batch_host = {}
         for node in self.host_dl_nodes:
+            batch_host[id(node)] = node.get_batch(self.name)
             env[id(node)] = self._enter(
-                node, ex._prepare_input(node.get_batch(self.name)), cut, whole)
+                node, ex._prepare_input(batch_host[id(node)]), cut, whole)
         for node in self.res_dl_nodes:
             data, bs, bnum = self.resident_dl[id(node)]
             cur = self._dl_cursor.get(id(node), 0)
@@ -497,6 +598,11 @@ class SubExecutor:
             start = (cur % bnum) * bs
             env[id(node)] = self._enter(node, data[start:start + bs], cut,
                                         whole)
+        staged_idx = {}
+        if ex.ps_runtime is not None:
+            t0 = time.perf_counter()
+            staged_idx = self._ps_pre_step(env, feed_dict, batch_host)
+            ex.ps_runtime.perf["pre_step_s"] += time.perf_counter() - t0
 
         tc = TraceContext(self.config, self.training, env, params,
                           self.n_grad_contexts, ex.state["qresid"],
@@ -531,6 +637,10 @@ class SubExecutor:
                 else:
                     out = node.compute(vals, tc)
                 env[id(node)] = self._leaf(node, out)
+        if self.ps_comm_ops:
+            t0 = time.perf_counter()
+            self._ps_post_step(tc, staged_idx)
+            ex.ps_runtime.perf["post_step_s"] += time.perf_counter() - t0
 
         if self.training:
             for node in self.param_nodes:
@@ -550,7 +660,8 @@ class SubExecutor:
         wanted = eval_node_list if eval_node_list is not None else self.eval_nodes
         eval_ids = {id(n) for n in self.eval_nodes}
         for node in wanted:
-            if node.is_optimizer:
+            if node.is_optimizer or isinstance(node,
+                                               ParameterServerCommunicateOp):
                 results.append(None)
                 continue
             if id(node) not in eval_ids:
@@ -569,6 +680,113 @@ class SubExecutor:
                 results.append(_output(v, param_ptrs,
                                        convert_to_numpy_ret_vals))
         return results
+
+    # -- the PS traffic at the step's boundary (reference executor.py:
+    #    1364-1410, 1486-1530) ----------------------------------------------
+    def _ps_ids(self, node, feed_dict, batch_host) -> np.ndarray:
+        """The host value of a lookup's index input (a feed or a
+        dataloader batch); on dp ranks this rank's share of it."""
+        if node in feed_dict:
+            v = feed_dict[node]
+            if hasattr(v, "asnumpy"):
+                v = v.asnumpy()
+            elif isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            v = np.asarray(v)
+        else:
+            v = np.asarray(batch_host[id(node)])
+        return self._ps_share(v)
+
+    def _ps_share(self, v: np.ndarray) -> np.ndarray:
+        cfg = self.config
+        if cfg.dp_size > 1 and v.ndim and v.shape[0] % cfg.dp_size == 0:
+            k = v.shape[0] // cfg.dp_size
+            return v[cfg.dp_rank * k:(cfg.dp_rank + 1) * k]
+        return v
+
+    def _ps_pre_step(self, env, feed_dict, batch_host) -> dict:
+        """Pull this batch's rows of every PS table and enter them as the
+        lookups' outputs; enter each PS-hosted dense parameter's latest
+        value. Returns each lookup's host ids, by op id."""
+        ex = self.executor
+        ps = ex.ps_runtime
+        staged_idx: dict[int, np.ndarray] = {}
+        staged_rows: dict[int, np.ndarray] = {}
+        for tid, ops in self._staged_by_table.items():
+            p = ps.params[tid]
+            for op in ops:
+                staged_idx[id(op)] = self._ps_ids(op.inputs[1], feed_dict,
+                                                  batch_host)
+            if len(ops) == 1:
+                op = ops[0]
+                idx = staged_idx[id(op)]
+                rows = (ps.take_prefetched(id(op), idx)
+                        if ps.async_enabled else None)
+                if rows is None:
+                    rows = ps.stage_lookup(p, idx)
+                staged_rows[id(op)] = rows
+            else:
+                flat = [np.ascontiguousarray(staged_idx[id(op)],
+                                             np.int64).ravel() for op in ops]
+                union = np.unique(np.concatenate(flat))
+                urows = (ps.take_prefetched(tid, union)
+                         if ps.async_enabled else None)
+                if urows is None:
+                    urows = ps.stage_lookup(p, union)      # (U, *tail)
+                tail = tuple(p.shape[1:])
+                for op, f in zip(ops, flat):
+                    pos = np.searchsorted(union, f)
+                    staged_rows[id(op)] = urows[pos].reshape(
+                        tuple(np.shape(staged_idx[id(op)])) + tail)
+        for op in self.ps_staged_ops:
+            env[id(op)] = self._leaf(op, self._cast(
+                ex._prepare_input(staged_rows[id(op)])))
+        for node in self.ps_sparse_vars:
+            env[id(node)] = _PS_RESIDENT
+        for node in self.ps_dense_vars:
+            p = ps.params[id(node)]
+            ps.wait_dense(p)       # an async DDPushPull refreshes host_value
+            env[id(node)] = self._leaf(node, self._cast(
+                ex._prepare_input(p.host_value)))
+        return staged_idx
+
+    def _ps_post_step(self, tc: TraceContext, staged_idx: dict):
+        """Push each push op's gradient: its copy to the host is queued on
+        the step's stream here, and the push waits for it. With async I/O
+        the pushes go on the push stream, followed by the pulls of the next
+        batch's rows (lookups fed by a dataloader)."""
+        ps = self.executor.ps_runtime
+        step = tc.step
+        items = []
+        for op in self.ps_comm_ops:
+            grad = tc.ps_grad_outputs[id(op)]
+            p = ps.params[id(op.ps_param_node)]
+            if isinstance(grad, IndexedRows):
+                items.append((p, ps_runtime.HostGrad(grad), "rows", None))
+            elif p.sparse:
+                items.append((p, ps_runtime.HostGrad(
+                    grad if isinstance(grad, tuple) else (grad,)), "lookups",
+                    [staged_idx[id(lk)] for lk in op.staged_lookups]))
+            else:
+                items.append((p, ps_runtime.HostGrad((grad,)), "dense",
+                              None))
+        if not ps.async_enabled:
+            for item in items:
+                ps.push_grad(*item, step=step)
+            return
+        ps.push_grads_async(items, step)
+        for tid, ops in self._staged_by_table.items():
+            idx_nodes = [op.inputs[1] for op in ops]
+            if not all(n in self.dataloader_nodes for n in idx_nodes):
+                continue
+            nxt = [self._ps_share(np.asarray(n.peek_batch(self.name)))
+                   for n in idx_nodes]
+            if len(ops) == 1:
+                ps.prefetch_lookup(id(ops[0]), ps.params[tid], nxt[0])
+            else:
+                ps.prefetch_lookup(tid, ps.params[tid], np.unique(
+                    np.concatenate([np.ascontiguousarray(i, np.int64).ravel()
+                                    for i in nxt])))
 
     @staticmethod
     def _stateful(node: Op, vals, tc: TraceContext):
@@ -619,12 +837,41 @@ class Executor:
         torch.backends.cudnn.allow_tf32 = False
 
         full_topo = find_topo_sort(all_nodes)
+        # under PS/Hybrid a variable read through an embedding lookup is a
+        # sparse table (insert_comm_ops and PSRuntime classify alike)
+        if config.comm_mode in ("PS", "Hybrid"):
+            for node in full_topo:
+                embed = getattr(node, "embed_node", None)
+                if embed is not None and getattr(embed, "trainable", False):
+                    embed.is_embed = True
         for node in full_topo:
             if node.is_optimizer:
                 node.insert_comm_ops(config)
         full_topo = find_topo_sort(all_nodes)   # with the comm ops
+        # graph nodes are shared between executors: a gradient op that an
+        # earlier executor's PS wiring flipped to rows mode comes back
+        # dense (under the PS modes any rows-mode op does, as the
+        # reference resets them, and this executor's wiring flips the ones
+        # it routes; an op the caller flipped stays in rows mode
+        # otherwise), and a push forgets an earlier wiring
+        ps_modes = config.comm_mode in ("PS", "Hybrid")
+        for node in full_topo:
+            if getattr(node, "rows_mode", False) and (
+                    ps_modes or getattr(node, "rows_by_ps", False)):
+                node.to_dense()
+                node.rows_by_ps = False
+            if isinstance(node, ParameterServerCommunicateOp):
+                node.ps_param_node = None
+                node.staged_lookups = None
+        self.ps_runtime = None
+        if config.comm_mode in ("PS", "Hybrid"):
+            self.ps_runtime = ps_runtime.PSRuntime(config, full_topo)
+            self._rewire_ps_gradients(full_topo)
+        ps_resident = (set(self.ps_runtime.params)
+                       if self.ps_runtime is not None else set())
         self.param_nodes = [n for n in full_topo
-                            if n.is_placeholder and not getattr(n, "is_feed", True)]
+                            if n.is_placeholder and not getattr(n, "is_feed", True)
+                            and id(n) not in ps_resident]
 
         # -- parameter initialization: one CPU generator per parameter,
         # seeded from (executor seed, topo index), then moved to the device
@@ -694,7 +941,8 @@ class Executor:
         for node in full_topo:
             if node.is_optimizer:
                 slots[id(node)] = node.init_slots(
-                    {id(v): params[id(v)] for v in node.vars})
+                    {id(v): params[id(v)] for v in node.vars
+                     if id(v) in params})
             if node.stateful:
                 op_state[id(node)] = self._place_state(node.state_init())
         self.state = {"params": params, "slots": slots, "op_state": op_state,
@@ -704,6 +952,97 @@ class Executor:
                              for name, nodes in self.eval_node_dict.items()}
 
     # ------------------------------------------------------------------
+    def _rewire_ps_gradients(self, topo):
+        """Point each push's gradient at the lookup's output instead of the
+        table (reference executor.py:2016-2080): the staged rows take the
+        table's place among its gradient context's ``xs``, so autograd
+        gives ``d loss / d rows`` and never a table-sized gradient. An
+        explicit ``embedding_lookup_gradient_op`` whose only consumer is
+        the push flips to rows mode (``fused_embed_grad``'s compact form)."""
+        ps = self.ps_runtime
+        loss_topo_ids: dict[int, set] = {}
+        ps_by_name = {p.node.name: p for p in ps.params.values()}
+        consumers: dict[int, list] = {}
+        for n in topo:
+            for i in n.inputs:
+                consumers.setdefault(id(i), []).append(n)
+        eval_ids = {id(n) for ns in self.eval_node_dict.values() for n in ns}
+        for node in topo:
+            if not isinstance(node, ParameterServerCommunicateOp):
+                continue
+            grad_node = node.inputs[0]
+            if not getattr(grad_node, "is_gradient", False):
+                if embed_grad_push_routable(node, grad_node, consumers,
+                                            eval_ids) \
+                        and node.ps_id in ps_by_name:
+                    p = ps_by_name[node.ps_id]
+                    if p.sparse and tuple(grad_node.embed_shape) == p.shape:
+                        grad_node.to_rows()
+                        grad_node.rows_by_ps = True
+                        node.ps_param_node = p.node
+                continue
+            var = grad_node.x
+            p = ps.params.get(id(var))
+            if p is None:
+                continue
+            node.ps_param_node = var
+            if not p.sparse:
+                continue  # a dense PS param is fed whole: its own gradient
+            # the lookups on THIS gradient's loss graph: another target's
+            # lookup (a validate head) or an inference-only sparse pull
+            # yields no gradient
+            loss = grad_node.gctx.loss
+            loss_ids = loss_topo_ids.get(id(loss))
+            if loss_ids is None:
+                loss_ids = {id(n) for n in find_topo_sort([loss])}
+                loss_topo_ids[id(loss)] = loss_ids
+            lookups = [lk for lk in p.lookup_ops
+                       if id(lk) in loss_ids
+                       and not isinstance(lk, ParameterServerSparsePullOp)]
+            if not lookups:
+                raise ValueError(
+                    f"PS-hosted embedding {var.name!r} has a gradient but no "
+                    "lookup op reads it on the loss graph: a sparse PS table "
+                    "trains only through embedding_lookup_op")
+            node.staged_lookups = lookups
+            xs = grad_node.gctx.xs
+            grad_node.x = lookups[0]
+            for i, x in enumerate(xs):
+                if x is var:
+                    xs[i] = lookups[0]
+            if len(lookups) == 1:
+                grad_node.inputs = [grad_node.gctx.loss, lookups[0]]
+            else:
+                # one table, several lookups: the gradient of each; the push
+                # concatenates their rows and sums duplicates on the host
+                grad_node.multi_x = lookups
+                grad_node.inputs = [grad_node.gctx.loss] + lookups
+                for lk in lookups[1:]:
+                    if all(x is not lk for x in xs):
+                        xs.append(lk)
+
+    def close(self):
+        """Drain and stop the PS streams (reference executor.py:2374).
+        Safe to call more than once; later steps push on the caller's
+        thread."""
+        if self.ps_runtime is not None:
+            self.ps_runtime.drain()
+            self.ps_runtime.shutdown()
+
+    def fetch_dense_parameter_value(self, nodes):
+        """Current parameter values; a PS-hosted dense parameter is pulled
+        from its server."""
+        out = []
+        for n in nodes:
+            p = (self.ps_runtime.params.get(id(n))
+                 if self.ps_runtime is not None else None)
+            if p is not None:
+                out.append(NDArray(torch.from_numpy(
+                    self.ps_runtime.pull_dense_value(p))))
+            else:
+                out.append(NDArray(self.state["params"][id(n)]))
+        return out
+
     def _prepare_input(self, value) -> torch.Tensor:
         """Stage one host value onto the executor's device. A sparse array
         moves only from another device, once (``ND_Sparse_Array.to``)."""
@@ -801,6 +1140,9 @@ class Executor:
         rank 0 writes."""
         qresid = {str(i): self._full_qresid(n)
                   for i, n in enumerate(self._qresid_ordered())}
+        if self.ps_runtime is not None:
+            os.makedirs(file_path, exist_ok=True)
+            self.ps_runtime.save(file_path)
         if self.config.dp_rank == 0:
             os.makedirs(file_path, exist_ok=True)
             for node, fname in zip(self.param_nodes,
@@ -846,6 +1188,8 @@ class Executor:
     def load(self, file_path: str):
         """Read a directory written by ``save`` here or by ``hetu_tpu``'s
         ``Executor.save``."""
+        if self.ps_runtime is not None:
+            self.ps_runtime.load(file_path)
         for node, fname in zip(self.param_nodes, self._param_file_names()):
             path = os.path.join(file_path, fname + ".npy")
             if os.path.exists(path):

@@ -178,8 +178,11 @@ class PlaceholderOp(Op):
         super().__init__([], ctx, name)
         # is dim 0 a batch dimension, cut over data parallelism? Fed
         # placeholders: yes unless batch=False (a constant mask, say).
-        # ``kwargs`` are accepted for API parity.
+        # ``is_embed=True`` marks a sparse embedding table (the PS modes
+        # keep it on the parameter server); other ``kwargs`` are accepted
+        # for API parity.
         self.batch = True if batch is None else bool(batch)
+        self.is_embed = bool(kwargs.get("is_embed", False))
         self.initializer = initializer
         self.dtype = np.dtype(dtype)
         if value is not None and not isinstance(value, np.ndarray):

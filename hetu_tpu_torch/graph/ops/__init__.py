@@ -44,8 +44,14 @@ from .comm import (
     GroupAllReduceCommunicateOp, groupallreduceCommunicate_op,
     datah2d_op, datad2h_op, dispatch,
 )
+from .ps import (
+    parameterServerCommunicate_op, parameterServerSparsePull_op,
+    ParameterServerCommunicateOp, ParameterServerSparsePullOp,
+)
 from ..node import Variable, placeholder_op, Op, PlaceholderOp, find_topo_sort
 
+# star-export only the op API, not the submodules (the ``ps`` submodule
+# would shadow the top-level hetu_tpu_torch.ps package)
 import types as _types
 
 __all__ = [_k for _k, _v in list(globals().items())

@@ -11,8 +11,10 @@ fixed order, where ``index_add_`` adds with atomics.
 ``embedding_lookup_gradient_op`` is the explicit form. In dense mode it is
 the ``(vocab, dim)`` table gradient (``embed_grad_dense``); in rows mode
 (:meth:`to_rows`) it is the compact :class:`IndexedRows` pair, which an
-eval target returns as such. The executor's rewire of a PS push into rows
-mode, and the PS lookups, belong to the PS slice.
+eval target returns as such. Under the PS modes the executor flips an op
+whose only consumer is a PS push to rows mode
+(:func:`embed_grad_push_routable`): the rows leave the device anyway, so
+the ``(vocab, dim)`` table is never made.
 
 Ids arrive as float32 when the data is float32 (the CTR loaders); they are
 truncated to int32, as ``astype(jnp.int32)`` truncates them.
@@ -34,6 +36,22 @@ class IndexedRows(NamedTuple):
 
     rows: Any
     grads: Any
+
+
+def embed_grad_push_routable(push, grad_op, consumers, eval_ids) -> bool:
+    """The structural half of the rows route's conditions: ``grad_op`` is
+    an explicit gradient op in dense mode, this push (which names its
+    table) is its only consumer, and it is no eval target. The executor
+    checks the rest: the push's table is PS-hosted, sparse, and of the
+    op's shape. ``consumers``: ``{id(node): [consumer, ...]}`` over the
+    topo; ``eval_ids``: the ids of the eval targets."""
+    if getattr(grad_op, "rows_mode", None) is not False:
+        return False
+    if getattr(push, "ps_id", None) is None:
+        return False
+    if any(c is not push for c in consumers.get(id(grad_op), ())):
+        return False
+    return id(grad_op) not in eval_ids
 
 
 def embedding_lookup_op(embedding, index, ctx=None):

@@ -17,10 +17,24 @@ the runner removes when the job ends, so no port is taken.
 worker on a card joins over NCCL, which needs a card per worker; on the
 CPU the workers join over gloo.
 
+A cluster yaml whose nodes list ``servers: N`` also starts a
+parameter-server scheduler and N servers on this machine, as light
+processes (``ps/_light_role.py``), and gives every worker the
+reference's ``DMLC_PS_ROOT_URI``/``DMLC_PS_ROOT_PORT``,
+``DMLC_NUM_WORKER``/``DMLC_NUM_SERVER`` and ``DMLC_ROLE=worker``; a
+worker starts its agent with ``ht.worker_init()`` (or its first PS
+executor) and closes it with ``ht.worker_finish()``:
+
+    # cluster.yml: nodes: [{host: localhost, servers: 1, workers: 1,
+    #                       chief: true}]
+    python -m hetu_tpu_torch.runner -c cluster.yml python -m \
+        hetu_tpu_torch.examples.ctr_main --comm Hybrid
+
 The runner exits with the first non-zero exit code of a worker, after
 stopping the others (a peer left waiting in a collective would never
-return), and with 0 when every worker does. Parameter-server roles,
-remote hosts over ssh, ``--elastic``, ``--pilot`` and
+return), or of a scheduler or server that exits before the workers are
+done, and with 0 when every worker does; then it stops the servers and
+reaps the roles. Remote hosts over ssh, ``--elastic``, ``--pilot`` and
 ``--telemetry-dir`` raise, naming the slice that brings them.
 """
 from __future__ import annotations
@@ -37,24 +51,22 @@ import time
 _LOCAL_HOSTS = ("localhost", "127.0.0.1")
 
 
-def parse_cluster(path: str) -> int:
-    """The number of workers a cluster yaml asks for on this machine."""
+def parse_cluster(path: str) -> tuple[int, int]:
+    """The numbers of workers and of PS servers a cluster yaml asks for on
+    this machine."""
     import yaml     # only for -c: -w runs where PyYAML is not installed
     with open(path) as f:
         nodes = yaml.safe_load(f)["nodes"]
-    workers = 0
+    workers = servers = 0
     for node in nodes:
-        if node.get("servers", 0):
-            raise NotImplementedError(
-                f"{path}: parameter-server roles (servers:) arrive with "
-                "slice 4b")
         if node.get("host", "localhost") not in _LOCAL_HOSTS:
             raise NotImplementedError(
                 f"{path}: host {node['host']!r}: workers on other machines "
                 "(over ssh) arrive with slice 3b; this runner starts local "
                 "workers")
         workers += int(node.get("workers", 0))
-    return workers
+        servers += int(node.get("servers", 0))
+    return workers, servers
 
 
 def _stop(procs, grace_s: float = 10.0) -> None:
@@ -70,14 +82,30 @@ def _stop(procs, grace_s: float = 10.0) -> None:
             p.wait()
 
 
-def run(command, n_workers: int) -> int:
-    """Run ``n_workers`` copies of ``command``; the job's exit code."""
+def _code(c: int) -> int:
+    """An exit code; a process killed by signal s exits 128 + s."""
+    return c if c > 0 else 128 - c
+
+
+def run(command, n_workers: int, n_servers: int = 0) -> int:
+    """Run ``n_workers`` copies of ``command``, beside a PS scheduler and
+    ``n_servers`` servers when ``n_servers > 0``; the job's exit code."""
     store_dir = tempfile.mkdtemp(prefix="hetu_run_")
     env = dict(os.environ, WORLD_SIZE=str(n_workers),
                HETU_NUM_WORKER=str(n_workers),
                HETU_INIT_METHOD="file://" + os.path.join(store_dir, "store"))
-    procs = []
+    procs, roles = [], []
+    stopfile = os.path.join(store_dir, "ps_stop")
     try:
+        if n_servers:
+            from .ps import local_cluster as lc
+            base = lc.ps_env(lc.free_port(), n_workers, n_servers)
+            roles.append(("scheduler", lc.spawn_light_role("scheduler",
+                                                           base)))
+            for i in range(n_servers):
+                roles.append((f"server {i}",
+                              lc.spawn_light_server(i, base, stopfile)))
+            env.update(base, DMLC_ROLE="worker")
         for rank in range(n_workers):
             procs.append(subprocess.Popen(command, env=dict(
                 env, RANK=str(rank), LOCAL_RANK=str(rank),
@@ -85,13 +113,24 @@ def run(command, n_workers: int) -> int:
         while True:
             codes = [p.poll() for p in procs]
             failed = [c for c in codes if c not in (None, 0)]
-            if failed:   # a worker killed by signal s exits 128 + s
-                return failed[0] if failed[0] > 0 else 128 - failed[0]
+            if failed:
+                return _code(failed[0])
             if all(c == 0 for c in codes):
                 return 0
+            for name, p in roles:
+                if p.poll() is not None:
+                    print(f"hetu_tpu_torch.runner: the PS {name} exited "
+                          f"with code {p.returncode} before the workers "
+                          "were done", file=sys.stderr)
+                    return _code(p.returncode) or 1
             time.sleep(0.05)
     finally:
         _stop(procs)
+        if roles:
+            from .ps import local_cluster as lc
+            with open(stopfile, "w") as f:
+                f.write("stop")
+            lc.reap_light_procs([p for _, p in roles])
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
@@ -105,7 +144,7 @@ def main(argv=None) -> int:
     group.add_argument("-w", "--workers", type=int,
                        help="number of local worker processes")
     group.add_argument("-c", "--config",
-                       help="cluster yaml (nodes: host/workers)")
+                       help="cluster yaml (nodes: host/servers/workers)")
     parser.add_argument("--elastic", action="store_true",
                         help="not ported: slice 9")
     parser.add_argument("--pilot", action="store_true",
@@ -123,11 +162,12 @@ def main(argv=None) -> int:
                                   "(telemetry)")
     if not args.command:
         parser.error("no worker command given")
-    n = args.workers if args.config is None else parse_cluster(args.config)
+    n, servers = ((args.workers, 0) if args.config is None
+                  else parse_cluster(args.config))
     if n < 1:
         parser.error(f"need at least one worker, got {n}")
     signal.signal(signal.SIGTERM, _terminated)
-    return run(args.command, n)
+    return run(args.command, n, servers)
 
 
 if __name__ == "__main__":

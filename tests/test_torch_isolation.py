@@ -186,6 +186,87 @@ def test_a_cpu_dp_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
     assert "LOADED []" in p.stdout, p.stdout
 
 
+def test_a_cpu_hybrid_step_loads_neither_jax_nor_hetu_tpu():
+    """Two Hybrid steps of a small WDL-Criteo against a local PS cluster
+    (the port's own library, its light roles) on the CPU."""
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import hetu_tpu_torch as ht
+        from hetu_tpu_torch.examples import ctr_models
+        from hetu_tpu_torch.ps.local_cluster import local_cluster
+        data = ctr_models.load_criteo_data(feature_dimension=100,
+                                           n_train=32, n_test=16)[0]
+        with local_cluster(n_servers=1):
+            loaders = [ht.dataloader_op([ht.Dataloader(x, 16, "train")])
+                       for x in data]
+            loss, _, _, op = ctr_models.wdl_criteo(
+                *loaders, feature_dimension=100, embedding_size=4)
+            ex = ht.Executor({"train": [loss, op]}, ctx=ht.cpu(0),
+                             comm_mode="Hybrid", cstable_policy="LFUOpt")
+            losses = [ex.run("train")[0].asnumpy() for _ in range(2)]
+            assert np.isfinite(losses).all()
+            ex.close()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=180, env=env, cwd=REPO)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
+def test_the_light_launcher_imports_no_package():
+    """``ps/_light_role.py`` runs a scheduler or a server with ctypes alone:
+    its imports are the standard library's, and importing it loads
+    neither torch nor jax."""
+    path = os.path.join(PKG, "ps", "_light_role.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert names == {"ctypes", "os", "sys", "time"}
+    probe = (f"import runpy, sys; runpy.run_path({path!r}, run_name='probe')"
+             "; print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'numpy', 'hetu_tpu', 'hetu_tpu_torch')))")
+    p = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=60,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "[]", p.stdout
+
+
+def test_ps_build_without_gxx_raises(monkeypatch, tmp_path):
+    from hetu_tpu_torch.ps import _build as ps_build
+    monkeypatch.setattr(ps_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(ps_build.PSBuildError, match="g\\+\\+ not found"):
+        ps_build.build()
+
+
+def test_ps_build_reports_the_compilers_stderr(monkeypatch, tmp_path):
+    """A failing g++ raises with its stderr; no library and no temporary
+    file is left, only the lock."""
+    from hetu_tpu_torch.ps import _build as ps_build
+    fake = tmp_path / "g++"
+    fake.write_text("#!/bin/sh\necho 'error: no capi.cc here' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(ps_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(ps_build.PSBuildError, match="no capi.cc here"):
+        ps_build.build()
+    assert os.listdir(tmp_path / "build") == ["libhetu_ps.lock"]
+    path = ps_build.library_path()
+    assert path.startswith(str(tmp_path / "build")) and path.endswith(".so")
+    assert path == ps_build.library_path()      # keyed by content, stable
+
+
 def test_nccl_without_cuda_raises_instead_of_using_gloo(monkeypatch,
                                                          tmp_path):
     from hetu_tpu_torch.parallel import multihost
