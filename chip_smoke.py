@@ -37,8 +37,15 @@ script is worker 0; the table on four host servers, 16 M of the
 vocabulary's rows, the dense MLP on the card) for 30 steps with BSP + prefetch
 and 30 with prefetch off, after holding its first steps against local
 mode and its first step against ``kernels="off"``, and pushes an explicit
-``embedding_lookup_gradient_op`` through the rows route. Each path is
-checked to have gone through its kernels.
+``embedding_lookup_gradient_op`` through the rows route; trains DistGCN's
+1.5D GCN (``parallel/distgcn.py`` through ``examples/gnn_dist.py``) on a
+1 x 1 grid over NCCL at the arxiv-sized graph for 30 epochs, its first
+epoch against ``kernels="off"``; runs the sampled-subgraph GCN
+(``examples/gnn_sampled.py``) at its defaults against a local cluster of
+one server, its first step against ``kernels="off"``; and trains NCF
+(``examples/ncf.py``) at ml-1m's user and item counts for an epoch in
+local mode, its first step against ``kernels="off"``, and 100 steps under
+Hybrid. Each path is checked to have gone through its kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -48,6 +55,7 @@ checked to have gone through its kernels.
     python3 chip_smoke.py --embed-kernels  # build, the embedding gradient only
     python3 chip_smoke.py --zoo            # build, ResNet-18 and the LM only
     python3 chip_smoke.py --ps             # build, the Hybrid phase only
+    python3 chip_smoke.py --gnn            # build, DistGCN, sampled GCN, NCF
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -62,7 +70,8 @@ does the same for ``csr_spmm`` and ``csr_spmv`` on the GCN's adjacency,
 for ``quant_blocks`` and ``dequant_blocks``, ``--embed-kernels`` for
 ``fused_embed_grad`` (at the CTR and the BERT path's shapes); ``--zoo``
 builds and runs the ResNet-18 and LM phases (sections 10-11) alone;
-``--ps`` the Hybrid phase (section 12) alone.
+``--ps`` the Hybrid phase (section 12) alone; ``--gnn`` the DistGCN,
+sampled-GCN and NCF phases (sections 13-15) alone.
 """
 import argparse
 import concurrent.futures
@@ -326,6 +335,42 @@ LM_VOCAB, LM_BATCH, LM_SEQ, LM_STEPS, LM_LR, LM_REL = (1000, 8, 32, 30, 1e-3,
                                                       1e-5)
 LM_WIDTHS = dict(d_model=64, n_heads=4, n_layers=2, d_ff=256)
 LM_DROPOUT = 0.1
+# DistGCN (parallel/distgcn.py through examples/gnn_dist.py; section 13) on
+# a 1 x 1 grid over NCCL (the card's host has one card, and NCCL refuses
+# two ranks on one device): the arxiv-sized graph at the GCN's widths (128
+# -> 256 -> 40), run_dist.py's weights (normal x 0.2 from RandomState(0))
+# and its plain SGD step at lr 0.5, DGCN_EPOCHS epochs. Per epoch 3
+# csr_spmm launches: two forward, one backward (the features need no
+# gradient). The first epoch's loss, logits and both weights' gradients
+# against kernels="off" within rel L2 GCN_REL; the loss at least halves.
+DGCN_EPOCHS, DGCN_HIDDEN, DGCN_LR = 30, 256, 0.5
+DGCN_LAUNCHES = {"csr_spmm": 3}
+# The sampled-subgraph GCN (examples/gnn_sampled.py; section 14):
+# gnn_sampled.main at the script's own defaults (512 nodes, 32 seeds and
+# at most 128 nodes a subgraph, hidden 32, Adam 0.05, 10 epochs of 16
+# steps), one server and one worker of a local cluster, the node
+# embeddings in the cache's table on the server. Per step 1 fused_adam
+# (w1 and w2 as one group). The first step from one executor's weights
+# on one sampled batch against kernels="off": the loss, the rows'
+# gradient and the prediction bit-equal, the updated weights within
+# TOL["fused_adam"]. The epoch loss must fall.
+SAMPLED_LAUNCHES = {"fused_adam": 1}
+# NCF (examples/ncf.py; section 15) at ml-1m's 6,040 users and 3,706 items
+# through getdata's own arguments, NCF_POS positives (4 negatives each;
+# ml-1m has 1,000,209 ratings: cut to keep the phase near 30 s), batch
+# 1,024 (run_hetu.py's), one epoch; lr 0.3 and embedding stddev 0.3
+# (tests/test_ctr_models.py's test_ncf_trains: at neural_mf's 0.01 the
+# logits stay near 0 for thousands of steps). Local mode: per step 1
+# fused_sgd (all parameters) and 2 fused_embed_grad (the two tables); the
+# first step against kernels="off" within rel (L2) NCF_REL; the loss falls
+# (the mean of the last NCF_WINDOW steps below the first's). Then
+# NCF_HYB_STEPS steps under Hybrid on a local cluster of one server (the
+# tables on it, the MLP on the card): 1 fused_sgd a step, the loss falls.
+NCF_POS, NCF_BATCH, NCF_REL, NCF_WINDOW, NCF_HYB_STEPS = (100_000, 1024,
+                                                          1e-6, 20, 100)
+NCF_MODEL = dict(learning_rate=0.3, embed_stddev=0.3)
+NCF_LAUNCHES = {"fused_sgd": 1, "fused_embed_grad": 2}
+NCF_HYB_LAUNCHES = {"fused_sgd": 1}
 
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
@@ -2398,6 +2443,258 @@ def lm_phase(ht, hetu_transformer, fused_opt, counted):
     return {k: LM_STEPS * v for k, v in want.items()}
 
 
+def distgcn_phase(multihost, gnn_dist, gnn_main, counted, dev):
+    """DistGCN on a 1 x 1 grid over NCCL (DGCN_* above): the first epoch
+    against kernels="off", then DGCN_EPOCHS epochs through gnn_dist.run,
+    each with the launch counts zeroed just before it and read just
+    after; returns the launches of those epochs."""
+    import shutil
+    import tempfile
+    from hetu_tpu_torch.examples import bert_forward
+    store = tempfile.mkdtemp(prefix="chip_smoke_dgcn_")
+    try:
+        multihost.initialize("file://" + os.path.join(store, "rendezvous"),
+                             world_size=1, rank=0, device=dev)
+        grid = multihost.process_grid(1, 1)
+        data = gnn_main.load_graph("arxiv")
+        tr = gnn_dist.Trainer(grid, data, DGCN_HIDDEN, DGCN_LR)
+        off = gnn_dist.Trainer(grid, data, DGCN_HIDDEN, DGCN_LR,
+                               kernels="off")
+        (loss_k, logits_k, g_k), counts = counted(tr.gradients)
+        (loss_o, logits_o, g_o), off_counts = counted(off.gradients)
+        check(counts == DGCN_LAUNCHES and off_counts == {},
+              f"DistGCN's first epoch launched {counts}, under "
+              f"kernels='off' {off_counts}; expected {DGCN_LAUNCHES}")
+        loss_rel = abs(float(loss_k) - float(loss_o)) / abs(float(loss_o))
+        check(loss_rel <= GCN_REL, f"DistGCN first loss {float(loss_k)} vs "
+              f"kernels='off' {float(loss_o)}")
+        rel = rel_errs(("logits", "w1", "w2"), [logits_k, *g_k],
+                       [logits_o, *g_o], GCN_REL, "DistGCN first epoch")
+        emit("distgcn_grad_check", grid=[1, 1], loss=float(loss_k),
+             off_loss=float(loss_o), loss_rel=loss_rel, rel_l2=rel,
+             bit_equal={k: bool(torch.equal(a, b)) for k, a, b in zip(
+                 ("logits", "w1", "w2"), [logits_k, *g_k],
+                 [logits_o, *g_o])},
+             tolerance=GCN_REL, launches=counts)
+        del off, g_k, g_o, logits_k, logits_o
+
+        rows = list(gnn_dist.run(grid, data, DGCN_EPOCHS, trainer=tr))
+        epochs, summary = rows[:-1], rows[-1]
+        losses = [r["loss"] for r in epochs]
+        for r in epochs:
+            check(r["launches"] == DGCN_LAUNCHES, f"DistGCN epoch "
+                  f"{r['epoch']} launched {r['launches']}, expected "
+                  f"{DGCN_LAUNCHES}")
+        check(np.isfinite(losses).all(), f"DistGCN losses {losses}")
+        check(abs(losses[0] - float(loss_k)) / losses[0] < 1e-6,
+              "DistGCN's first epoch loss differs from the gradient check's")
+        check(losses[-1] < 0.5 * losses[0], f"DistGCN loss {losses[0]} -> "
+              f"{losses[-1]} did not halve in {DGCN_EPOCHS} epochs")
+        with tempfile.TemporaryDirectory() as d:
+            prof = bert_forward.profile(tr.step, summary["epoch_ms"], 3,
+                                        os.path.join(d, "distgcn.txt"))
+        emit("distgcn_train", lr=DGCN_LR, epochs=DGCN_EPOCHS,
+             **{k: summary[k] for k in (
+                 "grid", "nodes", "entries", "block_entries", "features",
+                 "hidden", "classes", "csr_build_ms", "epoch_ms",
+                 "launches_per_epoch")},
+             device_ms=prof["device_ms"],
+             device_busy_share=prof["device_busy_share"],
+             groups_us=prof["groups_us"], losses=losses,
+             test_acc=[r["test_acc"] for r in epochs],
+             epoch_ms_each=[r["ms"] for r in epochs])
+        return {k: sum(r["launches"].get(k, 0) for r in epochs)
+                for k in DGCN_LAUNCHES}
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def sampled_phase(ht, gnn_sampled, counted, dev):
+    """The sampled-subgraph GCN (SAMPLED_* above): the first step against
+    kernels="off" on one batch, then gnn_sampled.main at its defaults,
+    each step's launch counts zeroed just before it and read just after;
+    returns the launches of the main run."""
+    import tempfile
+    from hetu_tpu_torch.dataloader import GNNDataLoaderOp
+    from hetu_tpu_torch.examples import bert_forward
+    args = gnn_sampled.parse_args([])
+    adj, labels = gnn_sampled.make_graph(args.nodes, args.classes,
+                                         args.degree)
+    batch = gnn_sampled.SubgraphSampler(adj, labels, args.nseed, args.nmax,
+                                        args.fanout, seed=100).next()
+    rows = np.random.RandomState(0).normal(
+        0.0, 0.1, (args.nmax, args.hidden)).astype(np.float32)
+    first, keep = {}, None
+    for kernels in (None, "off"):
+        loader = GNNDataLoaderOp(lambda _graph: batch["adj"])
+        try:
+            ex, (x, y_), _ = gnn_sampled.build(
+                args, loader, gnn_sampled.device_ctx(dev.type == "cpu"), 0,
+                kernels)
+            GNNDataLoaderOp.step(None)
+            GNNDataLoaderOp.step(None)
+            feed = {x: rows, y_: batch["y"]}
+            before = [ex.state["params"][id(n)].clone()
+                      for n in ex.param_nodes]
+            out, counts = counted(lambda: [r.handle.clone() for r in ex.run(
+                "train", feed_dict=feed)[:3]])
+            after = [ex.state["params"][id(n)].clone()
+                     for n in ex.param_nodes]
+            first[kernels] = (before, out, counts, after)
+            if kernels is None:
+                # the device time of a step, on the card alone (no PS)
+                _, _, host_ms, event_ms = _steps(ex, "train", counted, 20,
+                                                 feed)
+                with tempfile.TemporaryDirectory() as d:
+                    prof = bert_forward.profile(
+                        lambda: ex.run("train", feed_dict=feed), host_ms, 5,
+                        os.path.join(d, "sampled.txt"))
+                keep = dict(step_ms=host_ms, step_event_ms=event_ms,
+                            device_ms=prof["device_ms"],
+                            device_busy_share=prof["device_busy_share"],
+                            groups_us=prof["groups_us"])
+            ex.close()
+        finally:
+            loader.close()
+    (b_k, out_k, c_k, a_k), (b_o, out_o, c_o, a_o) = first[None], first["off"]
+    check(c_k == SAMPLED_LAUNCHES and c_o == {},
+          f"the sampled GCN's first step launched {c_k}, under "
+          f"kernels='off' {c_o}; expected {SAMPLED_LAUNCHES}")
+    check(all(torch.equal(p, q) for p, q in zip(b_k, b_o)),
+          "the two executors start from different weights")
+    check(all(torch.equal(p, q) for p, q in zip(out_k, out_o)),
+          "the sampled GCN's first step (loss, the rows' gradient, the "
+          "prediction) differs from kernels='off'")
+    for p, q in zip(a_k, a_o):
+        torch.testing.assert_close(p, q, **TOL["fused_adam"])
+    weights_bit_equal = all(torch.equal(p, q) for p, q in zip(a_k, a_o))
+
+    stats = {}
+    t0 = time.perf_counter()
+    history = gnn_sampled.main([], stats=stats)
+    run_s = time.perf_counter() - t0
+    losses = [h[0] for h in history]
+    check(all(c == SAMPLED_LAUNCHES for c in stats["launches"]),
+          f"sampled GCN steps launched {stats['launches']}, expected "
+          f"{SAMPLED_LAUNCHES} each")
+    check(np.isfinite(stats["losses"]).all() and losses[-1] < losses[0],
+          f"the sampled GCN's epoch loss {losses[0]} -> {losses[-1]} did "
+          "not fall")
+    n = len(stats["ms"])
+    emit("gcn_sampled", nodes=args.nodes, nseed=args.nseed, nmax=args.nmax,
+         hidden=args.hidden, epochs=args.num_epoch, steps=n,
+         cache=args.cache_policy, bound=args.bound, run_s=run_s,
+         first_step_vs_off={"outputs": "bit-equal",
+                            "weights_bit_equal": weights_bit_equal,
+                            "tolerance": TOL["fused_adam"]},
+         step_ms_main_run=float(np.mean(stats["ms"][3:])),
+         step_ms_main_run_median=float(np.median(stats["ms"])),
+         card_alone=keep, epoch_losses=losses,
+         epoch_acc=[h[1] for h in history],
+         launches_per_step=SAMPLED_LAUNCHES)
+    return {"fused_adam": sum(c.get("fused_adam", 0)
+                              for c in stats["launches"])}
+
+
+def ncf_phase(ncf, counted, dev):
+    """NCF (NCF_* above): the first step against kernels="off", one epoch
+    in local mode and NCF_HYB_STEPS steps under Hybrid through ncf.run,
+    each step's launch counts zeroed just before it and read just after;
+    returns the launches of both runs, by path."""
+    import tempfile
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.ps import local_cluster as lc
+    t0 = time.perf_counter()
+    data = ncf.getdata(**ncf.ML1M, n_pos=NCF_POS)
+    data_s = time.perf_counter() - t0
+    k = ncf.Trainer(dev, data, NCF_BATCH, **NCF_MODEL)
+    o = ncf.Trainer(dev, data, NCF_BATCH, kernels="off", **NCF_MODEL)
+    for n_k, n_o in zip(k.ex.param_nodes, o.ex.param_nodes):
+        check(torch.equal(k.param(n_k), o.param(n_o)),
+              f"initial {n_k.name} differs between the two executors")
+    out_k, c_k = counted(k.step)
+    out_o, c_o = counted(o.step)
+    check(c_k == NCF_LAUNCHES and c_o == {}, f"NCF's first step launched "
+          f"{c_k}, under kernels='off' {c_o}; expected {NCF_LAUNCHES}")
+    loss_rel = rel_l2(out_k[0], out_o[0])
+    state_rel, worst = _param_rel(k.ex, o.ex)
+    check(loss_rel <= NCF_REL and state_rel <= NCF_REL,
+          f"NCF's first step against kernels='off': loss rel {loss_rel}, "
+          f"{worst} rel L2 {state_rel}")
+    emit("ncf_first_step", loss_rel=loss_rel, state_rel_l2=state_rel,
+         worst=worst, bit_equal=bool(torch.equal(out_k[0], out_o[0])) and
+         state_rel == 0.0, tolerance=NCF_REL, launches=c_k)
+    del k, o
+
+    tr = ncf.Trainer(dev, data, NCF_BATCH, **NCF_MODEL)
+    local = next(ncf.run(dev, trainer=tr))
+    losses = np.array(local["losses"])
+    check(local["launches_same_every_step"]
+          and local["launches_per_step"] == NCF_LAUNCHES,
+          f"NCF local steps launched {local['launches_per_step']}, "
+          f"expected {NCF_LAUNCHES} each")
+    check(np.isfinite(losses).all() and losses[-NCF_WINDOW:].mean()
+          < losses[:NCF_WINDOW].mean(), "NCF's local loss did not fall: "
+          f"{losses[:NCF_WINDOW].mean()} -> {losses[-NCF_WINDOW:].mean()}")
+    with tempfile.TemporaryDirectory() as d:
+        prof = bert_forward.profile(tr.step, local["ms_per_step"], 5,
+                                    os.path.join(d, "ncf.txt"))
+    emit("ncf_local", **tr.shape, n_pos=NCF_POS, getdata_s=data_s,
+         steps=local["steps"], **NCF_MODEL, step_ms=local["ms_per_step"],
+         device_ms=prof["device_ms"],
+         device_busy_share=prof["device_busy_share"],
+         groups_us=prof["groups_us"], first_loss=float(losses[0]),
+         last_loss=float(losses[-1]),
+         mean_first=float(losses[:NCF_WINDOW].mean()),
+         mean_last=float(losses[-NCF_WINDOW:].mean()), acc=local["acc"],
+         launches_per_step=local["launches_per_step"])
+    del tr
+
+    with lc.local_cluster(n_servers=1):
+        t0 = time.perf_counter()
+        hyb = ncf.Trainer(dev, data, NCF_BATCH, comm_mode="Hybrid",
+                          **NCF_MODEL)
+        init_s = time.perf_counter() - t0
+        on_card = sorted(n.name for n in hyb.ex.param_nodes)
+        check(on_card == ["W1", "W2", "W3", "W_out"],
+              f"under Hybrid the card holds {on_card}")
+        res = next(ncf.run(dev, steps=NCF_HYB_STEPS, trainer=hyb))
+        hyb.ex.close()
+    h_losses = np.array(res["losses"])
+    check(res["launches_same_every_step"]
+          and res["launches_per_step"] == NCF_HYB_LAUNCHES,
+          f"NCF Hybrid steps launched {res['launches_per_step']}, expected "
+          f"{NCF_HYB_LAUNCHES} each")
+    check(np.isfinite(h_losses).all() and h_losses[-NCF_WINDOW:].mean()
+          < h_losses[:NCF_WINDOW].mean(), "NCF's Hybrid loss did not fall")
+    emit("ncf_hybrid", servers=1, steps=NCF_HYB_STEPS, init_s=init_s,
+         step_ms=res["ms_per_step"], first_loss=float(h_losses[0]),
+         last_loss=float(h_losses[-1]),
+         mean_first=float(h_losses[:NCF_WINDOW].mean()),
+         mean_last=float(h_losses[-NCF_WINDOW:].mean()),
+         ps={k: res["ps"][k] for k in ("pre_step_s", "post_step_s",
+                                       "sync_pulls", "async_pushes")},
+         launches_per_step=res["launches_per_step"])
+    return {"ncf_local": {k: v * local["steps"]
+                          for k, v in NCF_LAUNCHES.items()},
+            "ncf_hybrid": {k: v * NCF_HYB_STEPS
+                           for k, v in NCF_HYB_LAUNCHES.items()}}
+
+
+def gnn_phases(ht, multihost, counted, dev):
+    """Sections 13-15: DistGCN, the sampled GCN and NCF; their launches by
+    path."""
+    from hetu_tpu_torch.examples import gnn_dist, gnn_main, gnn_sampled, ncf
+    torch.cuda.empty_cache()
+    out = {"distgcn": distgcn_phase(multihost, gnn_dist, gnn_main, counted,
+                                    dev)}
+    torch.cuda.empty_cache()
+    out["gcn_sampled"] = sampled_phase(ht, gnn_sampled, counted, dev)
+    out.update(ncf_phase(ncf, counted, dev))
+    return out
+
+
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                  quant, launches, by_path):
     """The ``kernels`` JSON object: one entry per ported kernel; its
@@ -2497,6 +2794,9 @@ def main(argv=None):
     ap.add_argument("--ps", action="store_true",
                     help="build, train WDL-Criteo under Hybrid against a "
                          "local PS cluster (section 12), and stop")
+    ap.add_argument("--gnn", action="store_true",
+                    help="build, train DistGCN, the sampled GCN and NCF "
+                         "(sections 13-15), and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
@@ -2550,6 +2850,9 @@ def main(argv=None):
     if args.ps:
         hybrid_phase(ht, ctr_main, embed_grad, registry,
                      bert_forward.counted, dev)
+        return 0
+    if args.gnn:
+        gnn_phases(ht, multihost, bert_forward.counted, dev)
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -2674,6 +2977,13 @@ def main(argv=None):
     hybrid, rows_route = hybrid_phase(ht, ctr_main, embed_grad, registry,
                                       bert_forward.counted, dev)
     for path, got in (("ctr_hybrid", hybrid), ("ps_rows_route", rows_route)):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+            by_path.setdefault(k, {})[path] = v
+
+    # -- 13. DistGCN on a 1 x 1 grid; 14. the sampled GCN; 15. NCF --------
+    for path, got in gnn_phases(ht, multihost, bert_forward.counted,
+                                dev).items():
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
             by_path.setdefault(k, {})[path] = v

@@ -25,7 +25,9 @@ from .ps import (
 )
 from .cstable import CacheSparseTable
 from .context import context, get_current_context, DeviceGroup
-from .dataloader import dataloader_op, Dataloader, DataloaderOp
+from .dataloader import (
+    dataloader_op, Dataloader, DataloaderOp, GNNDataLoaderOp,
+)
 from .ndarray import (
     cpu, gpu, tpu, array, empty, sparse_array, is_gpu_ctx, is_tpu_ctx,
     NDArray, ND_Sparse_Array, DLContext,

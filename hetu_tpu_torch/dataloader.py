@@ -3,8 +3,9 @@
 A ``Dataloader`` walks its numpy data by a cursor, in order or shuffled by
 ``RandomState(seed)``. The executor uploads a small sequential dataset to
 the device once and slices batches there (see ``SubExecutor``); other
-loaders hand it one host batch per step. The elastic and GNN loaders arrive
-with their slices.
+loaders hand it one host batch per step. ``GNNDataLoaderOp`` hands it the
+graph batch its handler built, rotated by the caller's ``step``. The
+elastic loader arrives with its slice.
 """
 from __future__ import annotations
 
@@ -137,3 +138,47 @@ def dataloader_op(dataloaders):
         else:
             dls.append(Dataloader(*d))
     return DataloaderOp(dls)
+
+
+class GNNDataLoaderOp(Op):
+    """Double-buffered graph-batch loader (reference dataloader.py:98).
+
+    The handler produces the next graph tensor on each ``step``; kept
+    host-driven like the reference, the executor moves the current batch
+    to its device once a step.
+    """
+
+    is_dataloader = True
+    _ops: list["GNNDataLoaderOp"] = []
+
+    def __init__(self, handler, ctx=None):
+        super().__init__([], ctx)
+        self.handler = handler
+        self._cur = None
+        self._next = None
+        GNNDataLoaderOp._ops.append(self)
+
+    def close(self):
+        """Deregister from the class-level step() registry — REQUIRED when a
+        training run ends but the process lives on, or a later run's
+        step() would fire this op's stale handler too."""
+        if self in GNNDataLoaderOp._ops:
+            GNNDataLoaderOp._ops.remove(self)
+
+    def get_batch_num(self, name):
+        return None
+
+    def get_batch(self, name):
+        return self._cur
+
+    def get_cur_shape(self, name):
+        return None if self._cur is None else tuple(np.asarray(self._cur).shape)
+
+    @classmethod
+    def step(cls, graph):
+        for op in cls._ops:
+            op._cur = op._next
+            op._next = op.handler(graph)
+
+    def compute(self, input_vals, tc):
+        raise AssertionError("Dataloader batches are supplied by the executor")

@@ -3,7 +3,9 @@
 ``model.py``: ``dense_model``, ``convert_to_one_hot``; ``utils.py``:
 ``synthetic_graph``, ``normalize_adj``), importing ``hetu_tpu_torch``,
 plus ``arxiv_graph``, a seeded synthetic graph at ogbn-arxiv's size and
-widths. ``sparse_model`` needs the embedding ops and waits for them.
+widths. ``sparse_model`` looks its integer features up in an embedding
+table (the table's gradient through ``fused_embed_grad``) before the GCN
+stack (its products through ``csr_spmm``).
 """
 import numpy as np
 
@@ -81,6 +83,30 @@ def dense_model(feature_dim, hidden_layer_size, num_classes, lr, arch=GCN):
     train_loss = ht.reduce_mean_op(loss * mask_, [0])
     train_op = ht.optim.SGDOptimizer(lr).minimize(train_loss)
     return [train_loss, y, train_op], [feat, y_, mask_, norm_adj_]
+
+
+def sparse_model(num_int_feature, hidden_layer_size, embedding_idx_max,
+                 embedding_width, num_classes, lr):
+    """Integer-feature variant: per-node categorical features pass through an
+    embedding table before the GCN stack (reference sparse_model)."""
+    y_ = ht.Variable(name="y_", trainable=False)
+    mask_ = ht.Variable(name="mask_", trainable=False)
+    index_ = ht.Variable(name="index_", trainable=False)
+    norm_adj_ = ht.Variable(name="message_passing", trainable=False)
+
+    embedding = init.random_normal((embedding_idx_max, embedding_width),
+                                   stddev=0.1, name="gnn_embedding")
+    embed = ht.embedding_lookup_op(embedding, index_)
+    feat = ht.array_reshape_op(embed, (-1, num_int_feature * embedding_width))
+
+    gcn1 = GCN(num_int_feature * embedding_width, hidden_layer_size,
+               norm_adj_, activation="relu", name="gcn1")
+    gcn2 = GCN(gcn1.output_width, num_classes, norm_adj_, name="gcn2")
+    y = gcn2(gcn1(feat))
+    loss = ht.softmaxcrossentropy_op(y, y_)
+    train_loss = ht.reduce_mean_op(loss * mask_, [0])
+    train_op = ht.optim.SGDOptimizer(lr).minimize(train_loss)
+    return [train_loss, y, train_op], [index_, y_, mask_, norm_adj_]
 
 
 # -- graphs (examples/gnn/gnn_model/utils.py) -------------------------------

@@ -462,7 +462,7 @@ class SubExecutor:
         limit = float(os.environ.get("HETU_DEVICE_DATA_MB", "1024")) * 1e6
         ps_idx = {id(op.inputs[1]) for op in self.ps_staged_ops}
         for n in self.dataloader_nodes:
-            dl = n.dataloaders.get(self.name)
+            dl = getattr(n, "dataloaders", {}).get(self.name)
             if (dl is not None and dl.func is None and not dl.shuffle
                     and dl.drop_last and id(n) not in ps_idx
                     and dl._data.nbytes <= limit):

@@ -1,11 +1,12 @@
 """Graph-neural-network ops (counterpart of
-``hetu_tpu/graph/ops/gnn.py``): the DistGCN 1.5D GCN product on one
-device.
+``hetu_tpu/graph/ops/gnn.py``): the DistGCN 1.5D GCN product as a graph
+op.
 
 ``distgcn_15d_op(A, H, W)`` computes ``Z = A @ H (@ W)``: ``csrmm_op``,
 then ``matmul_op``. The process-topology arguments of the reference
 signature (size, replication, device_id, comm, comm_groups) are accepted
-for API compatibility; the executor runs on one device.
+for API compatibility, as in the JAX package; the 1.5D schedule over a
+grid of processes is :mod:`hetu_tpu_torch.parallel.distgcn`.
 """
 from __future__ import annotations
 

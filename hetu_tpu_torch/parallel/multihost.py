@@ -11,6 +11,9 @@ the rank environment that :func:`initialize` reads.
 A :class:`torch.distributed.device_mesh.DeviceMesh` with a ``"dp"``
 dimension stands for the JAX package's ``jax.sharding.Mesh``
 (:func:`global_mesh`); ``HetuConfig(mesh=...)`` takes one.
+:func:`process_grid` lays a ``(gr, gc)`` grid over the ranks, with a
+group for each row and each column, for DistGCN's 1.5D products
+(``parallel/distgcn.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import torch.distributed as dist
 _device: Optional[torch.device] = None
 # the meshes global_mesh made, whose groups shutdown() releases
 _meshes: list = []
+# the grids process_grid made, whose groups shutdown() releases
+_grids: list = []
 
 
 def is_initialized() -> bool:
@@ -111,10 +116,11 @@ def collective(fn, *args, **kwargs):
 def shutdown() -> None:
     """Leave the process group: a barrier, then destroy it in this
     process, and release the groups that the meshes of
-    :func:`global_mesh` hold (``DeviceMesh._pg_registry``). A gloo group
-    that outlives the process group, to be torn down at interpreter exit
-    after its peer has left, aborts the process ("terminate called
-    without an active exception"), about one exit in ten under load."""
+    :func:`global_mesh` (``DeviceMesh._pg_registry``) and the grids of
+    :func:`process_grid` hold. A gloo group that outlives the process
+    group, to be torn down at interpreter exit after its peer has left,
+    aborts the process ("terminate called without an active exception"),
+    about one exit in ten under load."""
     global _device
     if is_initialized():
         dist.barrier()
@@ -124,6 +130,9 @@ def shutdown() -> None:
         if mesh is not None:
             getattr(mesh, "_pg_registry", {}).clear()
     _meshes.clear()
+    for grid in _grids:
+        grid.release()
+    _grids.clear()
     _device = None
 
 
@@ -183,3 +192,52 @@ def global_mesh(dp: int = 0):
                             mesh_dim_names=("dp",))
     _meshes.append(weakref.ref(mesh))
     return mesh
+
+
+class ProcessGrid:
+    """This rank's point ``(i, j)`` of a ``(gr, gc)`` grid laid over ranks
+    ``0 .. gr * gc - 1``, rank ``i * gc + j`` at ``(i, j)``: the order of
+    ``np.array(jax.devices()).reshape(gr, gc)`` in the JAX package, so a
+    rank's tensors compare with one device's shard there.
+
+    ``row_group`` holds the ``gc`` ranks at this ``i`` and ``col_group``
+    the ``gr`` ranks at this ``j``; a group's ranks are in ascending order,
+    so a rank's place in its column group is ``i`` and in its row group
+    ``j``."""
+
+    def __init__(self, gr, gc, i, j, row_group, col_group):
+        self.gr, self.gc, self.i, self.j = gr, gc, i, j
+        self.row_group, self.col_group = row_group, col_group
+
+    def release(self) -> None:
+        self.row_group = self.col_group = None
+
+    def __repr__(self):
+        return (f"ProcessGrid(gr={self.gr}, gc={self.gc}, i={self.i}, "
+                f"j={self.j})")
+
+
+def process_grid(gr: int, gc: int) -> Optional[ProcessGrid]:
+    """A ``(gr, gc)`` grid over the first ``gr * gc`` ranks of the world.
+
+    ``dist.new_group`` is a collective of the whole world: every rank,
+    inside the grid or not, makes every group here, in one fixed order
+    (the rows' by ``i``, then the columns' by ``j``). Returns this
+    rank's :class:`ProcessGrid`, or None on a rank outside the grid.
+    :func:`shutdown` releases the groups."""
+    if not is_initialized():
+        raise RuntimeError("process_grid: call multihost.initialize() first")
+    n = gr * gc
+    if gr < 1 or gc < 1 or n > process_count():
+        raise ValueError(f"process_grid({gr}, {gc}): a grid of {n} ranks "
+                         f"in a world of {process_count()}")
+    rows = [dist.new_group([i * gc + j for j in range(gc)])
+            for i in range(gr)]
+    cols = [dist.new_group([i * gc + j for i in range(gr)])
+            for j in range(gc)]
+    if process_index() >= n:
+        return None
+    i, j = divmod(process_index(), gc)
+    grid = ProcessGrid(gr, gc, i, j, rows[i], cols[j])
+    _grids.append(grid)
+    return grid

@@ -36,6 +36,7 @@ def load_lib() -> ctypes.CDLL:
     lib.SetPushOpts.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                                 ctypes.c_float]
     lib.rank.restype = ctypes.c_int
+    lib.nrank.restype = ctypes.c_int
     return lib
 
 
@@ -104,6 +105,11 @@ class PSClient:
     @property
     def rank(self) -> int:
         return self._lib.rank()
+
+    @property
+    def nrank(self) -> int:
+        """The number of workers in the cluster."""
+        return self._lib.nrank()
 
     def SetCommQuant(self, mode):
         """Quantize this worker's PS value payloads on the wire (the

@@ -1243,3 +1243,128 @@ def test_dropout_masks_on_the_card(dev):
     np.testing.assert_array_equal(regrad, out)
     np.testing.assert_array_equal(step(0)[0], out)
     assert (step(1)[0] != out).any()
+
+
+# -- slice 6b and NCF: DistGCN, the sampled GCN, sparse_model, NCF -----------
+
+def test_distgcn_world_of_one_on_the_card(dev, tmp_path):
+    """gnn_dist on a 1 x 1 grid over NCCL (run_dist.py's 256-node graph,
+    30 epochs): 3 csr_spmm launches an epoch (2 forward, 1 backward; the
+    features need no gradient), none under kernels='off', and the two
+    runs' losses and weights bit-equal (the CSR kernel is bit-equal to its
+    plain version; the one-rank collectives copy)."""
+    from hetu_tpu_torch.examples import gnn_dist, gnn_model
+    from hetu_tpu_torch.parallel import multihost
+    multihost.initialize(f"file://{tmp_path}/store", 1, 0, device=dev)
+    try:
+        grid = multihost.process_grid(1, 1)
+        data = (*gnn_model.synthetic_graph(256, 4), 4)
+        runs = {}
+        for kernels in ("auto", "off"):
+            tr = gnn_dist.Trainer(grid, data, kernels=kernels)
+            rows = list(gnn_dist.run(grid, data, 30, trainer=tr))
+            runs[kernels] = ([r["loss"] for r in rows[:-1]],
+                             [r["launches"] for r in rows[:-1]], tr.ws)
+        losses, launches, ws = runs["auto"]
+        assert launches == [{"csr_spmm": 3}] * 30
+        assert runs["off"][1] == [{}] * 30
+        assert losses == runs["off"][0] and losses[-1] < 0.5 * losses[0]
+        assert all(torch.equal(a, b) for a, b in zip(ws, runs["off"][2]))
+    finally:
+        multihost.shutdown()
+
+
+def test_sampled_gcn_step_on_the_card_matches_the_cpu(dev):
+    """gnn_sampled's model on one sampled batch (the script's defaults):
+    1 fused_adam launch a step, the first step's loss, rows' gradient and
+    prediction bit-equal to kernels='off', 3 steps within rel 1e-5 of the
+    CPU from the same executor seed."""
+    from hetu_tpu_torch.dataloader import GNNDataLoaderOp
+    from hetu_tpu_torch.examples import gnn_sampled
+    args = gnn_sampled.parse_args([])
+    adj, labels = gnn_sampled.make_graph(args.nodes, args.classes,
+                                         args.degree)
+    b = gnn_sampled.SubgraphSampler(adj, labels, args.nseed, args.nmax,
+                                    args.fanout, seed=100).next()
+    rows = np.random.RandomState(0).normal(
+        0, 0.1, (args.nmax, args.hidden)).astype(np.float32)
+    out = {}
+    for name, ctx, kernels in (("card", ht.gpu(0), None),
+                               ("off", ht.gpu(0), "off"),
+                               ("cpu", ht.cpu(0), None)):
+        loader = GNNDataLoaderOp(lambda _g: b["adj"])
+        try:
+            ex, (x, y_), _ = gnn_sampled.build(args, loader, ctx, 0, kernels)
+            GNNDataLoaderOp.step(None)
+            GNNDataLoaderOp.step(None)
+            steps, counts = [], []
+            for _ in range(3):
+                registry.reset_launch_counts()
+                steps.append([r.asnumpy() for r in ex.run(
+                    "train", feed_dict={x: rows, y_: b["y"]})[:3]])
+                counts.append({k: v for k, v in
+                               registry.launch_counts().items() if v})
+            out[name] = (steps, counts)
+        finally:
+            loader.close()
+    assert out["card"][1] == [{"fused_adam": 1}] * 3
+    assert out["off"][1] == [{}] * 3
+    for a, b_ in zip(out["card"][0][0], out["off"][0][0]):
+        assert np.array_equal(a, b_)
+    for step_card, step_cpu in zip(out["card"][0], out["cpu"][0]):
+        np.testing.assert_allclose(step_card[0], step_cpu[0], rtol=1e-5)
+
+
+def test_sparse_model_on_the_card_matches_the_cpu(dev):
+    """GCN's sparse_model (an embedding table before the GCN stack) 3 SGD
+    steps: a step launches csr_spmm 4 times (2 forward, 2 backward: the
+    features are the table's rows, so layer 1's product has a gradient
+    too), fused_embed_grad once and fused_sgd once; the losses within rel
+    1e-4 of the CPU from the same executor seed."""
+    from hetu_tpu_torch.examples import gnn_model
+    rows, cols, _, labels = gnn_model.synthetic_graph(256, 4)
+    vals = gnn_model.normalize_adj(rows, cols, 256)
+    rng = np.random.RandomState(3)
+    index = rng.randint(0, 40, (256, 3)).astype(np.float32)
+    onehot = gnn_model.convert_to_one_hot(labels, 4)
+    mask = (np.random.RandomState(1).rand(256) < 0.7).astype(np.float32)
+    losses, counts = {}, []
+    for ctx in (ht.gpu(0), ht.cpu(0)):
+        (loss, _, op), nodes = gnn_model.sparse_model(3, 16, 40, 4, 4, 0.5)
+        ex = ht.Executor([loss, op], ctx=ctx, seed=0)
+        adj = ht.sparse_array(vals, (rows, cols), (256, 256), ctx=ctx)
+        feed = dict(zip(nodes, (index, onehot, mask, adj)))
+        got = []
+        for _ in range(3):
+            registry.reset_launch_counts()
+            got.append(float(ex.run("default", feed_dict=feed)[0].asnumpy()))
+            if ctx.device_type == "gpu":
+                counts.append({k: v for k, v in
+                               registry.launch_counts().items() if v})
+        losses[ctx.device_type] = got
+    assert counts == [{"csr_spmm": 4, "fused_embed_grad": 1,
+                       "fused_sgd": 1}] * 3
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+
+
+def test_ncf_on_the_card_matches_the_cpu(dev):
+    """NCF in local mode (tests/test_ctr_models.py's data, batch 256, lr
+    0.3, embedding stddev 0.3) 10 steps: 1 fused_sgd and 2
+    fused_embed_grad launches a step, the first step bit-equal to
+    kernels='off', the losses within rel 1e-5 of the CPU."""
+    from hetu_tpu_torch.examples import ncf
+    data = ncf.getdata(num_users=100, num_items=200, n_pos=2000)
+    model = dict(learning_rate=0.3, embed_stddev=0.3)
+    runs = {}
+    for name, device, kernels in (("card", dev, None), ("off", dev, "off"),
+                                  ("cpu", "cpu", None)):
+        tr = ncf.Trainer(device, data, 256, kernels=kernels, **model)
+        res = next(ncf.run(device, steps=10, trainer=tr))
+        runs[name] = res
+    assert runs["card"]["launches_per_step"] == {"fused_sgd": 1,
+                                                 "fused_embed_grad": 2}
+    assert runs["card"]["launches_same_every_step"]
+    assert runs["off"]["launches_per_step"] == {}
+    assert runs["card"]["losses"][0] == runs["off"]["losses"][0]
+    np.testing.assert_allclose(runs["card"]["losses"],
+                               runs["cpu"]["losses"], rtol=1e-5)
