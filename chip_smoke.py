@@ -45,7 +45,14 @@ epoch against ``kernels="off"``; runs the sampled-subgraph GCN
 one server, its first step against ``kernels="off"``; and trains NCF
 (``examples/ncf.py``) at ml-1m's user and item counts for an epoch in
 local mode, its first step against ``kernels="off"``, and 100 steps under
-Hybrid. Each path is checked to have gone through its kernels.
+Hybrid; then runs the BERT trainer (``examples/train_hetu_bert.py``) at
+BERT-base widths on its corpus, checkpointed every epoch and resumed, the
+resumed run held bit for bit against an uninterrupted one; decodes at
+GPT-2 small widths (``models/generate.py``: greedy, sampling, beam, EOS,
+ragged, speculative, each held to its gate); trains GPT-2 small with
+dropout, remat on and off bit-equal; and runs the graph-API LM's trainer
+and the generation demo. Each path is checked to have gone through its
+kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -56,6 +63,7 @@ Hybrid. Each path is checked to have gone through its kernels.
     python3 chip_smoke.py --zoo            # build, ResNet-18 and the LM only
     python3 chip_smoke.py --ps             # build, the Hybrid phase only
     python3 chip_smoke.py --gnn            # build, DistGCN, sampled GCN, NCF
+    python3 chip_smoke.py --nlp            # build, sections 16-20
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -71,16 +79,22 @@ for ``quant_blocks`` and ``dequant_blocks``, ``--embed-kernels`` for
 ``fused_embed_grad`` (at the CTR and the BERT path's shapes); ``--zoo``
 builds and runs the ResNet-18 and LM phases (sections 10-11) alone;
 ``--ps`` the Hybrid phase (section 12) alone; ``--gnn`` the DistGCN,
-sampled-GCN and NCF phases (sections 13-15) alone.
+sampled-GCN and NCF phases (sections 13-15) alone; ``--nlp`` the BERT
+trainer, decoding, dropout, LM-trainer and demo phases (sections 16-20)
+alone.
 """
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,23 +133,32 @@ SGD_LOSS_MAX, ADAM_LOSS_MAX = 1e-2, 1e-2
 
 # Attention checks (B, H, S, D, dtype, causal, key padding): the BERT-base
 # layer (the main path's shape; its times go into the kernels line), the
-# phase-2 BERT-base layer (S = 512), a long causal sequence, and a small f32
-# case also held against the unfused softmax(q k^T) v in f32.
+# phase-2 BERT-base layer (S = 512), a long causal sequence, a small f32
+# case also held against the unfused softmax(q k^T) v in f32, and GPT-2
+# small's causal layer at T = 128 (the dropout path, section 18).
 ATTN_CASES = [(32, 12, 128, 64, torch.bfloat16, False, True),
               (32, 12, 512, 64, torch.bfloat16, False, True),
               (8, 12, 512, 64, torch.bfloat16, True, False),
-              (2, 4, 256, 128, torch.float32, True, True)]
-# Fused linear+CE checks (N, V, D, layout), bf16: BERT-base's MLM loss (32
+              (2, 4, 256, 128, torch.float32, True, True),
+              (8, 12, 128, 64, torch.bfloat16, True, False)]
+# Fused linear+CE checks (N, V, D, layout, dtype): BERT-base's MLM loss (32
 # rows x 20 slots against the tied (V, D) embedding, with the MLM bias; the
-# main path's shape), a GPT-2 LM head ((D, V), N ragged against 128) and
-# BERT-base's phase-2 MLM shape (32 rows x 76 slots).
-CE_CASES = [(640, 30522, 768, "vd"), (1000, 50257, 768, "dv"),
-            (2432, 30522, 768, "vd")]
+# main path's shape), a GPT-2 LM head ((D, V), N ragged against 128),
+# BERT-base's phase-2 MLM shape (32 rows x 76 slots), the BERT trainer's
+# (16 x 5 slots against its 65-entry vocabulary: one partial tile,
+# section 16), GPT-2 small's tied head at 8 x 128 rows (section 18), and
+# generate_hetu's trainer in f32 (64 x 16 rows, an untied (D, V) head at
+# V = 256, D = 128; section 20).
+CE_CASES = [(640, 30522, 768, "vd", torch.bfloat16),
+            (1000, 50257, 768, "dv", torch.bfloat16),
+            (2432, 30522, 768, "vd", torch.bfloat16),
+            (80, 65, 768, "vd", torch.bfloat16),
+            (1024, 50257, 768, "vd", torch.bfloat16),
+            (1024, 256, 128, "dv", torch.float32)]
 # The backward at the same shapes, and at the MLM shape in f32, where no
 # output rounding hides dh's softmax term (~1e-4 of its onehot term, below
 # a bf16 rounding).
-CE_BWD_CASES = ([c + (torch.bfloat16,) for c in CE_CASES]
-                + [(640, 30522, 768, "vd", torch.float32)])
+CE_BWD_CASES = CE_CASES + [(640, 30522, 768, "vd", torch.float32)]
 # Kernel vs plain version: o in bf16 may differ by one bf16 rounding of o
 # and of p (the bf16 kernel rounds p once to bf16 as it enters p.V; the
 # plain version keeps it f32), so it is also held by its relative L2 error,
@@ -371,6 +394,90 @@ NCF_POS, NCF_BATCH, NCF_REL, NCF_WINDOW, NCF_HYB_STEPS = (100_000, 1024,
 NCF_MODEL = dict(learning_rate=0.3, embed_stddev=0.3)
 NCF_LAUNCHES = {"fused_sgd": 1, "fused_embed_grad": 2}
 NCF_HYB_LAUNCHES = {"fused_sgd": 1}
+
+# The BERT trainer (examples/train_hetu_bert.py; section 16) at BERT-base
+# widths on its built-in corpus (a vocabulary of 65, 47 instances: 2 steps
+# an epoch at batch 16), sequences of 128 so flash attention runs, remat
+# off, bf16: BERT_TRAINER_EPOCHS epochs with a checkpoint every epoch, then
+# resumed to twice that (a checkpoint at the end); an uninterrupted run of as many epochs (no
+# checkpoint, its state held in memory) must end with the same parameters
+# and optimizer state, bit for bit (every kernel of the step is
+# rerun-equal and reduces in a fixed order), and so must the last
+# checkpoint read back. Per step 12
+# flash_attention_fwd and 12 _bwd, 1 fused_linear_nll_fwd and 1 _bwd (80
+# MLM rows against the 65-entry vocabulary), 2 fused_embed_grad (token and
+# type). The first step's gradients against kernels="off" as BERT-base
+# pretraining's (bert_grad_gate: f32 within GRAD_REL, bf16 within
+# BF16_EXCESS of the plain versions' distance from f32).
+BERT_TRAINER_FLAGS = ["--d-model", "768", "--n-heads", "12", "--n-layers",
+                      "12", "--d-ff", "3072", "--max-seq-length", "128",
+                      "--batch-size", "16"]
+BERT_TRAINER_EPOCHS = 3
+BERT_TRAINER_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                         "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
+                         "fused_embed_grad": 2}
+# Generation (models/generate.py; section 17) at the published GPT-2 small
+# widths (the fields hf_gpt2 maps from a GPT2Config: vocabulary 50,257,
+# 1,024 positions, d 768, 12 layers and heads, FF 3,072, projection biases,
+# a tied head, tanh gelu, eps 1e-5), weights drawn from seed 0: DECODE_B
+# prompts of DECODE_P seeded ids decoded to DECODE_LEN. Gates: greedy's
+# per-position logits against tfm.forward over the produced sequence, by
+# relative L2 within DECODE_REL_BF16 in bf16 (both sides round at the same
+# places; cuBLAS sums a one-row product in another order than a 192-row
+# one, and the difference crosses 12 layers) and DECODE_REL_F32 in f32;
+# in f32, where seeded weights make exact logit ties vanishingly rare,
+# tokens equal between the chunked and the tokenwise prefill, beam K = 1
+# and greedy, the EOS loop and greedy up to its stop, each ragged row and
+# its solo decode, speculative decoding (the target's first SPEC_LAYERS
+# layers as the draft, SPEC_K proposals a round) and plain greedy; top-k
+# sampling's tokens within the top k; beam K = 4's scores sorted.
+# Speculative decoding is reported by its rounds and tokens a round, which
+# are deterministic, and not timed: at B = 1 both it and plain greedy are
+# bound by the host's Python loop, and single timings of the two came out
+# in either order from run to run.
+GPT2_SMALL = dict(vocab_size=50257, max_seq_len=1024, d_model=768,
+                  n_layers=12, n_heads=12, d_ff=3072, attn_proj_bias=True,
+                  tied_head=True, gelu_exact=False, ln_eps=1e-5)
+DECODE_B, DECODE_P, DECODE_LEN, DECODE_TOPK, DECODE_BEAM = 8, 64, 192, 40, 4
+DECODE_PROFILED = 16
+DECODE_REL_BF16, DECODE_REL_F32 = 2e-2, 1e-4
+DECODE_RAGGED = [64, 17, 40, 1, 33, 64, 50, 8]
+SPEC_LAYERS, SPEC_K = 2, 4
+# Training-time dropout (section 18) at GPT-2 small widths, rate 0.1, on
+# DROP_B sequences of 128 (flash attention), bf16, AdamW at DROP_LR: the
+# first step's gradients with remat equal those without, bit for bit, at
+# one key (the recompute draws each mask again from its seed); a mask's
+# dropped share within DROP_SHARE_TOL of the rate; DROP_STEPS steps give
+# finite losses, the last below the first. Before them the first step's
+# loss and gradients against kernels="off" at the same key (the same
+# masks), under the gates of BERT-base pretraining's (GRAD_REL above: f32
+# per tensor, bf16 against the plain versions' distance from f32). Per step with remat 24
+# flash_attention_fwd (the forward and the recompute), 12 _bwd, 1
+# fused_linear_nll_fwd and 1 _bwd (the tied head), 1 fused_embed_grad.
+DROP_B, DROP_T, DROP_RATE, DROP_LR, DROP_STEPS = 8, 128, 0.1, 3e-4, 5
+DROP_SHARE_TOL = 5e-3
+DROP_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                 "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
+                 "fused_embed_grad": 1}
+# The graph-API LM's trainer (examples/train_hetu_transformer.py; section
+# 19) at its defaults for LM_TRAINER_STEPS steps: per step 1 fused_adam
+# and 2 fused_embed_grad (tokens and positions); finite losses. Its first
+# step (dropout 0.1 on both sides: the masks come from the executor's
+# seed, step and node) against kernels="off": the loss and each parameter
+# within rel (L2) LM_REL.
+LM_TRAINER_STEPS = 30
+LM_TRAINER_LAUNCHES = {"fused_adam": 1, "fused_embed_grad": 2}
+# The generation demo (examples/generate_hetu.py; section 20) at --steps 60
+# --beam 2 --max-len 12: its trainer (f32, sequences of 16: the dot path)
+# launches per step 1 fused_linear_nll_fwd and 1 _bwd (the untied (D, V)
+# head at V = 256) and 1 fused_embed_grad; decoding launches none. The
+# final loss below 3.0, as tests/test_nlp.py holds the reference's. Its
+# trainer's first step (seed 0, the first 64 sequences) against
+# kernels="off": f32 only, each gradient within GRAD_REL.
+DEMO_ARGS = ["--steps", "60", "--beam", "2", "--max-len", "12"]
+DEMO_LOSS_MAX = 3.0
+DEMO_LAUNCHES = {"fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
+                 "fused_embed_grad": 1}
 
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
@@ -776,17 +883,16 @@ def attention_phase(fa, dev, bw, f32, bf16):
     return cases
 
 
-def ce_phase(ce, dev, bw, bf16):
+def ce_phase(ce, dev, bw, f32, bf16):
     """fused_linear_nll_fwd against its plain version at CE_CASES, the
     kernel run twice and held bit-equal to itself; timed."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = TOL["fused_linear_nll_fwd"]["lse_tl_nll"]
     cases = []
-    for n, v, d, layout in CE_CASES:
+    for n, v, d, layout, dtype in CE_CASES:
         w_dv = layout == "dv"
-        h = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
-        w = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(
-            torch.bfloat16)
+        h = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(dtype)
         if w_dv:
             w = w.t().contiguous()
         b = torch.randn((v,), generator=gen, device=dev) * 0.02
@@ -807,13 +913,15 @@ def ce_phase(ce, dev, bw, bf16):
             return (torch.logsumexp(logits, -1)
                     - torch.gather(logits, 1, t.long()[:, None])[:, 0])
 
+        es = h.element_size()
         cases.append({
-            "shape": [n, v, d], "layout": layout, "dtype": "bfloat16",
+            "shape": [n, v, d], "layout": layout, "dtype": str(dtype)[6:],
             "rerun_bit_equal": True, "max_abs_err": err,
             "mean_nll": float((lse - tl).mean()),
             # read h, W, b and the targets once; write lse and tl
-            "bound": bound(2 * (n * d + v * d) + 4 * v + 4 * n + 8 * n,
-                           2 * n * v * d, bw, bf16),
+            "bound": bound(es * (n * d + v * d) + 4 * v + 4 * n + 8 * n,
+                           2 * n * v * d, bw,
+                           bf16 if dtype == torch.bfloat16 else f32),
             "ms": graph_ms(lambda: ce._linear_nll_fwd_kernel(h, w, b, t, **kw)),
             "launched_ms": time_ms(
                 lambda: ce.fused_linear_nll(h, w, b, t, w_layout=layout), 50),
@@ -1640,26 +1748,25 @@ def hybrid_phase(ht, ctr_main, eg, registry, counted, dev):
     return {"fused_sgd": launched}, {"fused_embed_grad": rows_launches}
 
 
-def bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, batch,
-                   want, phase):
-    """The first step's gradients with the kernels against kernels="off",
-    f32 then bf16 (GRAD_REL, BF16_EXCESS): one bert_grad_check line per
-    dtype. Returns ``(first bf16 loss, its kernels="off" loss)``."""
-
-    def grads(c):
-        return bert_forward.counted(lambda: tfm.value_and_grad(
-            bert.pretrain_loss, params, batch, c, has_aux=True))
-
-    # f32 first: its gradient with the kernels, held per tensor to
-    # kernels="off", is the reference both bf16 gradients are measured from
+def grad_gate(grads, tfm, registry, cfg, want, line, what,
+              dtypes=("float32", "bfloat16"), **fields):
+    """The first step's loss and gradients with the kernels against
+    kernels="off" on the same inputs, at ``cfg`` in each of ``dtypes``:
+    ``grads(c)`` gives ``((loss, gradient tree), the launches it made)``
+    under the config ``c``, and must launch ``want``. In f32 (first) each
+    tensor's gradient within GRAD_REL; in bf16 all together within
+    GRAD_REL, and each tensor's and all together at most BF16_EXCESS times
+    as far from the f32 gradient as the plain versions' (see GRAD_REL
+    above). One ``line`` a dtype, with ``fields``; a failure names
+    ``what``. Returns the agreement by dtype."""
     agree, ref = {}, None
-    for name, c in (("float32", dataclasses.replace(cfg, dtype=torch.float32)),
-                    ("bfloat16", cfg)):
-        ((loss_k, _), g_k), counts = grads(c)
-        check(counts == want, f"{phase} {name} pretrain gradient launched "
+    for name in dtypes:
+        c = dataclasses.replace(cfg, dtype=getattr(torch, name))
+        (loss_k, g_k), counts = grads(c)
+        check(counts == want, f"{what} {name} first-step gradient launched "
               f"{counts}, expected {want}")
         with registry.active("off"):
-            ((loss_o, _), g_o), off_counts = grads(c)
+            (loss_o, g_o), off_counts = grads(c)
         check(off_counts == {}, f"kernels='off' launched {off_counts}")
         paths, flat_k = zip(*tfm.tree_leaves(g_k, with_paths=True))
         flat_o = tfm.tree_leaves(g_o)
@@ -1672,7 +1779,7 @@ def bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, batch,
                                    torch.cat([g.flatten() for g in flat_o])),
             grad_rel_l2_max=per[worst], grad_rel_l2_worst=worst)
         if name == "bfloat16":
-            # bf16 rounding through 12 layers and back, measured: each
+            # bf16 rounding through the layers and back, measured: each
             # tensor's distance from the f32 gradient, and all tensors'
             # together, with the kernels and with the plain versions
             vs_k = {p: rel_l2(a, r) for p, a, r in zip(paths, flat_k, ref)}
@@ -1688,26 +1795,41 @@ def bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, batch,
                 vs_f32_all=k_all, off_vs_f32_all=o_all, vs_f32=vs_k,
                 off_vs_f32=vs_o, excess_limit=BF16_EXCESS,
                 worst_share_of_limit=use[worst_x], worst=worst_x)
-        emit("bert_grad_check", bert_phase=phase, dtype=name,
-             batch=list(batch["input_ids"].shape),
-             mlm_slots=batch["mlm_ids"].shape[1], grad_rel_l2_tol=GRAD_REL,
+        emit(line, dtype=name, grad_rel_l2_tol=GRAD_REL, **fields,
              **agree[name])
-        check(agree[name]["loss_rel"] < BERT_REL, f"{phase} {name} first "
+        check(agree[name]["loss_rel"] < BERT_REL, f"{what} {name} first "
               f"loss {float(loss_k)} vs kernels='off' {float(loss_o)}")
-        check(agree[name]["grad_rel_l2_all"] < GRAD_REL, f"{phase} {name} "
+        check(agree[name]["grad_rel_l2_all"] < GRAD_REL, f"{what} {name} "
               f"gradients differ from kernels='off': {agree[name]}")
         if name == "float32":
-            check(per[worst] < GRAD_REL, f"{phase} float32 gradient of "
+            check(per[worst] < GRAD_REL, f"{what} float32 gradient of "
                   f"{worst} differs from kernels='off' by rel L2 {per[worst]}")
             ref = flat_k
         else:
-            check(k_all <= BF16_EXCESS * o_all, f"{phase} bfloat16 gradients "
+            check(k_all <= BF16_EXCESS * o_all, f"{what} bfloat16 gradients "
                   f"are rel L2 {k_all} from the f32 ones, kernels='off' "
                   f"{o_all}")
-            check(use[worst_x] <= 1, f"{phase} bfloat16 gradient of "
+            check(use[worst_x] <= 1, f"{what} bfloat16 gradient of "
                   f"{worst_x} is rel L2 {vs_k[worst_x]} from the f32 one, "
                   f"above {limit[worst_x]} (kernels='off' {vs_o[worst_x]})")
         del g_k, g_o, flat_k, flat_o
+    return agree
+
+
+def bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, batch,
+                   want, phase):
+    """``grad_gate`` on BERT's pretraining loss: one bert_grad_check line
+    per dtype. Returns ``(first bf16 loss, its kernels="off" loss)``."""
+
+    def grads(c):
+        ((loss, _), g), counts = bert_forward.counted(
+            lambda: tfm.value_and_grad(bert.pretrain_loss, params, batch, c,
+                                       has_aux=True))
+        return (loss, g), counts
+
+    agree = grad_gate(grads, tfm, registry, cfg, want, "bert_grad_check",
+                      f"BERT {phase}", bert_phase=phase, batch=list(batch["input_ids"].shape),
+                      mlm_slots=batch["mlm_ids"].shape[1])
     return agree["bfloat16"]["loss"], agree["bfloat16"]["off_loss"]
 
 
@@ -2602,7 +2724,6 @@ def ncf_phase(ncf, counted, dev):
     in local mode and NCF_HYB_STEPS steps under Hybrid through ncf.run,
     each step's launch counts zeroed just before it and read just after;
     returns the launches of both runs, by path."""
-    import tempfile
     from hetu_tpu_torch.examples import bert_forward
     from hetu_tpu_torch.ps import local_cluster as lc
     t0 = time.perf_counter()
@@ -2695,6 +2816,404 @@ def gnn_phases(ht, multihost, counted, dev):
     return out
 
 
+def _quiet(fn):
+    """``(fn(), the lines it printed)``: an entry point's own prints are
+    kept out of this script's output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def _wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bert_trainer_phase(bert, tfm, bert_forward, registry, dev):
+    """Section 16 (BERT_TRAINER_* above): the first step's gradients
+    against kernels="off", then train_hetu_bert checkpointed every epoch,
+    resumed, and held bit for bit against an uninterrupted run. Returns
+    the launches of the checkpointed and resumed runs (the main path)."""
+    from hetu_tpu_torch import checkpoint
+    from hetu_tpu_torch.examples import train_hetu_bert as thb
+    args = thb.parse_args(BERT_TRAINER_FLAGS)
+    vocab, full = thb.pretrain_data(args.max_seq_length, dev)
+    cfg = thb.config(args, len(vocab))
+    n = len(full["input_ids"])
+    # the trainer's initial parameters (seed 0) and first batch (epoch 0's
+    # permutation)
+    params = bert.init_params(0, cfg, dev)
+    first = torch.from_numpy(np.random.RandomState(0).permutation(n)[
+        :args.batch_size]).to(dev)
+    first = {k: v[first] for k, v in full.items()}
+    bert_grad_gate(bert, tfm, bert_forward, registry, cfg, params, first,
+                   BERT_TRAINER_LAUNCHES, "trainer")
+
+    t_phase = time.perf_counter()
+    per_step, losses, step_ms, clock = [], [], [], [0.0]
+
+    def record(epoch, step, loss, mlm, nsp):
+        # the step's launches, zeroed just before it and read just after
+        per_step.append({k: v for k, v in registry.launch_counts().items()
+                         if v})
+        registry.reset_launch_counts()
+        now = time.perf_counter()
+        # an epoch's first step of the first run also holds the previous
+        # epoch's checkpoint
+        step_ms.append((step, (now - clock[0]) * 1e3))
+        clock[0] = now
+        losses.append(loss)
+
+    def train(extra, init=None):
+        registry.reset_launch_counts()
+        clock[0] = time.perf_counter()
+        (_, state), log = _quiet(lambda: thb.run(thb.parse_args(
+            BERT_TRAINER_FLAGS + extra), params=init, on_step=record))
+        return state, log
+
+    def differ(x, y):
+        return [p for (p, a), b in zip(tfm.tree_leaves(x, with_paths=True),
+                                       tfm.tree_leaves(y))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    try:
+        a = os.path.join(root, "a")
+        epochs = str(BERT_TRAINER_EPOCHS)
+        t0 = time.perf_counter()
+        # the gate's parameters are the ones the trainer would draw itself;
+        # the run updates them in place
+        _, log1 = train(["--num-epoch", epochs, "--ckpt-dir", a,
+                         "--ckpt-every", "1"], init=params)
+        del params
+        # resumed as tests/test_bert.py resumes the reference: its one
+        # checkpoint is the one written at the end
+        resumed, log2 = train(["--num-epoch", str(2 * BERT_TRAINER_EPOCHS),
+                               "--ckpt-dir", a, "--resume"])
+        main_s = time.perf_counter() - t0
+        check(f"resumed from epoch {BERT_TRAINER_EPOCHS - 1}" in log2,
+              f"the resumed run printed {log2}")
+        n_main = len(per_step)
+        check(n_main == 2 * BERT_TRAINER_EPOCHS * (n // args.batch_size),
+              f"{n_main} steps in the checkpointed and resumed runs")
+        # the uninterrupted run, held in memory (no checkpoint)
+        whole, _ = train(["--num-epoch", str(2 * BERT_TRAINER_EPOCHS)])
+        check(per_step[n_main:] and all(c == BERT_TRAINER_LAUNCHES
+                                        for c in per_step),
+              f"the trainer's steps launched {per_step}, expected "
+              f"{BERT_TRAINER_LAUNCHES} each")
+        check(np.isfinite(losses).all(), f"trainer losses {losses}")
+        check(losses[n_main:] == losses[:n_main],
+              f"the uninterrupted run's losses {losses[n_main:]} differ "
+              f"from the resumed run's {losses[:n_main]}")
+        bad = differ(resumed, whole)
+        check(not bad, f"the resumed run's state differs from the "
+              f"uninterrupted run's in {bad}")
+        del resumed
+        # the last checkpoint the resumed run wrote reads back as that state
+        t0 = time.perf_counter()
+        saved, step = checkpoint.TrainCheckpointer(a).restore_latest(
+            like=whole)
+        restore_s = time.perf_counter() - t0
+        check(step == 2 * BERT_TRAINER_EPOCHS - 1, f"latest step {step}")
+        bad = differ(saved, whole)
+        check(not bad, f"the last checkpoint differs from the final state "
+              f"in {bad}")
+        ckpt_bytes = sum(x.numel() * x.element_size()
+                         for x in tfm.tree_leaves(saved))
+        del saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the device time of one step: the trainer's step on its first batch,
+    # from the uninterrupted run's final state, profiled
+    step_fn = bert.make_pretrain_step(cfg, lr=args.learning_rate)
+    one = lambda: step_fn(whole["params"], whole["opt"], first)  # noqa: E731
+    one_ms = min(_wall_ms(one) for _ in range(5))
+    with tempfile.TemporaryDirectory() as d:
+        prof = bert_forward.profile(one, one_ms, 3, os.path.join(d, "t.txt"))
+    del whole, one
+    later = [ms for s, ms in step_ms[:n_main] if s > 0]
+    emit("bert_trainer", flags=BERT_TRAINER_FLAGS, vocab=len(vocab),
+         instances=n, steps_per_epoch=n // args.batch_size,
+         epochs=[BERT_TRAINER_EPOCHS, 2 * BERT_TRAINER_EPOCHS],
+         losses=losses[:n_main], step_ms=later,
+         epoch_first_step_ms=[ms for s, ms in step_ms[:n_main] if s == 0],
+         one_step_ms=one_ms, device_ms=prof["device_ms"],
+         device_busy_share=prof["device_ms"] / one_ms,
+         device_groups_us=prof["groups_us"],
+         main_path_s=main_s, restore_s=restore_s,
+         checkpoint_bytes=ckpt_bytes, resumed_bit_equal=True,
+         epoch_lines=[ln for ln in log1 + log2 if ln.startswith("epoch")],
+         launches_per_step=BERT_TRAINER_LAUNCHES,
+         seconds=time.perf_counter() - t_phase)
+    return {k: v * n_main for k, v in BERT_TRAINER_LAUNCHES.items()}
+
+
+def _gpt2(tfm, dev, **kw):
+    cfg = tfm.TransformerConfig(**dict(dict(dtype=torch.bfloat16,
+                                            remat=False), **GPT2_SMALL,
+                                       **kw))
+    return cfg, tfm.init_params(0, cfg, dev)
+
+
+def decode_phase(tfm, gen, bert_forward, counted, dev, bw):
+    """Section 17 (GPT2_SMALL, DECODE_* above): generation at GPT-2 small
+    widths, its gates, and the greedy decode's time a step."""
+    t_phase = time.perf_counter()
+    cfg, params = _gpt2(tfm, dev)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    B, P, M = DECODE_B, DECODE_P, DECODE_LEN
+    prompt = torch.randint(0, cfg.vocab_size, (B, P),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    out = {}
+
+    # greedy in bf16: the per-position logits against the full forward
+    greedy = gen.make_generate_fn(cfg, M)
+    (toks, logits), launches = counted(lambda: greedy(params, prompt, 0))
+    check(launches == {}, f"decoding launched {launches}")
+    with torch.no_grad():
+        full, _ = tfm.forward(params, toks, cfg)
+    out["bf16_logits_rel_l2"] = rel_l2(logits, full)
+    check(out["bf16_logits_rel_l2"] <= DECODE_REL_BF16, f"bf16 decode "
+          f"logits rel L2 {out['bf16_logits_rel_l2']} from the forward")
+    del full, logits
+
+    # the time of a decode step: the whole decode less the prefill and one
+    # step (a call with max_len = P) on the host clock; the device's
+    # kernels over DECODE_PROFILED steps (a call with max_len = P +
+    # DECODE_PROFILED) less the prefill's, from torch.profiler
+    short = gen.make_generate_fn(cfg, P)
+    mid = gen.make_generate_fn(cfg, P + DECODE_PROFILED)
+    long_ms = min(_wall_ms(lambda: greedy(params, prompt, 0))
+                  for _ in range(2))
+    short_ms = min(_wall_ms(lambda: short(params, prompt, 0))
+                   for _ in range(2))
+    mid_ms = _wall_ms(lambda: mid(params, prompt, 0))
+    with tempfile.TemporaryDirectory() as d:
+        dev_mid = bert_forward.profile(lambda: mid(params, prompt, 0),
+                                       mid_ms, 1, os.path.join(d, "m.txt"))
+        dev_short = bert_forward.profile(lambda: short(params, prompt, 0),
+                                         short_ms, 1, os.path.join(d, "s.txt"))
+    steps = M - P
+    out.update(
+        decode_ms=long_ms, prefill_and_one_step_ms=short_ms,
+        ms_per_token=(long_ms - short_ms) / steps,
+        device_ms_per_token=(dev_mid["device_ms"] - dev_short["device_ms"])
+        / DECODE_PROFILED, device_busy_share=dev_mid["device_busy_share"],
+        device_groups_us=dev_mid["groups_us"],
+        device_top_kernels=dev_mid["top_kernels"][:6],
+        weights_read_bound_ms=sum(x.numel() * x.element_size() for x in
+                                  tfm.tree_leaves(params)) / bw * 1e3)
+
+    # top-k sampling: every token among the top k of its step
+    sampler = gen.make_generate_fn(cfg, M, sample=True, top_k=DECODE_TOPK)
+    stoks, slogits = sampler(params, prompt, 1, 0.8)
+    top = torch.topk(slogits[:, P - 1:M - 1], DECODE_TOPK, dim=-1).indices
+    check(bool((top == stoks[:, P:, None]).any(-1).all()),
+          "a top-k sample left the top k")
+    check(torch.equal(sampler(params, prompt, 1, 0.8)[0], stoks),
+          "one seed sampled two sequences")
+    del slogits, top
+
+    # f32: the forward, the prefill paths, beam, EOS, ragged, speculative
+    greedy32 = gen.make_generate_fn(cfg32, M)
+    toks32, logits32 = greedy32(params, prompt, 0)
+    with torch.no_grad():
+        full32, _ = tfm.forward(params, toks32, cfg32)
+    out["f32_logits_rel_l2"] = rel_l2(logits32, full32)
+    check(out["f32_logits_rel_l2"] <= DECODE_REL_F32, f"f32 decode logits "
+          f"rel L2 {out['f32_logits_rel_l2']} from the forward")
+    del full32, logits32
+    tokenwise = gen.make_generate_fn(cfg32, M, chunked_prefill=False)
+    check(torch.equal(tokenwise(params, prompt, 0)[0], toks32),
+          "chunked and tokenwise prefill decoded other tokens")
+    b1, _ = gen.make_beam_search_fn(cfg32, M, 1)(params, prompt)
+    check(torch.equal(b1[:, 0], toks32), "beam K = 1 differs from greedy")
+    bk, scores = gen.make_beam_search_fn(cfg32, M, DECODE_BEAM)(params,
+                                                                prompt)
+    check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"beam scores not sorted: {scores}")
+    row = gen.generate(params, cfg32, prompt[:1], M)[0]
+    eos = int(row[P + 4])
+    etoks, stop = gen.make_eos_generate_fn(cfg32, M, eos)(params,
+                                                          prompt[:1], 0)
+    etoks = etoks[0].cpu().numpy()
+    first_eos = P + int(np.argmax(row[P:] == eos))
+    check(stop == first_eos < M - 1 and np.array_equal(
+        etoks[:stop + 1], row[:stop + 1]) and (etoks[stop + 1:] == eos).all(),
+        f"the EOS loop stopped at {stop}, greedy's first eos at {first_eos}")
+    rt, _ = greedy32(params, prompt, 0, prompt_lens=DECODE_RAGGED)
+    for b, ln in enumerate(DECODE_RAGGED):
+        solo, _ = greedy32(params, prompt[b:b + 1, :ln], 0, prompt_lens=[ln])
+        check(torch.equal(solo[0], rt[b]), f"ragged row {b} (length {ln}) "
+              "differs from its solo decode")
+    draft_cfg = dataclasses.replace(cfg32, n_layers=SPEC_LAYERS)
+    draft = dict(params, blocks={k: v[:SPEC_LAYERS]
+                                 for k, v in params["blocks"].items()})
+    spec = gen.make_speculative_generate_fn(cfg32, draft_cfg, M, k=SPEC_K)
+    stok, rounds = spec(params, draft, prompt[:1])
+    check(np.array_equal(stok[0].cpu().numpy(), row),
+          "speculative decoding differs from plain greedy")
+    emit("decode_gpt2_small", config=GPT2_SMALL, weights="seed 0",
+         batch=B, prompt=P, max_len=M, **out, top_k=DECODE_TOPK,
+         beam=DECODE_BEAM, beam_scores=scores[0].tolist(), eos_id=eos,
+         eos_stop=stop, ragged=DECODE_RAGGED,
+         speculative=dict(draft_layers=SPEC_LAYERS, k=SPEC_K, rounds=rounds,
+                          tokens_per_round=(M - P - 1) / rounds),
+         tolerance=dict(bf16_rel_l2=DECODE_REL_BF16,
+                        f32_rel_l2=DECODE_REL_F32), launches=launches,
+         seconds=time.perf_counter() - t_phase)
+
+
+def dropout_phase(tfm, registry, counted, dev):
+    """Section 18 (DROP_* above): training-time dropout at GPT-2 small
+    widths; returns the launches of its DROP_STEPS steps."""
+    t_phase = time.perf_counter()
+    cfg, params = _gpt2(tfm, dev, dropout_rate=DROP_RATE, remat=True)
+    tok = torch.randint(0, cfg.vocab_size, (DROP_B, DROP_T + 1),
+                        generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32).to(dev)
+    x, y = tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+    seed = 2026
+    # the first step with the kernels against kernels="off", both drawing
+    # the same masks from the same key
+    grad_gate(lambda c: counted(lambda: tfm.value_and_grad(
+        tfm.loss_fn, params, x, y, c, dropout_rng=seed)), tfm, registry, cfg,
+        DROP_LAUNCHES, "dropout_grad_check", "GPT-2 small dropout",
+        batch=[DROP_B, DROP_T], rate=DROP_RATE, remat=True)
+    grads, counts = {}, {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        (loss, grads[remat]), counts[remat] = counted(
+            lambda: tfm.value_and_grad(tfm.loss_fn, params, x, y, c,
+                                       dropout_rng=seed))
+    check(counts[True] == DROP_LAUNCHES and counts[False] == dict(
+        DROP_LAUNCHES, flash_attention_fwd=DROP_LAUNCHES[
+            "flash_attention_fwd"] // 2),
+          f"the dropout step's gradient launched {counts}")
+    differ = [p for (p, a), b in zip(
+        tfm.tree_leaves(grads[True], with_paths=True),
+        tfm.tree_leaves(grads[False])) if not torch.equal(a, b)]
+    check(not differ, f"remat changed the gradients of {differ}")
+    del grads
+    keep = tfm._dropout_mask((DROP_B, DROP_T, cfg.d_model), DROP_RATE,
+                             tfm.fold_in(seed, 0), dev)
+    share = 1.0 - float(keep.float().mean())
+    check(abs(share - DROP_RATE) <= DROP_SHARE_TOL,
+          f"a mask dropped {share}, the rate is {DROP_RATE}")
+
+    step = tfm.make_train_step(cfg, lr=DROP_LR)
+    state = {"p": params, "o": tfm.init_opt_state(params)}
+    losses, per_step, ms = [], [], []
+    for i in range(DROP_STEPS):
+        t0 = time.perf_counter()
+        (loss, state["p"], state["o"]), c = counted(lambda: step(
+            state["p"], state["o"], x, y, tfm.fold_in(seed, i + 1)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append(c)
+    check(all(c == DROP_LAUNCHES for c in per_step),
+          f"dropout steps launched {per_step}")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"dropout losses {losses}")
+    emit("dropout_gpt2_small", batch=DROP_B, seq=DROP_T, rate=DROP_RATE,
+         lr=DROP_LR, remat_bit_equal=True, dropped_share=share,
+         share_tolerance=DROP_SHARE_TOL, losses=losses, step_ms=ms,
+         launches_per_step=DROP_LAUNCHES,
+         seconds=time.perf_counter() - t_phase)
+    return {k: v * DROP_STEPS for k, v in DROP_LAUNCHES.items()}
+
+
+def lm_trainer_phase(counted):
+    """Section 19 (LM_TRAINER_* above): train_hetu_transformer on the card,
+    its first step against kernels="off"; returns its launches."""
+    from hetu_tpu_torch.examples import train_hetu_transformer as tht
+    args = tht.parse_args([])
+    first, exs = {}, {}
+    for mode in (None, "off"):
+        (ids, exs[mode], tokens, labels), _ = _quiet(lambda: tht.build(
+            args, kernels=mode))
+        bx, by = next(tht.batches(ids, args))
+        out, c = counted(lambda: exs[mode].run(
+            "train", feed_dict={tokens: bx, labels: by}))
+        first[mode] = (float(np.mean(out[0].asnumpy())), c)
+    check(first[None][1] == LM_TRAINER_LAUNCHES and first["off"][1] == {},
+          f"train_hetu_transformer's first step launched {first[None][1]}, "
+          f"kernels='off' {first['off'][1]}")
+    loss_rel = abs(first[None][0] - first["off"][0]) / abs(first["off"][0])
+    state_rel, worst = _param_rel(exs[None], exs["off"])
+    check(loss_rel <= LM_REL and state_rel <= LM_REL,
+          f"train_hetu_transformer's first step against kernels='off': loss "
+          f"rel {loss_rel}, {worst} rel L2 {state_rel}")
+    del exs
+    t0 = time.perf_counter()
+    (losses, log), counts = counted(lambda: _quiet(lambda: tht.main(
+        ["--steps", str(LM_TRAINER_STEPS)])))
+    seconds = time.perf_counter() - t0
+    want = {k: v * LM_TRAINER_STEPS for k, v in LM_TRAINER_LAUNCHES.items()}
+    check(counts == want, f"train_hetu_transformer launched {counts}, "
+          f"expected {want}")
+    check(len(losses) == LM_TRAINER_STEPS and np.isfinite(losses).all(),
+          f"train_hetu_transformer losses {losses}")
+    emit("train_hetu_transformer", steps=LM_TRAINER_STEPS, seconds=seconds,
+         ms_per_step=seconds * 1e3 / LM_TRAINER_STEPS, corpus=log[0],
+         first_loss=losses[0], last_loss=losses[-1],
+         launches_per_step=LM_TRAINER_LAUNCHES,
+         first_step_vs_off={"loss_rel": loss_rel, "state_rel_l2": state_rel,
+                            "worst": worst, "tolerance": LM_REL})
+    return want
+
+
+def generate_demo_phase(tfm, registry, counted, dev):
+    """Section 20 (DEMO_* above): generate_hetu.main on the card, its
+    trainer's first step against kernels="off"; returns its launches."""
+    from hetu_tpu_torch.examples import generate_hetu
+    cfg = generate_hetu.config()
+    params = tfm.init_params(0, cfg, dev)
+    tok, tgt = generate_hetu.batch(torch.from_numpy(
+        generate_hetu.make_corpus(cfg.vocab_size)).to(dev), 0)
+    grad_gate(lambda c: counted(lambda: tfm.value_and_grad(
+        tfm.loss_fn, params, tok, tgt, c)), tfm, registry, cfg,
+        DEMO_LAUNCHES, "generate_hetu_grad_check", "generate_hetu's trainer",
+        dtypes=("float32",), batch=list(tok.shape))
+    del params
+    steps = int(DEMO_ARGS[DEMO_ARGS.index("--steps") + 1])
+    t0 = time.perf_counter()
+    (loss, log), counts = counted(lambda: _quiet(lambda: generate_hetu.main(
+        DEMO_ARGS)))
+    seconds = time.perf_counter() - t0
+    want = {k: v * steps for k, v in DEMO_LAUNCHES.items()}
+    check(counts == want, f"generate_hetu launched {counts}, expected {want}")
+    check(np.isfinite(loss) and loss < DEMO_LOSS_MAX,
+          f"generate_hetu's loss {loss} is not below {DEMO_LOSS_MAX}")
+    emit("generate_hetu", args=DEMO_ARGS, seconds=seconds, loss=loss,
+         loss_max=DEMO_LOSS_MAX, lines=log, launches_per_step=DEMO_LAUNCHES)
+    return want
+
+
+def nlp_phases(bert, tfm, bert_forward, registry, dev, bw):
+    """Sections 16-20: the BERT trainer, decoding and dropout at GPT-2
+    small widths, the graph-API LM's trainer and the generation demo;
+    their launches by path."""
+    from hetu_tpu_torch.models import generate as gen
+    counted = bert_forward.counted
+    torch.cuda.empty_cache()
+    out = {"bert_trainer": bert_trainer_phase(bert, tfm, bert_forward,
+                                              registry, dev)}
+    torch.cuda.empty_cache()
+    decode_phase(tfm, gen, bert_forward, counted, dev, bw)
+    torch.cuda.empty_cache()
+    out["gpt2_dropout"] = dropout_phase(tfm, registry, counted, dev)
+    torch.cuda.empty_cache()
+    out["train_hetu_transformer"] = lm_trainer_phase(counted)
+    out["generate_hetu"] = generate_demo_phase(tfm, registry, counted, dev)
+    return out
+
+
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                  quant, launches, by_path):
     """The ``kernels`` JSON object: one entry per ported kernel; its
@@ -2722,17 +3241,25 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                "dequant_blocks": "quant_comm.cu"}
     # the BERT kernels' entries are timed at the main path's shapes (their
     # first cases), and also at BERT-base's phase-2 shapes (S = 512; 32 x 76
-    # MLM rows); max_abs_err is the largest over all their cases
+    # MLM rows) and the shapes of sections 16, 18 and 20 (slice_5d: the
+    # BERT trainer's MLM rows, GPT-2 small's causal layer and tied head,
+    # generate_hetu's f32 head)
     kern = dict(kern)
     kern["flash_attention_fwd"] = dict(attn[0], max_abs_err=max(
         max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn),
-        phase2=_timed(attn[1]))
+        phase2=_timed(attn[1]), slice_5d={"gpt2_causal": _timed(attn[4])})
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
-        c["max_abs_err"] for c in ces), phase2=_timed(ces[2]))
+        c["max_abs_err"] for c in ces), phase2=_timed(ces[2]), slice_5d={
+            "bert_trainer": _timed(ces[3]), "gpt2_tied": _timed(ces[4]),
+            "generate_hetu_f32": _timed(ces[5])})
     kern["flash_attention_bwd"] = dict(attn_bwd[0], max_abs_err=max(
-        c["max_abs_err"] for c in attn_bwd), phase2=_timed(attn_bwd[1]))
+        c["max_abs_err"] for c in attn_bwd), phase2=_timed(attn_bwd[1]),
+        slice_5d={"gpt2_causal": _timed(attn_bwd[4])})
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
-        c["max_abs_err"] for c in ce_bwd), phase2=_timed(ce_bwd[2]))
+        c["max_abs_err"] for c in ce_bwd), phase2=_timed(ce_bwd[2]),
+        slice_5d={"bert_trainer": _timed(ce_bwd[3]),
+                  "gpt2_tied": _timed(ce_bwd[4])})
+    # max_abs_err is the largest over all their cases
     # csr_spmm at layer 2's forward (F = 256); epoch_ms sums the three
     # shapes an epoch launches
     kern["csr_spmm"] = dict(spmm[1], max_abs_err=max(
@@ -2758,7 +3285,7 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         **{f: v[f] for f in ("launched_ms", "step_launched_ms",
                              "plain_launched_ms", "library_launched_ms",
                              "library_timing", "shape", "epoch_ms", "phase2",
-                             "plan", "large")
+                             "slice_5d", "plan", "large")
            if f in v},
         **({"gather_bound_ms": v["gather_bound"][0]}
            if "gather_bound" in v else {}))
@@ -2797,6 +3324,11 @@ def main(argv=None):
     ap.add_argument("--gnn", action="store_true",
                     help="build, train DistGCN, the sampled GCN and NCF "
                          "(sections 13-15), and stop")
+    ap.add_argument("--nlp", action="store_true",
+                    help="build, run the BERT trainer, decoding and dropout "
+                         "at GPT-2 small widths, the graph-API LM's "
+                         "trainer and the generation demo (sections "
+                         "16-20), and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
@@ -2854,6 +3386,9 @@ def main(argv=None):
     if args.gnn:
         gnn_phases(ht, multihost, bert_forward.counted, dev)
         return 0
+    if args.nlp:
+        nlp_phases(bert, transformer, bert_forward, registry, dev, bw)
+        return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
         spmm, spmv = csr_phase(csr_spmm, registry, tr.adj, dev, bw, f32)
@@ -2873,7 +3408,7 @@ def main(argv=None):
     attn = attention_phase(flash_attention, dev, bw, f32, bf16)
     emit("flash_attention_checked", tolerance=TOL["flash_attention_fwd"],
          cases=attn)
-    ces = ce_phase(fused_ce, dev, bw, bf16)
+    ces = ce_phase(fused_ce, dev, bw, f32, bf16)
     emit("fused_linear_nll_checked", tolerance=TOL["fused_linear_nll_fwd"],
          cases=ces)
     attn_bwd = attention_bwd_phase(flash_attention, dev, bw, f32, bf16)
@@ -2982,8 +3517,11 @@ def main(argv=None):
             by_path.setdefault(k, {})[path] = v
 
     # -- 13. DistGCN on a 1 x 1 grid; 14. the sampled GCN; 15. NCF --------
-    for path, got in gnn_phases(ht, multihost, bert_forward.counted,
-                                dev).items():
+    # -- 16. the BERT trainer; 17. decoding; 18. dropout; 19. the graph-API
+    # LM's trainer; 20. the generation demo ---------------------------------
+    for path, got in list(gnn_phases(ht, multihost, bert_forward.counted,
+                                     dev).items()) + list(nlp_phases(
+            bert, transformer, bert_forward, registry, dev, bw).items()):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
             by_path.setdefault(k, {})[path] = v

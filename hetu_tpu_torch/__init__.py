@@ -42,5 +42,7 @@ from . import comm_quant
 from . import parallel
 from . import kernels
 from . import models
+from . import tokenizers
+from .tokenizers import BertTokenizer, GPT2Tokenizer
 
 __version__ = "0.1.0"

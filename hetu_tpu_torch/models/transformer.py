@@ -19,10 +19,15 @@ recomputed in the backward (``torch.utils.checkpoint``), as
 
 Training: ``init_opt_state``, ``adamw_update`` (the reference's AdamW,
 plain PyTorch, as the reference leaves it to XLA) and ``make_train_step``.
-Not ported, and refused with ``NotImplementedError``: the MoE MLP
-(``n_experts > 0``), ring attention, any mesh and ZeRO-1 (the parallel
-slices), and training-time dropout (``dropout_rate > 0``,
-``dropout_rng``).
+Training-time dropout (``cfg.dropout_rate > 0``) takes an integer
+``dropout_rng`` in the place of the reference's ``jax.random`` key:
+``fold_in`` mixes a layer, site or microbatch index into it where the
+reference folds or splits its key, and each mask is drawn by
+``_dropout_mask`` from a ``torch.Generator`` on the tensor's device seeded
+with that site's value. A mask is a function of its seed alone, so a block
+recomputed in the backward (remat) draws the same bits. Not ported, and
+refused with ``NotImplementedError``: the MoE MLP (``n_experts > 0``), ring
+attention, any mesh and ZeRO-1 (the parallel slices).
 """
 from __future__ import annotations
 
@@ -206,6 +211,42 @@ def _mm32(x, w):
     return torch.matmul(x.float(), w.to(x.dtype).float())
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 64-bit seed from ``seed`` and ``data`` (the counterpart of
+    ``jax.random.fold_in``): the splitmix64 finalizer over the seed's own
+    mix plus the data, so nearby seeds and indices give unrelated
+    values."""
+    z = (_mix64(int(seed)) + 0x9E3779B97F4A7C15 * (int(data) + 1)) & _MASK64
+    return _mix64(z)
+
+
+def _mix64(z: int) -> int:
+    z &= _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _dropout_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
+    """The keep mask of one dropout site: ``True`` with probability
+    ``1 - rate``, drawn from a generator on ``device`` seeded with
+    ``seed``, so the same seed gives the same bits (the reference's
+    ``jax.random.bernoulli(key, 1 - rate, shape)``)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def _dropout(x, rate: float, seed):
+    """Inverted dropout; identity when rate == 0 or seed is None (eval)."""
+    if rate == 0.0 or seed is None:
+        return x
+    keep = _dropout_mask(x.shape, rate, seed, x.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def _layer_norm(x, scale, bias, eps=1e-5):
     """The reference's f32 LayerNorm cast back to x's dtype, as one
     ``F.layer_norm`` on the f32 input (3 launches on the card, not 10)."""
@@ -355,11 +396,13 @@ def _dense_mlp(h, p, cfg, mesh):
 def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
            dropout_rng=None):
     """One transformer block. Pre-LN (default): LN -> sublayer ->
-    residual. Post-LN (``cfg.post_ln``): sublayer -> residual -> LN."""
-    if dropout_rng is not None:
-        raise NotImplementedError(
-            "dropout_rng (training-time dropout) is not ported to "
-            "hetu_tpu_torch yet: it comes with slice 5d (ROADMAP Queue 1)")
+    residual. Post-LN (``cfg.post_ln``): sublayer -> residual -> LN.
+    ``dropout_rng`` (an integer seed, the layer's fold): dropout on the
+    attention output (site 0) and the MLP output (site 1), the reference's
+    ``split`` of its key into two.
+
+    Any dialect knob added here must be mirrored in
+    ``generate._decode_layer``, the KV-cache form of this block."""
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "n_experts > 0 (the switch MoE MLP) is not ported to "
@@ -367,12 +410,19 @@ def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
     post = cfg.post_ln
     attn_in = h if post else _norm(
         h, layer_params["ln1_scale"], layer_params["ln1_bias"], cfg)
-    h = h + _attention(attn_in, layer_params, cfg, mesh, attn_bias)
+    attn_out = _attention(attn_in, layer_params, cfg, mesh, attn_bias)
+    if dropout_rng is not None:
+        attn_out = _dropout(attn_out, cfg.dropout_rate,
+                            fold_in(dropout_rng, 0))
+    h = h + attn_out
     if post:
         h = _norm(h, layer_params["ln1_scale"], layer_params["ln1_bias"], cfg)
     mlp_in = h if post else _norm(
         h, layer_params["ln2_scale"], layer_params["ln2_bias"], cfg)
-    h = h + _dense_mlp(mlp_in, layer_params, cfg, mesh)
+    out = _dense_mlp(mlp_in, layer_params, cfg, mesh)
+    if dropout_rng is not None:
+        out = _dropout(out, cfg.dropout_rate, fold_in(dropout_rng, 1))
+    h = h + out
     if post:
         h = _norm(h, layer_params["ln2_scale"], layer_params["ln2_bias"], cfg)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
@@ -388,13 +438,22 @@ def embed_tokens(params, tokens, cfg: TransformerConfig):
     return h
 
 
-def lm_head(params, h, cfg: TransformerConfig):
-    """Final norm (pre-LN only) + vocab projection -> f32 logits."""
+def head_matrix(params, cfg: TransformerConfig):
+    """The (D, V) vocab projection as ``lm_head``'s ``_mm32`` multiplies
+    it: rounded to ``cfg.dtype``, then widened to f32."""
+    w = params["embed"].t() if cfg.tied_head else params["head"]
+    return w.to(cfg.dtype).float()
+
+
+def lm_head(params, h, cfg: TransformerConfig, head=None):
+    """Final norm (pre-LN only) + vocab projection -> f32 logits. ``head``:
+    ``head_matrix(params, cfg)`` made once by a caller that applies the
+    head many times (a decoder); by default it is formed at this call."""
     if not cfg.post_ln:
         h = _norm(h, params["lnf_scale"], params["lnf_bias"], cfg)
-    if cfg.tied_head:
-        return _mm32(h, params["embed"].t())
-    return _mm32(h, params["head"])
+    if head is None:
+        head = head_matrix(params, cfg)
+    return torch.matmul(h.float(), head)
 
 
 def nll_loss(logits, targets):
@@ -408,7 +467,11 @@ def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
     ``attn_bias`` (a padding mask) is the same for every layer. With
     ``cfg.remat`` and gradients enabled, each block keeps only its inputs
     and is recomputed in the backward, under the kernel mode of this call
-    (``registry.bind``)."""
+    (``registry.bind``). ``dropout_rng``: an integer seed for
+    training-time dropout when ``cfg.dropout_rate > 0``, folded with each
+    layer's index; omit it for deterministic eval. The masks are drawn
+    inside the block from seeds alone, so the recompute draws the same
+    bits (no generator state crosses the checkpoint)."""
     _no_mesh(mesh)
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     # one unbind per stacked tensor: its backward stacks the L layer
@@ -417,16 +480,17 @@ def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
     names = list(params["blocks"])
     layers = zip(*(params["blocks"][n].unbind(0) for n in names))
     remat = cfg.remat and torch.is_grad_enabled()
-    block = registry.bind(lambda h, layer_params: _block(
-        h, layer_params, cfg, mesh, attn_bias=attn_bias,
-        dropout_rng=dropout_rng))
+    block = registry.bind(lambda h, layer_params, rng: _block(
+        h, layer_params, cfg, mesh, attn_bias=attn_bias, dropout_rng=rng))
 
-    for layer in layers:
+    for li, layer in enumerate(layers):
         layer_params = dict(zip(names, layer))
+        rng = None if dropout_rng is None else fold_in(dropout_rng, li)
         if remat:
-            h, aux = checkpoint(block, h, layer_params, use_reentrant=False)
+            h, aux = checkpoint(block, h, layer_params, rng,
+                                use_reentrant=False)
         else:
-            h, aux = block(h, layer_params)
+            h, aux = block(h, layer_params, rng)
         aux_sum = aux_sum + aux
     return h, aux_sum
 
@@ -564,10 +628,6 @@ def _check_train_options(cfg, mesh, zero1=False):
             "zero1=True (optimizer state sharded over a dp mesh) is not "
             "ported to hetu_tpu_torch yet: it comes with slice 8 (meshes, "
             "TP, PP, ZeRO; ROADMAP Queue 1)")
-    if cfg.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "dropout_rate > 0 (training-time dropout) is not ported to "
-            "hetu_tpu_torch yet: it comes with slice 5d (ROADMAP Queue 1)")
 
 
 def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
@@ -583,14 +643,23 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
     (A, B, T); the microbatches' losses and gradients are averaged, in a
     Python loop, before the single optimizer update.
 
-    A mesh, ``zero1=True`` and ``cfg.dropout_rate > 0`` raise
-    ``NotImplementedError`` (later slices)."""
-    _check_train_options(cfg, mesh, zero1)
+    ``cfg.dropout_rate > 0``: the step takes a trailing ``dropout_rng``, an
+    integer seed (pass a fresh one each step); a missing one raises. Each
+    accumulation microbatch folds in its index, as the reference does.
+    With no dropout the step keeps the 4-argument signature.
 
-    def step(params, opt_state, tokens, targets):
+    A mesh and ``zero1=True`` raise ``NotImplementedError`` (slice 8)."""
+    _check_train_options(cfg, mesh, zero1)
+    use_dropout = cfg.dropout_rate > 0.0
+
+    def step(params, opt_state, tokens, targets, dropout_rng=None):
+        if use_dropout and dropout_rng is None:
+            # a forgotten key must not silently train without dropout
+            raise ValueError("cfg.dropout_rate > 0: pass dropout_rng to "
+                             "the train step")
         if accum_steps == 1:
             loss, grads = value_and_grad(loss_fn, params, tokens, targets,
-                                         cfg, mesh)
+                                         cfg, mesh, dropout_rng=dropout_rng)
         else:
             if tokens.shape[0] != accum_steps:
                 raise ValueError(f"leading (accumulation) axis "
@@ -598,8 +667,11 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
                                  f"{accum_steps}")
             loss, grads = None, None
             for mi in range(accum_steps):
+                rng = (None if dropout_rng is None
+                       else fold_in(dropout_rng, mi))
                 l, g = value_and_grad(loss_fn, params, tokens[mi],
-                                      targets[mi], cfg, mesh)
+                                      targets[mi], cfg, mesh,
+                                      dropout_rng=rng)
                 if grads is None:
                     loss, grads = l, g
                 else:
@@ -610,4 +682,7 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
         return loss, params, opt_state
 
-    return step
+    if use_dropout:
+        return step
+    return lambda params, opt_state, tokens, targets: step(
+        params, opt_state, tokens, targets)

@@ -205,16 +205,16 @@ def test_unported_paths_raise(batch):
     plain = tt.TransformerConfig(dtype=torch.float32, **LM)
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.forward(p, tokens, plain, mesh=object())
-    with pytest.raises(NotImplementedError, match="dropout_rng"):
-        tt.forward(p, tokens, plain, dropout_rng=torch.Generator())
     # the train steps' options that wait for later slices
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.make_train_step(plain, mesh=object())
     with pytest.raises(NotImplementedError, match="zero1"):
         tt.make_train_step(plain, zero1=True)
+    # training-time dropout is ported: its step refuses a missing key
     drop = tt.TransformerConfig(dtype=torch.float32, dropout_rate=0.1, **LM)
-    with pytest.raises(NotImplementedError, match="dropout_rate"):
-        tt.make_train_step(drop)
+    pd = tt.init_params(0, drop, "cpu")
+    with pytest.raises(ValueError, match="dropout_rng"):
+        tt.make_train_step(drop)(pd, tt.init_opt_state(pd), tokens, tokens)
     cfg = tb.BertConfig(dtype=torch.float32, **SMALL)
     with pytest.raises(NotImplementedError, match="mesh"):
         tb.make_pretrain_step(cfg, mesh=object())

@@ -148,6 +148,44 @@ def test_a_cpu_bert_train_step_loads_neither_jax_nor_hetu_tpu():
     assert "LOADED []" in p.stdout, p.stdout
 
 
+def test_a_cpu_tokenize_decode_and_dropout_step_load_neither():
+    """The slice-5d path on the CPU: the WordPiece tokenizer, a greedy
+    decode with the KV cache, a checkpoint round trip and one dropout
+    train step load neither jax nor hetu_tpu."""
+    script = textwrap.dedent("""
+        import sys, tempfile
+        import torch
+        from hetu_tpu_torch import checkpoint
+        from hetu_tpu_torch.tokenizers import BertTokenizer
+        from hetu_tpu_torch.models import generate, transformer as tfm
+        vocab = {t: i for i, t in enumerate(
+            ["[PAD]", "[UNK]", "the", "fox", "dog", "runs", "##s"])}
+        ids = BertTokenizer(vocab).encode("the fox runs the dogs")
+        assert ids == [2, 3, 5, 2, 4, 6], ids
+        cfg = tfm.TransformerConfig(vocab_size=7, d_model=16, n_heads=2,
+                                    n_layers=1, d_ff=32, max_seq_len=12,
+                                    dtype=torch.float32, dropout_rate=0.1)
+        params = tfm.init_params(0, cfg, "cpu")
+        toks = generate.generate(params, cfg, [ids], max_len=10)
+        assert toks.shape == (1, 10) and list(toks[0, :6]) == ids
+        tokens = torch.tensor([ids + ids])
+        opt = tfm.init_opt_state(params)
+        loss, params, opt = tfm.make_train_step(cfg)(
+            params, opt, tokens, tokens.roll(-1, 1), 7)
+        assert torch.isfinite(loss)
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save(d + "/ck", {"params": params, "opt": opt})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert p.returncode == 0, p.stderr
+    assert "LOADED []" in p.stdout, p.stdout
+
+
 def test_a_cpu_dp_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
     """The data-parallel path on the CPU: the runner, the process group
     (one gloo rank), an explicit dp mesh and the quantized all-reduce
