@@ -51,8 +51,18 @@ resumed run held bit for bit against an uninterrupted one; decodes at
 GPT-2 small widths (``models/generate.py``: greedy, sampling, beam, EOS,
 ragged, speculative, each held to its gate); trains GPT-2 small with
 dropout, remat on and off bit-equal; and runs the graph-API LM's trainer
-and the generation demo. Each path is checked to have gone through its
-kernels.
+and the generation demo; then (slice 5c) checks the attention, fused-CE
+and embedding-gradient kernels at the shapes of TinyLlama-1.1B, the MoE
+LM and the GPT-2 pipeline, imports
+TinyLlama-1.1B at its published widths through ``models/hf_llama.py``
+from a stand-in checkpoint drawn under HF's names (no transformers on the
+card), exports it back bit for bit, decodes it greedily and trains it 5
+steps at 2 x 2048 with remat; trains the switch-MoE LM at GPT-2 small
+widths with 8 experts; imports ViT-B/16 through ``hf_vit`` (its logits
+against the CPU's) and trains it; fine-tunes BERT-base imported through
+``hf_bert`` by ``examples/finetune_hf_bert.py``'s legs; and runs
+``examples/gpt2_pipeline.py``'s legs at GPT-2 small widths. Each path is
+checked to have gone through its kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -64,6 +74,7 @@ kernels.
     python3 chip_smoke.py --ps             # build, the Hybrid phase only
     python3 chip_smoke.py --gnn            # build, DistGCN, sampled GCN, NCF
     python3 chip_smoke.py --nlp            # build, sections 16-20
+    python3 chip_smoke.py --hf             # build, sections 21-25
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -81,7 +92,8 @@ builds and runs the ResNet-18 and LM phases (sections 10-11) alone;
 ``--ps`` the Hybrid phase (section 12) alone; ``--gnn`` the DistGCN,
 sampled-GCN and NCF phases (sections 13-15) alone; ``--nlp`` the BERT
 trainer, decoding, dropout, LM-trainer and demo phases (sections 16-20)
-alone.
+alone; ``--hf`` the kernels at slice 5c's shapes and the TinyLlama, MoE,
+ViT, HF BERT and GPT-2 pipeline phases (sections 21-25) alone.
 """
 import argparse
 import concurrent.futures
@@ -479,6 +491,112 @@ DEMO_LOSS_MAX = 3.0
 DEMO_LAUNCHES = {"fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
                  "fused_embed_grad": 1}
 
+# Slice 5c (sections 21-25): the HuggingFace family, the switch MoE, ViT.
+# No checkpoint file is in the repository and the card's host has no
+# transformers: each section draws its weights under HF's names and
+# layouts from a seed (examples/hf_standins.py, the published config.json
+# widths) and imports them through the port's hf_* importer from a
+# stand-in holding a config and a state_dict().
+# TinyLlama-1.1B (section 21, slice 5c's main path; hf_standins.TINYLLAMA:
+# hidden 2048, 22 layers, 32 heads over 4 KV heads of 64, intermediate
+# 5632, vocabulary 32,000, 2,048 positions, RMSNorm eps 1e-5, rope theta
+# 10,000, an untied head; 1.10 B parameters): (a) state_dict_from_params
+# gives the stand-in's tensors back bit for bit; (b) greedy decode of
+# LLAMA_DECODE_B prompts of LLAMA_PROMPT seeded ids to LLAMA_NEW more
+# tokens, held to section 17's gates (the logits against tfm.forward over
+# the produced sequence by rel L2: in f32 within DECODE_REL_F32; in bf16
+# within DECODE_REL_BF16, or within BF16_EXCESS times the bf16 forward's
+# own distance from the f32 forward where that is larger: 22 layers of
+# bf16 rounding take the decode 1.9 % from the forward on an H100, near
+# DECODE_REL_BF16; decoding launches no kernel) and timed in bf16 as
+# section 17 times its decode; (c) LLAMA_STEPS
+# AdamW steps at lr LLAMA_LR in bf16 with remat at LLAMA_B x LLAMA_T
+# (TinyLlama's pretraining context), the first step's gradients against
+# kernels="off" by grad_gate (f32 and bf16): in bf16 its 22 layers over
+# 4,096 tokens move the plain versions' gradients about 4.3 % (rel L2)
+# from the f32 ones on an H100, and the kernels' as far (PERF.md), so the
+# two are held together within BF16_EXCESS times the plain versions'
+# distance (``deep``) where BERT-base's are held within GRAD_REL. Per
+# step: 44
+# flash_attention_fwd (causal over the 32 heads the 4 KV heads expand to;
+# the forward and the recompute), 22 _bwd, 1 fused_linear_nll_fwd and 1
+# _bwd (the untied (D, V) head) and 1 fused_embed_grad (the tokens). The
+# kernels at this path's shapes (HF_*_CASES) against their plain versions
+# under the gates above: causal attention at (2, 32, 2048, 64), the head at
+# 4,096 rows x 32,000 x 2,048 (D, V), the token gradient into the
+# 32,000 x 2,048 table from 4,096 ids.
+LLAMA_DECODE_B, LLAMA_PROMPT, LLAMA_NEW = 8, 128, 64
+LLAMA_B, LLAMA_T, LLAMA_STEPS, LLAMA_LR = 2, 2048, 5, 4e-4
+LLAMA_LAUNCHES = {"flash_attention_fwd": 44, "flash_attention_bwd": 22,
+                  "fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
+                  "fused_embed_grad": 1}
+# The switch-MoE LM (section 22) at GPT-2 small's widths (GPT2_SMALL) with
+# Switch-Base-8's expert count: MOE_E experts, capacity factor MOE_CAP
+# (capacity int(1.25 x 8,192 / 8) = 1,280 tokens an expert), the dense
+# (S, E, cap) dispatch and combine of the reference; MOE_STEPS AdamW steps
+# at lr MOE_LR in bf16 with remat at MOE_B x MOE_T. Per step the kernels of
+# section 18 (MOE_LAUNCHES; the MoE's products are PyTorch's). The first
+# step's gradients against kernels="off" by grad_gate in f32 only: the
+# router's argmax is discontinuous, and the two sides' bf16 roundings
+# differ by about 2e-3, enough to send a token with a close top two to
+# the other expert (and to shift the capacity slots after it), where f32's
+# 1e-7 almost never does. In bf16, the path's dtype (the kernels'
+# tensor-core forms), the first step's loss within BERT_REL of
+# kernels="off" (a few rerouted tokens move it little), its gradients'
+# distance reported. The dropped-token share of each layer and the aux
+# loss of one bf16 forward are reported.
+MOE_E, MOE_CAP, MOE_B, MOE_T, MOE_STEPS, MOE_LR = 8, 1.25, 8, 1024, 5, 3e-4
+MOE_LAUNCHES = DROP_LAUNCHES
+# ViT-B/16 (section 23; hf_standins.VIT_B16 = models/vit.py's VIT_BASE
+# with a 1,000-class head): imported from a ViTForImageClassification
+# stand-in; classify_logits on VIT_IMAGES seeded images in f32 against the
+# port's own forward of the same weights on the CPU, rel L2 within VIT_REL
+# (f32 sums in another order); VIT_STEPS steps of make_train_step at batch
+# VIT_B (f32, the config's dtype). T = 197 is not a multiple of 128, so
+# "auto" takes the dot form: no kernel launches on this path, as on the
+# reference off the TPU (the sequence is not padded to reach a kernel).
+VIT_IMAGES, VIT_B, VIT_STEPS, VIT_LR, VIT_REL = 8, 32, 5, 1e-4, 1e-5
+# BERT-base through hf_bert (section 24; hf_standins.BERT_BASE, post-LN,
+# eps 1e-12): a BertForSequenceClassification stand-in imported by
+# finetune_hf_bert's legs (import_model grafts a fresh head, as the
+# example does), then HFB_STEPS steps of its tune leg (make_finetune_step,
+# f32 as imported, remat off) at HFB_B x HFB_T on its task with a
+# key-padding mask (lengths drawn in [T/2, T]). Per step 12
+# flash_attention_fwd and 12 _bwd (non-causal, the padding folded in) and
+# 2 fused_embed_grad (tokens, types). The first step's gradients against
+# kernels="off" by grad_gate; the tune leg's steps (finetune_hf_bert.
+# tuning, one a call) timed by _timed_steps, as sections 21-23.
+HFB_B, HFB_T, HFB_STEPS, HFB_LR = 32, 128, 5, 2e-5
+HFB_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                "fused_embed_grad": 2}
+# gpt2_pipeline's legs (section 25) at GPT-2 small's widths, the
+# vocabulary the demo tokenizer's (no GPT-2 vocab files in the
+# repository): import (the head tied), the first step's gradients
+# against kernels="off" by grad_gate (f32, the path's dtype), PIPE_STEPS
+# tuning steps timed by _timed_steps (f32, PIPE_B x PIPE_T tokens: the dot
+# form; per step 1 fused_linear_nll_fwd and 1 _bwd over the tied
+# embedding, 1 fused_embed_grad), greedy, sampled and speculative
+# decoding (speculative equal to greedy), and the tuned params exported by
+# state_dict_from_params and imported again, bit for bit.
+PIPE_STEPS, PIPE_MAX_LEN, PIPE_SPEC_K = 3, 32, 3
+PIPE_B, PIPE_T, PIPE_VOCAB = 8, 32, 264
+PIPE_LAUNCHES = {"fused_linear_nll_fwd": 1, "fused_linear_nll_bwd": 1,
+                 "fused_embed_grad": 1}
+# The kernels at the shapes of sections 21-25, held against their plain
+# versions (forward and backward) under the gates of ATTN_CASES and
+# CE_CASES: causal attention at TinyLlama's (2, 32, 2048, 64) and the
+# MoE LM's (8, 12, 1024, 64), bf16; the fused CE at TinyLlama's untied
+# head (4,096 rows x 32,000, (D, V)) and the MoE LM's tied one (8,192
+# rows x 50,257, (V, D)), bf16, and at the GPT-2 pipeline's tied head in
+# f32 (256 rows x the demo vocabulary's 264: a partial vocabulary tile);
+# the token gradient into TinyLlama's 32,000 x 2,048 table from 4,096 ids.
+HF_ATTN_CASES = [(LLAMA_B, 32, LLAMA_T, 64, torch.bfloat16, True, False),
+                 (MOE_B, 12, MOE_T, 64, torch.bfloat16, True, False)]
+HF_CE_CASES = [(LLAMA_B * LLAMA_T, 32000, 2048, "dv", torch.bfloat16),
+               (MOE_B * MOE_T, 50257, 768, "vd", torch.bfloat16),
+               (PIPE_B * PIPE_T, PIPE_VOCAB, 768, "vd", torch.float32)]
+HF_EMBED_CASES = [("llama_token", 2048)]
+
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
 # fused CE's, mma.sync (HMMA) in flash attention's. Every one named here
@@ -821,16 +939,16 @@ def _attention_inputs(gen, dev, b, h, s, d, dtype, pad):
     return q, k, v, kb
 
 
-def attention_phase(fa, dev, bw, f32, bf16):
+def attention_phase(fa, dev, bw, f32, bf16, attn_cases=ATTN_CASES):
     """flash_attention_fwd against its plain version (bf16 o also by its
     relative L2 error; in f32, also against unfused attention) at
-    ATTN_CASES, each kernel run twice and held bit-equal to itself; timed
-    at each case."""
+    ``attn_cases``, each kernel run twice and held bit-equal to itself;
+    timed at each case."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(1)
     tol = TOL["flash_attention_fwd"]
     cases = []
-    for b, h, s, d, dtype, causal, pad in ATTN_CASES:
+    for b, h, s, d, dtype, causal, pad in attn_cases:
         q, k, v, kb = _attention_inputs(gen, dev, b, h, s, d, dtype, pad)
         kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
                   block_k=min(128, s))
@@ -883,13 +1001,13 @@ def attention_phase(fa, dev, bw, f32, bf16):
     return cases
 
 
-def ce_phase(ce, dev, bw, f32, bf16):
-    """fused_linear_nll_fwd against its plain version at CE_CASES, the
+def ce_phase(ce, dev, bw, f32, bf16, ce_cases=CE_CASES):
+    """fused_linear_nll_fwd against its plain version at ``ce_cases``, the
     kernel run twice and held bit-equal to itself; timed."""
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = TOL["fused_linear_nll_fwd"]["lse_tl_nll"]
     cases = []
-    for n, v, d, layout, dtype in CE_CASES:
+    for n, v, d, layout, dtype in ce_cases:
         w_dv = layout == "dv"
         h = torch.randn((n, d), generator=gen, device=dev).to(dtype)
         w = (torch.randn((v, d), generator=gen, device=dev) * 0.02).to(dtype)
@@ -931,14 +1049,15 @@ def ce_phase(ce, dev, bw, f32, bf16):
     return cases
 
 
-def attention_bwd_phase(fa, dev, bw, f32, bf16):
+def attention_bwd_phase(fa, dev, bw, f32, bf16, attn_cases=ATTN_CASES):
     """flash_attention_bwd against its plain version (and, in f32, against
-    autograd of unfused attention) at ATTN_CASES; timed at each case."""
+    autograd of unfused attention) at ``attn_cases``; timed at each
+    case."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(3)
     tol = TOL["flash_attention_bwd"]
     cases = []
-    for b, h, s, d, dtype, causal, pad in ATTN_CASES:
+    for b, h, s, d, dtype, causal, pad in attn_cases:
         q, k, v, kb = _attention_inputs(gen, dev, b, h, s, d, dtype, pad)
         do = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         kw = dict(scale=d ** -0.5, causal=causal, block_q=min(128, s),
@@ -1005,13 +1124,13 @@ def attention_bwd_phase(fa, dev, bw, f32, bf16):
     return cases
 
 
-def ce_bwd_phase(ce, dev, bw, bf16):
-    """fused_linear_nll_bwd against its plain version at CE_BWD_CASES; the
+def ce_bwd_phase(ce, dev, bw, bf16, ce_cases=CE_BWD_CASES):
+    """fused_linear_nll_bwd against its plain version at ``ce_cases``; the
     bf16 cases timed."""
     gen = torch.Generator(device=dev).manual_seed(4)
     tol = TOL["fused_linear_nll_bwd"]
     cases = []
-    for n, v, d, layout, dtype in CE_BWD_CASES:
+    for n, v, d, layout, dtype in ce_cases:
         w_dv = layout == "dv"
         bf = dtype == torch.bfloat16
         h = torch.randn((n, d), generator=gen, device=dev).to(dtype)
@@ -1245,8 +1364,16 @@ def gcn_phase(ht, gnn_main, cs, registry, counted, dev, bw, f32):
 
 
 def _embed_inputs(case, d, first_ids, bert_batch, gen, dev):
-    """(vec, idx, vocab, form) of one EMBED_CASES case; CTR ids as float32,
-    as fed; BERT's as the batch holds them."""
+    """(vec, idx, vocab, form) of one EMBED_CASES or HF_EMBED_CASES case;
+    CTR ids as float32, as fed; BERT's as the batch holds them; TinyLlama's
+    a seeded LLAMA_B x LLAMA_T batch of its vocabulary's ids."""
+    if case == "llama_token":
+        from hetu_tpu_torch.examples import hf_standins
+        vocab = hf_standins.TINYLLAMA["vocab_size"]
+        idx = torch.randint(0, vocab, (LLAMA_B, LLAMA_T), generator=gen,
+                            device=dev)
+        return (torch.randn((idx.numel(), d), generator=gen, device=dev), idx,
+                vocab, "dense")
     ids = first_ids.reshape(-1)
     idx, vocab, form = {
         "wdl": (first_ids, CTR_VOCAB, "compact"),
@@ -1259,8 +1386,9 @@ def _embed_inputs(case, d, first_ids, bert_batch, gen, dev):
             vocab, form)
 
 
-def embed_grad_phase(eg, registry, first_ids, bert_batch, dev, bw, f32):
-    """fused_embed_grad against its plain version at EMBED_CASES, after the
+def embed_grad_phase(eg, registry, first_ids, bert_batch, dev, bw, f32,
+                     embed_cases=EMBED_CASES):
+    """fused_embed_grad against its plain version at ``embed_cases``, after the
     prep the path runs first, each timed: replayed (``ms``), launched
     through the registry one call at a time, and eagerly the plain
     version, torch.segment_reduce on the sorted rows (the library's sorted
@@ -1272,7 +1400,7 @@ def embed_grad_phase(eg, registry, first_ids, bert_batch, dev, bw, f32):
     kernel)."""
     gen = torch.Generator(device=dev).manual_seed(8)
     cases = []
-    for case, d in EMBED_CASES:
+    for case, d in embed_cases:
         vec, idx, vocab, form = _embed_inputs(case, d, first_ids, bert_batch,
                                               gen, dev)
         flat, order, sidx = eg._prep(vec, idx)
@@ -1749,7 +1877,7 @@ def hybrid_phase(ht, ctr_main, eg, registry, counted, dev):
 
 
 def grad_gate(grads, tfm, registry, cfg, want, line, what,
-              dtypes=("float32", "bfloat16"), **fields):
+              dtypes=("float32", "bfloat16"), deep=False, **fields):
     """The first step's loss and gradients with the kernels against
     kernels="off" on the same inputs, at ``cfg`` in each of ``dtypes``:
     ``grads(c)`` gives ``((loss, gradient tree), the launches it made)``
@@ -1757,7 +1885,11 @@ def grad_gate(grads, tfm, registry, cfg, want, line, what,
     tensor's gradient within GRAD_REL; in bf16 all together within
     GRAD_REL, and each tensor's and all together at most BF16_EXCESS times
     as far from the f32 gradient as the plain versions' (see GRAD_REL
-    above). One ``line`` a dtype, with ``fields``; a failure names
+    above). ``deep``: a model whose bf16 rounding alone moves the plain
+    versions' gradients further than GRAD_REL/BF16_EXCESS from the f32
+    ones (TinyLlama, LLAMA_* above); its bf16 gradients all together are
+    held against kernels="off" within BF16_EXCESS times that distance
+    instead. One ``line`` a dtype, with ``fields``; a failure names
     ``what``. Returns the agreement by dtype."""
     agree, ref = {}, None
     for name in dtypes:
@@ -1795,11 +1927,12 @@ def grad_gate(grads, tfm, registry, cfg, want, line, what,
                 vs_f32_all=k_all, off_vs_f32_all=o_all, vs_f32=vs_k,
                 off_vs_f32=vs_o, excess_limit=BF16_EXCESS,
                 worst_share_of_limit=use[worst_x], worst=worst_x)
-        emit(line, dtype=name, grad_rel_l2_tol=GRAD_REL, **fields,
-             **agree[name])
+        tol = (max(GRAD_REL, BF16_EXCESS * o_all)
+               if deep and name == "bfloat16" else GRAD_REL)
+        emit(line, dtype=name, grad_rel_l2_tol=tol, **fields, **agree[name])
         check(agree[name]["loss_rel"] < BERT_REL, f"{what} {name} first "
               f"loss {float(loss_k)} vs kernels='off' {float(loss_o)}")
-        check(agree[name]["grad_rel_l2_all"] < GRAD_REL, f"{what} {name} "
+        check(agree[name]["grad_rel_l2_all"] < tol, f"{what} {name} "
               f"gradients differ from kernels='off': {agree[name]}")
         if name == "float32":
             check(per[worst] < GRAD_REL, f"{what} float32 gradient of "
@@ -2960,6 +3093,37 @@ def _gpt2(tfm, dev, **kw):
     return cfg, tfm.init_params(0, cfg, dev)
 
 
+def _decode_times(tfm, gen, bert_forward, cfg, params, prompt, M, bw):
+    """The time of a greedy decode step (a token in each row): the whole
+    decode to ``M`` less the prefill and one step (a call with max_len =
+    P) on the host clock; the device's kernels over DECODE_PROFILED steps
+    (a call with max_len = P + DECODE_PROFILED) less the prefill's, from
+    torch.profiler."""
+    P = prompt.shape[1]
+    greedy = gen.make_generate_fn(cfg, M)
+    short = gen.make_generate_fn(cfg, P)
+    mid = gen.make_generate_fn(cfg, P + DECODE_PROFILED)
+    long_ms = min(_wall_ms(lambda: greedy(params, prompt, 0))
+                  for _ in range(2))
+    short_ms = min(_wall_ms(lambda: short(params, prompt, 0))
+                   for _ in range(2))
+    mid_ms = _wall_ms(lambda: mid(params, prompt, 0))
+    with tempfile.TemporaryDirectory() as d:
+        dev_mid = bert_forward.profile(lambda: mid(params, prompt, 0),
+                                       mid_ms, 1, os.path.join(d, "m.txt"))
+        dev_short = bert_forward.profile(lambda: short(params, prompt, 0),
+                                         short_ms, 1, os.path.join(d, "s.txt"))
+    return dict(
+        decode_ms=long_ms, prefill_and_one_step_ms=short_ms,
+        ms_per_token=(long_ms - short_ms) / (M - P),
+        device_ms_per_token=(dev_mid["device_ms"] - dev_short["device_ms"])
+        / DECODE_PROFILED, device_busy_share=dev_mid["device_busy_share"],
+        device_groups_us=dev_mid["groups_us"],
+        device_top_kernels=dev_mid["top_kernels"][:6],
+        weights_read_bound_ms=sum(x.numel() * x.element_size() for x in
+                                  tfm.tree_leaves(params)) / bw * 1e3)
+
+
 def decode_phase(tfm, gen, bert_forward, counted, dev, bw):
     """Section 17 (GPT2_SMALL, DECODE_* above): generation at GPT-2 small
     widths, its gates, and the greedy decode's time a step."""
@@ -2982,32 +3146,8 @@ def decode_phase(tfm, gen, bert_forward, counted, dev, bw):
           f"logits rel L2 {out['bf16_logits_rel_l2']} from the forward")
     del full, logits
 
-    # the time of a decode step: the whole decode less the prefill and one
-    # step (a call with max_len = P) on the host clock; the device's
-    # kernels over DECODE_PROFILED steps (a call with max_len = P +
-    # DECODE_PROFILED) less the prefill's, from torch.profiler
-    short = gen.make_generate_fn(cfg, P)
-    mid = gen.make_generate_fn(cfg, P + DECODE_PROFILED)
-    long_ms = min(_wall_ms(lambda: greedy(params, prompt, 0))
-                  for _ in range(2))
-    short_ms = min(_wall_ms(lambda: short(params, prompt, 0))
-                   for _ in range(2))
-    mid_ms = _wall_ms(lambda: mid(params, prompt, 0))
-    with tempfile.TemporaryDirectory() as d:
-        dev_mid = bert_forward.profile(lambda: mid(params, prompt, 0),
-                                       mid_ms, 1, os.path.join(d, "m.txt"))
-        dev_short = bert_forward.profile(lambda: short(params, prompt, 0),
-                                         short_ms, 1, os.path.join(d, "s.txt"))
-    steps = M - P
-    out.update(
-        decode_ms=long_ms, prefill_and_one_step_ms=short_ms,
-        ms_per_token=(long_ms - short_ms) / steps,
-        device_ms_per_token=(dev_mid["device_ms"] - dev_short["device_ms"])
-        / DECODE_PROFILED, device_busy_share=dev_mid["device_busy_share"],
-        device_groups_us=dev_mid["groups_us"],
-        device_top_kernels=dev_mid["top_kernels"][:6],
-        weights_read_bound_ms=sum(x.numel() * x.element_size() for x in
-                                  tfm.tree_leaves(params)) / bw * 1e3)
+    out.update(_decode_times(tfm, gen, bert_forward, cfg, params, prompt, M,
+                             bw))
 
     # top-k sampling: every token among the top k of its step
     sampler = gen.make_generate_fn(cfg, M, sample=True, top_k=DECODE_TOPK)
@@ -3214,11 +3354,392 @@ def nlp_phases(bert, tfm, bert_forward, registry, dev, bw):
     return out
 
 
+def _timed_steps(bert_forward, one_step, n, want, what):
+    """``n`` calls of ``one_step`` (a training step; returns its loss),
+    each with the launch counts zeroed just before it and read just after,
+    all equal to ``want``. Returns the losses, each step's wall ms (host
+    clock to a synchronize; the last step runs under torch.profiler, which
+    gives its device ms by kernel group), their median over the steps
+    after the first, and the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, prof = [], [], None
+    for i in range(n):
+        box = []
+        t0 = time.perf_counter()
+        if i < n - 1:
+            _, counts = bert_forward.counted(lambda: box.append(one_step()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            steady = float(np.median(ms[1:] or ms))
+            with tempfile.TemporaryDirectory() as d:
+                prof, counts = bert_forward.counted(
+                    lambda: bert_forward.profile(
+                        lambda: box.append(one_step()), steady, 1,
+                        os.path.join(d, "step.txt")))
+        losses.append(float(box[0]))
+        check(counts == want, f"{what} step {i} launched {counts}, "
+              f"expected {want}")
+    check(np.isfinite(losses).all(), f"{what} losses {losses}")
+    return dict(losses=losses, step_ms=ms, steady_step_ms=steady,
+                device_ms=prof["device_ms"],
+                device_busy_share=prof["device_busy_share"],
+                device_groups_us=prof["groups_us"],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _lm_step(tfm, cfg, lr, params, x, y):
+    """One ``make_train_step`` step a call on ``x``, ``y``, the params and
+    AdamW state carried from call to call; returns the loss."""
+    step = tfm.make_train_step(cfg, lr=lr)
+    state = {"p": params, "o": tfm.init_opt_state(params)}
+
+    def one():
+        loss, state["p"], state["o"] = step(state["p"], state["o"], x, y)
+        return loss
+    return one
+
+
+def _same_tensors(got: dict, want: dict, what):
+    """``got`` (numpy) holds each of ``want``'s tensors bit for bit."""
+    check(set(got) == set(want),
+          f"{what}: keys {sorted(set(got) ^ set(want))[:4]}")
+    differ = [k for k, v in want.items()
+              if not np.array_equal(got[k], v.detach().cpu().numpy())]
+    check(not differ, f"{what}: {differ[:4]} differ")
+
+
+def _tokens(vocab, b, t, seed, dev):
+    tok = torch.randint(0, vocab, (b, t + 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(seed)).to(dev)
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def llama_phase(tfm, gen, bert_forward, registry, dev, bw):
+    """Section 21 (LLAMA_* above): TinyLlama-1.1B imported from a stand-in,
+    its export bit for bit, greedy decode, and LLAMA_STEPS training steps;
+    returns the steps' launches."""
+    from hetu_tpu_torch.examples import hf_standins
+    from hetu_tpu_torch.models import hf_llama
+    t_phase = time.perf_counter()
+    counted = bert_forward.counted
+    t0 = time.perf_counter()
+    stand_in = hf_standins.llama(0, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, cfg = hf_llama.params_from_hf(stand_in, device=dev)
+    torch.cuda.synchronize()
+    out = dict(config=hf_standins.TINYLLAMA, weights="seed 0",
+               params=tfm.count_params(params), draw_s=t1 - t0,
+               import_s=time.perf_counter() - t1)
+    _same_tensors({k if k == "lm_head.weight" else "model." + k: v for k, v
+                   in hf_llama.state_dict_from_params(params, cfg).items()},
+                  stand_in.state_dict(), "TinyLlama's export")
+    del stand_in
+    out["export_bit_equal"] = True
+
+    # (b) greedy decode, held to section 17's gates: in f32 the logits
+    # against the forward within DECODE_REL_F32; in bf16 within
+    # DECODE_REL_BF16, or BF16_EXCESS times the bf16 forward's own distance
+    # from the f32 one where 22 layers of rounding take it further
+    dcfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    P, M = LLAMA_PROMPT, LLAMA_PROMPT + LLAMA_NEW
+    prompt = torch.randint(0, cfg.vocab_size, (LLAMA_DECODE_B, P),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    (toks, logits), launches = counted(
+        lambda: gen.make_generate_fn(dcfg, M)(params, prompt, 0))
+    check(launches == {}, f"TinyLlama's decode launched {launches}")
+    toks32, logits32 = gen.make_generate_fn(cfg, M)(params, prompt, 0)
+    with torch.no_grad():
+        full32, _ = tfm.forward(params, toks32, cfg)
+        f32_rel = rel_l2(logits32, full32)
+        del logits32
+        full, _ = tfm.forward(params, toks, dcfg)
+        noise = rel_l2(full, tfm.forward(params, toks, cfg)[0])
+    rel = rel_l2(logits, full)
+    tol = max(DECODE_REL_BF16, BF16_EXCESS * noise)
+    check(f32_rel <= DECODE_REL_F32, f"TinyLlama's f32 decode logits rel "
+          f"L2 {f32_rel} from the forward")
+    check(rel <= tol, f"TinyLlama's bf16 decode logits rel L2 {rel} from "
+          f"the forward, above {tol}")
+    del full, full32, logits
+    out["decode"] = dict(batch=LLAMA_DECODE_B, prompt=P, max_len=M,
+                         bf16_logits_rel_l2=rel, f32_logits_rel_l2=f32_rel,
+                         bf16_forward_vs_f32_rel_l2=noise,
+                         tolerance=dict(bf16_rel_l2=tol,
+                                        f32_rel_l2=DECODE_REL_F32),
+                         **_decode_times(tfm, gen, bert_forward, dcfg, params,
+                                         prompt, M, bw))
+    torch.cuda.empty_cache()
+
+    # (c) training in bf16 with remat, the first step against "off"
+    tcfg = dataclasses.replace(cfg, dtype=torch.bfloat16, remat=True)
+    x, y = _tokens(cfg.vocab_size, LLAMA_B, LLAMA_T, 2, dev)
+    grad_gate(lambda c: counted(lambda: tfm.value_and_grad(
+        tfm.loss_fn, params, x, y, c)), tfm, registry, tcfg, LLAMA_LAUNCHES,
+        "llama_grad_check", "TinyLlama", deep=True, batch=[LLAMA_B, LLAMA_T],
+        remat=True)
+    torch.cuda.empty_cache()
+    train = _timed_steps(bert_forward, _lm_step(tfm, tcfg, LLAMA_LR, params,
+                                                x, y),
+                         LLAMA_STEPS, LLAMA_LAUNCHES, "TinyLlama")
+    train["tokens_per_s"] = LLAMA_B * LLAMA_T / train["steady_step_ms"] * 1e3
+    emit("llama_tinyllama", **out, train=dict(
+        batch=LLAMA_B, seq=LLAMA_T, lr=LLAMA_LR, remat=True,
+        dtype="bfloat16", launches_per_step=LLAMA_LAUNCHES, **train),
+         seconds=time.perf_counter() - t_phase)
+    return {k: v * LLAMA_STEPS for k, v in LLAMA_LAUNCHES.items()}
+
+
+def moe_phase(tfm, bert_forward, registry, dev):
+    """Section 22 (MOE_* above): the switch-MoE LM at GPT-2 small widths;
+    returns its steps' launches."""
+    t_phase = time.perf_counter()
+    counted = bert_forward.counted
+    cfg, params = _gpt2(tfm, dev, n_experts=MOE_E, capacity_factor=MOE_CAP,
+                        remat=True)
+    x, y = _tokens(cfg.vocab_size, MOE_B, MOE_T, 3, dev)
+    grad_gate(lambda c: counted(lambda: tfm.value_and_grad(
+        tfm.loss_fn, params, x, y, c)), tfm, registry, cfg, MOE_LAUNCHES,
+        "moe_grad_check", "the switch-MoE LM", dtypes=("float32",),
+        batch=[MOE_B, MOE_T], experts=MOE_E, remat=True)
+    first = {}
+    for side, scope in (("kernels", contextlib.nullcontext()),
+                        ("off", registry.active("off"))):
+        with scope:
+            (loss, g), launches = counted(lambda: tfm.value_and_grad(
+                tfm.loss_fn, params, x, y, cfg))
+        want = MOE_LAUNCHES if side == "kernels" else {}
+        check(launches == want, f"the switch-MoE LM's bf16 first step "
+              f"({side}) launched {launches}, expected {want}")
+        first[side] = (float(loss), torch.cat([t.flatten() for t in
+                                               tfm.tree_leaves(g)]))
+        del g
+    loss_rel = abs(first["kernels"][0] - first["off"][0]) / abs(
+        first["off"][0])
+    bf16_first = dict(loss=first["kernels"][0], off_loss=first["off"][0],
+                      loss_rel=loss_rel, loss_rel_tol=BERT_REL,
+                      grad_rel_l2_all=rel_l2(first["kernels"][1],
+                                             first["off"][1]))
+    del first
+    emit("moe_grad_check", dtype="bfloat16", **bf16_first)
+    check(loss_rel < BERT_REL, f"the switch-MoE LM's bf16 first loss "
+          f"{bf16_first}")
+    # each layer's dropped share in one bf16 forward, read by wrapping the
+    # MoE MLP with its router
+    shares, moe_mlp = [], tfm._moe_mlp
+
+    def spy(h, p, c, mesh):
+        keep = tfm.moe_route(h.reshape(-1, h.shape[-1]), p["router"], c)[5]
+        shares.append(1.0 - float(keep.float().mean()))
+        return moe_mlp(h, p, c, mesh)
+
+    tfm._moe_mlp = spy
+    try:
+        with torch.no_grad():
+            _, aux = tfm.forward(params, x, cfg)
+    finally:
+        tfm._moe_mlp = moe_mlp
+    check(len(shares) == cfg.n_layers and np.isfinite(float(aux)),
+          f"MoE forward: shares {shares}, aux {aux}")
+    torch.cuda.empty_cache()
+    train = _timed_steps(bert_forward, _lm_step(tfm, cfg, MOE_LR, params, x,
+                                                y),
+                         MOE_STEPS, MOE_LAUNCHES, "the switch-MoE LM")
+    check(train["losses"][-1] < train["losses"][0],
+          f"MoE losses {train['losses']}")
+    train["tokens_per_s"] = MOE_B * MOE_T / train["steady_step_ms"] * 1e3
+    emit("moe_gpt2_small", config=GPT2_SMALL, experts=MOE_E,
+         capacity_factor=MOE_CAP,
+         capacity=int(MOE_CAP * MOE_B * MOE_T / MOE_E), batch=MOE_B,
+         seq=MOE_T, lr=MOE_LR, dtype="bfloat16", remat=True,
+         params=tfm.count_params(params), bf16_first_step=bf16_first,
+         dropped_share_by_layer=shares,
+         dropped_share=float(np.mean(shares)), aux_sum=float(aux),
+         launches_per_step=MOE_LAUNCHES, **train,
+         seconds=time.perf_counter() - t_phase)
+    return {k: v * MOE_STEPS for k, v in MOE_LAUNCHES.items()}
+
+
+def vit_phase(tfm, bert_forward, dev):
+    """Section 23 (VIT_* above): ViT-B/16 imported from a stand-in, its
+    logits against the CPU's, VIT_STEPS steps."""
+    from hetu_tpu_torch.examples import hf_standins
+    from hetu_tpu_torch.models import hf_vit, vit
+    t_phase = time.perf_counter()
+    params, cfg = hf_vit.params_from_hf(hf_standins.vit_classifier(0, dev),
+                                        device=dev)
+    check(cfg == dataclasses.replace(
+        vit.VIT_BASE, n_classes=hf_standins.VIT_B16["num_labels"]),
+          f"ViT-B/16 imported as {cfg}")
+    impl = tfm._resolve_attn_impl(cfg.trunk(), None, cfg.seq_len, None, dev)
+    check(impl == "dot", f"ViT-B/16's attention resolved to {impl}")
+    gen = torch.Generator().manual_seed(4)
+    shape = (cfg.n_channels, cfg.image_size, cfg.image_size)
+    images = torch.randn((VIT_IMAGES,) + shape, generator=gen)
+    with torch.no_grad():
+        logits, launches = bert_forward.counted(
+            lambda: vit.classify_logits(params, images.to(dev), cfg))
+        ref = vit.classify_logits(tfm.tree_map(lambda t: t.cpu(), params),
+                                  images, cfg)
+    check(launches == {}, f"ViT-B/16's forward launched {launches}")
+    rel = rel_l2(logits.cpu(), ref)
+    check(rel <= VIT_REL, f"ViT-B/16 logits rel L2 {rel} from the CPU's")
+    step = vit.make_train_step(cfg, lr=VIT_LR)
+    state = {"p": params, "o": vit.init_opt_state(params)}
+    imgs = torch.randn((VIT_B,) + shape, generator=gen).to(dev)
+    labels = torch.randint(0, cfg.n_classes, (VIT_B,), generator=gen).to(dev)
+
+    def one():
+        loss, _, state["p"], state["o"] = step(state["p"], state["o"], imgs,
+                                               labels)
+        return loss
+    train = _timed_steps(bert_forward, one, VIT_STEPS, {}, "ViT-B/16")
+    train["images_per_s"] = VIT_B / train["steady_step_ms"] * 1e3
+    emit("vit_b16", config=hf_standins.VIT_B16, weights="seed 0",
+         attn_impl=impl, seq=cfg.seq_len, params=tfm.count_params(params),
+         logits_vs_cpu_rel_l2=rel, tolerance=VIT_REL, images=VIT_IMAGES,
+         batch=VIT_B, lr=VIT_LR, dtype="float32", **train,
+         seconds=time.perf_counter() - t_phase)
+
+
+def hf_bert_phase(bert, tfm, bert_forward, registry, dev):
+    """Section 24 (HFB_* above): BERT-base through hf_bert and
+    finetune_hf_bert's legs; returns the tuning's launches."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.examples import finetune_hf_bert as fhb, hf_standins
+    t_phase = time.perf_counter()
+    (params, cfg), _ = _quiet(lambda: fhb.import_model(
+        hf_standins.bert_classifier(0, dev), 2, dev))
+    rng = np.random.default_rng(0)
+    ids, labels = fhb.make_task(rng, 4096, HFB_T, cfg.vocab_size)
+    lengths = torch.Generator(device=dev).manual_seed(5)
+
+    def padded(data):
+        # a key-padding mask on each batch: lengths in [T/2, T]
+        for batch in data:
+            n = torch.randint(HFB_T // 2, HFB_T + 1, (HFB_B, 1),
+                              generator=lengths, device=dev)
+            batch["input_mask"] = (torch.arange(HFB_T, device=dev) < n).int()
+            yield batch
+
+    data = padded(fhb.batches(rng, ids, labels, HFB_B, dev))
+    first = next(data)
+
+    def loss_fn(p, c):
+        return F.cross_entropy(bert.classify_logits(
+            p, first["input_ids"], first["segment_ids"], c,
+            input_mask=first["input_mask"]), first["label"].long())
+
+    grad_gate(lambda c: bert_forward.counted(lambda: tfm.value_and_grad(
+        loss_fn, params, c)), tfm, registry, cfg, HFB_LAUNCHES,
+        "hf_bert_grad_check", "BERT-base fine-tuning", batch=[HFB_B, HFB_T])
+
+    def replay():
+        yield first
+        yield from data
+
+    steps = fhb.tuning(params, cfg, replay(), HFB_LR)
+    train = _timed_steps(bert_forward, lambda: next(steps)[0], HFB_STEPS,
+                         HFB_LAUNCHES, "finetune_hf_bert's tuning")
+    emit("hf_bert_finetune", config=hf_standins.BERT_BASE, weights="seed 0",
+         batch=HFB_B, seq=HFB_T, lr=HFB_LR, dtype="float32", remat=False,
+         launches_per_step=HFB_LAUNCHES, **train,
+         seconds=time.perf_counter() - t_phase)
+    return {k: v * HFB_STEPS for k, v in HFB_LAUNCHES.items()}
+
+
+def pipeline_phase(tfm, bert_forward, registry, dev):
+    """Section 25 (PIPE_* above): gpt2_pipeline's legs at GPT-2 small's
+    widths; returns the tuning's launches."""
+    from hetu_tpu_torch.examples import gpt2_pipeline as gp, hf_standins
+    from hetu_tpu_torch.models import hf_gpt2
+    t_phase = time.perf_counter()
+    tok = gp.demo_tokenizer()
+    check(tok.vocab_size == PIPE_VOCAB,
+          f"the demo tokenizer's vocabulary is {tok.vocab_size}")
+    stand_in = hf_standins.gpt2(0, dev, vocab_size=tok.vocab_size)
+    (params, cfg), log = _quiet(lambda: gp.import_model(stand_in, dev))
+    check(cfg.tied_head and "head" not in params, "GPT-2's head is not tied")
+    x, y = next(gp.batches(cfg, dev))
+    check(list(x.shape) == [PIPE_B, PIPE_T], f"gpt2_pipeline's batch "
+          f"{list(x.shape)}")
+    grad_gate(lambda c: bert_forward.counted(lambda: tfm.value_and_grad(
+        tfm.loss_fn, params, x, y, c)), tfm, registry, cfg, PIPE_LAUNCHES,
+        "pipeline_grad_check", "gpt2_pipeline's tuning",
+        dtypes=("float32",), batch=[PIPE_B, PIPE_T])
+    steps, state = gp.tuning(params, cfg), {}
+
+    def one():
+        loss, state["params"] = next(steps)
+        return loss
+
+    train = _timed_steps(bert_forward, one, PIPE_STEPS, PIPE_LAUNCHES,
+                         "gpt2_pipeline's tuning")
+    params = state["params"]
+    (ids, greedy, spec, rounds), decode_log = _quiet(lambda: gp.decode(
+        params, cfg, tok, PIPE_MAX_LEN, PIPE_SPEC_K))
+    check(np.array_equal(spec, greedy),
+          "gpt2_pipeline's speculative decode differs from greedy")
+    sd = hf_gpt2.state_dict_from_params(params, cfg)
+    back = hf_standins.StandIn(vars(stand_in.config), {
+        "transformer." + k: torch.from_numpy(v) for k, v in sd.items()})
+    again, _ = hf_gpt2.params_from_hf(back, device=dev)
+    differ = [p for (p, a), b in zip(tfm.tree_leaves(again, with_paths=True),
+                                     tfm.tree_leaves(params))
+              if not torch.equal(a, b)]
+    check(not differ, f"the tuned GPT-2's round trip changed {differ}")
+    emit("gpt2_pipeline", config=dict(hf_standins.GPT2_SMALL,
+                                      vocab_size=tok.vocab_size),
+         weights="seed 0", batch=[PIPE_B, PIPE_T], prompt=ids[0].tolist(),
+         greedy=greedy[0].tolist(), speculative_rounds=int(rounds),
+         lines=log + decode_log, round_trip_bit_equal=True,
+         launches_per_step=PIPE_LAUNCHES, **train,
+         seconds=time.perf_counter() - t_phase)
+    return {k: v * PIPE_STEPS for k, v in PIPE_LAUNCHES.items()}
+
+
+def hf_phases(bert, tfm, bert_forward, registry, dev, bw, f32, bf16):
+    """Sections 21-25: the kernels at their shapes (HF_*_CASES), then
+    TinyLlama, the switch-MoE LM, ViT-B/16, BERT-base through hf_bert and
+    the GPT-2 pipeline; returns their kernel cases and their launches by
+    path."""
+    from hetu_tpu_torch.kernels import embed_grad, flash_attention, fused_ce
+    from hetu_tpu_torch.models import generate as gen
+    cases = {
+        "attn": attention_phase(flash_attention, dev, bw, f32, bf16,
+                                HF_ATTN_CASES),
+        "attn_bwd": attention_bwd_phase(flash_attention, dev, bw, f32, bf16,
+                                        HF_ATTN_CASES),
+        "ce": ce_phase(fused_ce, dev, bw, f32, bf16, HF_CE_CASES),
+        "ce_bwd": ce_bwd_phase(fused_ce, dev, bw, bf16, HF_CE_CASES),
+        "embed": embed_grad_phase(embed_grad, registry, None, None, dev, bw,
+                                  f32, HF_EMBED_CASES)}
+    emit("slice_5c_kernels_checked",
+         shapes="TinyLlama-1.1B's, the MoE LM's and the GPT-2 pipeline's",
+         **cases)
+    out = {}
+    for path, run in (
+            ("llama_tinyllama", lambda: llama_phase(
+                tfm, gen, bert_forward, registry, dev, bw)),
+            ("moe_gpt2_small", lambda: moe_phase(tfm, bert_forward, registry,
+                                                 dev)),
+            ("vit_b16", lambda: vit_phase(tfm, bert_forward, dev)),
+            ("hf_bert_finetune", lambda: hf_bert_phase(
+                bert, tfm, bert_forward, registry, dev)),
+            ("gpt2_pipeline", lambda: pipeline_phase(tfm, bert_forward,
+                                                     registry, dev))):
+        torch.cuda.empty_cache()
+        out[path] = run() or {}
+    return cases, out
+
+
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
-                 quant, launches, by_path):
+                 quant, hf, launches, by_path):
     """The ``kernels`` JSON object: one entry per ported kernel; its
     ``launches`` sum the main paths' runs, ``launches_by_path`` splits
-    them where the zoo's paths (sections 10-11) add to them."""
+    them where later paths (sections 10-25) add to them. ``hf``: the kernel
+    cases of slice 5c (hf_phases), each kernel's under ``slice_5c`` (the
+    fused CE's f32 backward case is checked, not timed)."""
     replaces = {"fused_sgd": "hetu_tpu/kernels/fused_opt.py:164",
                 "fused_adam": "hetu_tpu/kernels/fused_opt.py:95",
                 "flash_attention_fwd": "hetu_tpu/kernels/flash_attention.py:111",
@@ -3246,19 +3767,32 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
     # generate_hetu's f32 head)
     kern = dict(kern)
     kern["flash_attention_fwd"] = dict(attn[0], max_abs_err=max(
-        max(c["o_max_abs_err"], c["lse_max_abs_err"]) for c in attn),
-        phase2=_timed(attn[1]), slice_5d={"gpt2_causal": _timed(attn[4])})
+        max(c["o_max_abs_err"], c["lse_max_abs_err"])
+        for c in attn + hf["attn"]),
+        phase2=_timed(attn[1]), slice_5d={"gpt2_causal": _timed(attn[4])},
+        slice_5c={"tinyllama_causal": _timed(hf["attn"][0]),
+                  "moe_causal": _timed(hf["attn"][1])})
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
-        c["max_abs_err"] for c in ces), phase2=_timed(ces[2]), slice_5d={
-            "bert_trainer": _timed(ces[3]), "gpt2_tied": _timed(ces[4]),
-            "generate_hetu_f32": _timed(ces[5])})
+        c["max_abs_err"] for c in ces + hf["ce"]), phase2=_timed(ces[2]),
+        slice_5d={"bert_trainer": _timed(ces[3]),
+                  "gpt2_tied": _timed(ces[4]),
+                  "generate_hetu_f32": _timed(ces[5])},
+        slice_5c={"tinyllama_head_dv": _timed(hf["ce"][0]),
+                  "moe_tied": _timed(hf["ce"][1]),
+                  "pipeline_tied_f32": _timed(hf["ce"][2])})
     kern["flash_attention_bwd"] = dict(attn_bwd[0], max_abs_err=max(
-        c["max_abs_err"] for c in attn_bwd), phase2=_timed(attn_bwd[1]),
-        slice_5d={"gpt2_causal": _timed(attn_bwd[4])})
+        c["max_abs_err"] for c in attn_bwd + hf["attn_bwd"]),
+        phase2=_timed(attn_bwd[1]),
+        slice_5d={"gpt2_causal": _timed(attn_bwd[4])},
+        slice_5c={"tinyllama_causal": _timed(hf["attn_bwd"][0]),
+                  "moe_causal": _timed(hf["attn_bwd"][1])})
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
-        c["max_abs_err"] for c in ce_bwd), phase2=_timed(ce_bwd[2]),
+        c["max_abs_err"] for c in ce_bwd + hf["ce_bwd"]),
+        phase2=_timed(ce_bwd[2]),
         slice_5d={"bert_trainer": _timed(ce_bwd[3]),
-                  "gpt2_tied": _timed(ce_bwd[4])})
+                  "gpt2_tied": _timed(ce_bwd[4])},
+        slice_5c={"tinyllama_head_dv": _timed(hf["ce_bwd"][0]),
+                  "moe_tied": _timed(hf["ce_bwd"][1])})
     # max_abs_err is the largest over all their cases
     # csr_spmm at layer 2's forward (F = 256); epoch_ms sums the three
     # shapes an epoch launches
@@ -3268,8 +3802,9 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
     # fused_embed_grad at WDL-Criteo's step, the first case, and at
     # BERT-base's two phase-2 lookups
     kern["fused_embed_grad"] = dict(embed[0], max_abs_err=max(
-        c["max_abs_err"] for c in embed), phase2={
-            c["case"]: _timed(c) for c in embed if c["form"] == "dense"})
+        c["max_abs_err"] for c in embed + hf["embed"]), phase2={
+            c["case"]: _timed(c) for c in embed if c["form"] == "dense"},
+        slice_5c={"tinyllama_token": _timed(hf["embed"][0])})
     # the quantized all-reduce's legs at one int8 step of the DP MLP (fp8
     # in the quant_comm_checked line); bit-equal at every case, so 0
     for k in ("quant_blocks", "dequant_blocks"):
@@ -3285,7 +3820,7 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         **{f: v[f] for f in ("launched_ms", "step_launched_ms",
                              "plain_launched_ms", "library_launched_ms",
                              "library_timing", "shape", "epoch_ms", "phase2",
-                             "slice_5d", "plan", "large")
+                             "slice_5d", "slice_5c", "plan", "large")
            if f in v},
         **({"gather_bound_ms": v["gather_bound"][0]}
            if "gather_bound" in v else {}))
@@ -3329,6 +3864,10 @@ def main(argv=None):
                          "at GPT-2 small widths, the graph-API LM's "
                          "trainer and the generation demo (sections "
                          "16-20), and stop")
+    ap.add_argument("--hf", action="store_true",
+                    help="build, run TinyLlama-1.1B, the switch-MoE LM, "
+                         "ViT-B/16, BERT-base through hf_bert and the GPT-2 "
+                         "pipeline (sections 21-25), and stop")
     args = ap.parse_args(argv)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
@@ -3388,6 +3927,10 @@ def main(argv=None):
         return 0
     if args.nlp:
         nlp_phases(bert, transformer, bert_forward, registry, dev, bw)
+        return 0
+    if args.hf:
+        hf_phases(bert, transformer, bert_forward, registry, dev, bw, f32,
+                  bf16)
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -3519,15 +4062,22 @@ def main(argv=None):
     # -- 13. DistGCN on a 1 x 1 grid; 14. the sampled GCN; 15. NCF --------
     # -- 16. the BERT trainer; 17. decoding; 18. dropout; 19. the graph-API
     # LM's trainer; 20. the generation demo ---------------------------------
-    for path, got in list(gnn_phases(ht, multihost, bert_forward.counted,
-                                     dev).items()) + list(nlp_phases(
-            bert, transformer, bert_forward, registry, dev, bw).items()):
+    # -- 21. TinyLlama-1.1B; 22. the switch-MoE LM; 23. ViT-B/16; 24. BERT-base
+    # through hf_bert; 25. the GPT-2 pipeline -------------------------------
+    paths = list(gnn_phases(ht, multihost, bert_forward.counted,
+                            dev).items())
+    paths += nlp_phases(bert, transformer, bert_forward, registry, dev,
+                        bw).items()
+    hf_cases, hf_paths = hf_phases(bert, transformer, bert_forward, registry,
+                                   dev, bw, f32, bf16)
+    for path, got in paths + list(hf_paths.items()):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
             by_path.setdefault(k, {})[path] = v
 
     print(json.dumps(kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm,
-                                  spmv, embed, quant, launches, by_path)),
+                                  spmv, embed, quant, hf_cases, launches,
+                                  by_path)),
           flush=True)
     print(json.dumps({"phase": "done",
                       "seconds": time.perf_counter() - t_start}), flush=True)

@@ -25,9 +25,15 @@ Training-time dropout (``cfg.dropout_rate > 0``) takes an integer
 reference folds or splits its key, and each mask is drawn by
 ``_dropout_mask`` from a ``torch.Generator`` on the tensor's device seeded
 with that site's value. A mask is a function of its seed alone, so a block
-recomputed in the backward (remat) draws the same bits. Not ported, and
-refused with ``NotImplementedError``: the MoE MLP (``n_experts > 0``), ring
-attention, any mesh and ZeRO-1 (the parallel slices).
+recomputed in the backward (remat) draws the same bits.
+
+The switch top-1 MoE MLP (``n_experts > 0``, ``_moe_mlp``) runs on one
+device in the reference's dense formulation: (S, E, cap) dispatch and
+combine products, the capacity ``int(capacity_factor * S / E)``, tokens
+past an expert's capacity dropped, and the Switch aux loss summed over the
+layers into ``encode``'s ``aux_sum``. Not ported, and refused with
+``NotImplementedError``: ring attention, any mesh (the ``ep`` sharding of
+the experts with it) and ZeRO-1 (slice 8, the parallel slices).
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ class TransformerConfig:
     n_layers: int = 8
     d_ff: int = 2048
     max_seq_len: int = 1024
-    n_experts: int = 0          # 0 = dense MLP; >0 = switch MoE (not ported)
+    n_experts: int = 0          # 0 = dense MLP; >0 = switch MoE
     capacity_factor: float = 1.25
     dropout_rate: float = 0.0
     dtype: Any = torch.bfloat16  # compute dtype
@@ -62,7 +68,7 @@ class TransformerConfig:
     causal: bool = True         # False = bidirectional encoder (BERT)
     # "auto" picks the fused flash kernel for CUDA tensors when the
     # sequence is a multiple of 128, the unfused dot form otherwise
-    attn_impl: str = "auto"     # auto | dot | flash | ring (not ported)
+    attn_impl: str = "auto"     # auto | dot | flash | ring (slice 8)
     # LM loss through the fused linear+CE kernel: "auto" = CUDA tensors;
     # True forces (tests); False always materializes the logits
     fused_lm_ce: Any = "auto"
@@ -328,12 +334,13 @@ def _attention_core(q, k, v, cfg: TransformerConfig, mesh, impl,
     """q/k/v: (B, nh, T, hd) -> (B, nh, T, hd). ``flash``: the ported
     online-softmax kernel, folding a key-padding ``attn_bias`` (B, 1, 1, T)
     into its scores; ``dot``: the unfused reference form, any additive
-    ``attn_bias``; ``ring`` is not ported."""
+    ``attn_bias``; ``ring`` is not ported (the reference runs it only over
+    a mesh's ``sp`` axis)."""
     if impl == "ring":
         raise NotImplementedError(
             "attn_impl='ring' (sequence-parallel ring attention) is not "
-            "ported to hetu_tpu_torch yet: it comes with slice 5c (ROADMAP "
-            "Queue 1)")
+            "ported to hetu_tpu_torch yet: it comes with slice 8 and the "
+            "mesh's sp axis (meshes, TP, PP, ZeRO; ROADMAP Queue 1)")
     hd = q.shape[-1]
     if impl == "flash":
         kb = None
@@ -393,6 +400,49 @@ def _dense_mlp(h, p, cfg, mesh):
     return _mm(u, p["w2"]) + p["b2"].to(h.dtype)
 
 
+def moe_route(x, router, cfg: TransformerConfig):
+    """The switch router over x (S, D): ``(probs (S, E) f32, gate (S,),
+    expert (S,), onehot (S, E) int64, pos (S,), keep (S,), cap)``. Each
+    token goes to its argmax expert (ties to the first index) at the next
+    free slot ``pos`` of that expert's buffer of ``cap`` slots; ``keep`` is
+    False for a token past the capacity, which is dropped."""
+    S = x.shape[0]
+    E = cfg.n_experts
+    cap = max(1, int(cfg.capacity_factor * S / E))
+    probs = torch.softmax(x.float() @ router.float(), -1)
+    gate, expert = torch.amax(probs, -1), torch.argmax(probs, -1)
+    # the position within the expert's buffer, counted in integers
+    onehot = F.one_hot(expert, E)
+    pos = (torch.cumsum(onehot, 0) * onehot).amax(-1) - 1
+    return probs, gate, expert, onehot, pos, pos < cap, cap
+
+
+def _moe_mlp(h, p, cfg: TransformerConfig, mesh):
+    """Switch-style top-1 MoE with capacity, on one device (``moe_route``);
+    a dropped token is a zero row of the dispatch, so it adds nothing.
+    Returns ``(out (B, T, D), the Switch aux loss)``."""
+    B, T, D = h.shape
+    E = cfg.n_experts
+    x = h.reshape(B * T, D)
+    probs, gate, _, onehot, pos, keep, cap = moe_route(x, p["router"], cfg)
+    # (pos == slot) is all-zero past the capacity (jax.nn.one_hot's row
+    # for an index out of range), and keep masks it explicitly as the
+    # reference does
+    slot = pos[:, None] == torch.arange(cap, device=x.device)
+    dispatch = (onehot.to(x.dtype)[:, :, None] * slot.to(x.dtype)[:, None, :]
+                * keep[:, None, None].to(x.dtype))           # (S, E, cap)
+    expert_in = torch.einsum("sec,sd->ecd", dispatch, x)     # (E, cap, D)
+    u = _gelu(_mm(expert_in, p["w1"]) + p["b1"][:, None, :].to(x.dtype), cfg)
+    y = _mm(u, p["w2"]) + p["b2"][:, None, :].to(x.dtype)   # (E, cap, D)
+    combine = dispatch * gate[:, None, None].to(x.dtype)
+    out = torch.einsum("sec,ecd->sd", combine, y)
+    # aux load-balancing loss (Switch Transformer eq. 4)
+    density = onehot.float().mean(0)
+    density_proxy = probs.mean(0)
+    aux = E * torch.sum(density * density_proxy)
+    return out.reshape(B, T, D), aux
+
+
 def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
            dropout_rng=None):
     """One transformer block. Pre-LN (default): LN -> sublayer ->
@@ -402,11 +452,9 @@ def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
     ``split`` of its key into two.
 
     Any dialect knob added here must be mirrored in
-    ``generate._decode_layer``, the KV-cache form of this block."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "n_experts > 0 (the switch MoE MLP) is not ported to "
-            "hetu_tpu_torch yet: it comes with slice 5c (ROADMAP Queue 1)")
+    ``generate._decode_layer``, the KV-cache form of this block (decoding
+    refuses the MoE, as the reference's does). Returns ``(h, aux)``: the
+    MoE's aux loss, 0 for a dense MLP."""
     post = cfg.post_ln
     attn_in = h if post else _norm(
         h, layer_params["ln1_scale"], layer_params["ln1_bias"], cfg)
@@ -419,13 +467,17 @@ def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
         h = _norm(h, layer_params["ln1_scale"], layer_params["ln1_bias"], cfg)
     mlp_in = h if post else _norm(
         h, layer_params["ln2_scale"], layer_params["ln2_bias"], cfg)
-    out = _dense_mlp(mlp_in, layer_params, cfg, mesh)
+    if cfg.n_experts > 0:
+        out, aux = _moe_mlp(mlp_in, layer_params, cfg, mesh)
+    else:
+        out = _dense_mlp(mlp_in, layer_params, cfg, mesh)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if dropout_rng is not None:
         out = _dropout(out, cfg.dropout_rate, fold_in(dropout_rng, 1))
     h = h + out
     if post:
         h = _norm(h, layer_params["ln2_scale"], layer_params["ln2_bias"], cfg)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def embed_tokens(params, tokens, cfg: TransformerConfig):
