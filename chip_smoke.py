@@ -61,8 +61,15 @@ steps at 2 x 2048 with remat; trains the switch-MoE LM at GPT-2 small
 widths with 8 experts; imports ViT-B/16 through ``hf_vit`` (its logits
 against the CPU's) and trains it; fine-tunes BERT-base imported through
 ``hf_bert`` by ``examples/finetune_hf_bert.py``'s legs; and runs
-``examples/gpt2_pipeline.py``'s legs at GPT-2 small widths. Each path is
-checked to have gone through its kernels.
+``examples/gpt2_pipeline.py``'s legs at GPT-2 small widths; then (slice
+8a) checks the kernels at the pipeline's shapes and, with two processes
+on the one card over gloo (the runner's ``--devices cuda:0,cuda:0
+--backend gloo``), trains GPT-2 small through the GPipe and 1F1B
+pipelines at pp 2 (its first step against ``kernels="off"`` and against
+the one-process step), BERT-base on a dp 2 mesh with ZeRO-1 off and on,
+and the graph-API ``examples/gpipe.py`` at two stages (SGD, Adam); then
+both step factories at dp = pp = 1 over NCCL. Each path is checked to have gone
+through its kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -75,6 +82,7 @@ checked to have gone through its kernels.
     python3 chip_smoke.py --gnn            # build, DistGCN, sampled GCN, NCF
     python3 chip_smoke.py --nlp            # build, sections 16-20
     python3 chip_smoke.py --hf             # build, sections 21-25
+    python3 chip_smoke.py --pipe           # build, sections 26-29
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -93,7 +101,8 @@ builds and runs the ResNet-18 and LM phases (sections 10-11) alone;
 sampled-GCN and NCF phases (sections 13-15) alone; ``--nlp`` the BERT
 trainer, decoding, dropout, LM-trainer and demo phases (sections 16-20)
 alone; ``--hf`` the kernels at slice 5c's shapes and the TinyLlama, MoE,
-ViT, HF BERT and GPT-2 pipeline phases (sections 21-25) alone.
+ViT, HF BERT and GPT-2 pipeline phases (sections 21-25) alone; ``--pipe``
+the kernels at slice 8a's shapes and sections 26-29 alone.
 """
 import argparse
 import concurrent.futures
@@ -147,12 +156,14 @@ SGD_LOSS_MAX, ADAM_LOSS_MAX = 1e-2, 1e-2
 # layer (the main path's shape; its times go into the kernels line), the
 # phase-2 BERT-base layer (S = 512), a long causal sequence, a small f32
 # case also held against the unfused softmax(q k^T) v in f32, and GPT-2
-# small's causal layer at T = 128 (the dropout path, section 18).
+# small's causal layer at T = 128 (the dropout path, section 18) and at T =
+# 1,024 in a pipeline microbatch of 4 (section 26).
 ATTN_CASES = [(32, 12, 128, 64, torch.bfloat16, False, True),
               (32, 12, 512, 64, torch.bfloat16, False, True),
               (8, 12, 512, 64, torch.bfloat16, True, False),
               (2, 4, 256, 128, torch.float32, True, True),
-              (8, 12, 128, 64, torch.bfloat16, True, False)]
+              (8, 12, 128, 64, torch.bfloat16, True, False),
+              (4, 12, 1024, 64, torch.bfloat16, True, False)]
 # Fused linear+CE checks (N, V, D, layout, dtype): BERT-base's MLM loss (32
 # rows x 20 slots against the tied (V, D) embedding, with the MLM bias; the
 # main path's shape), a GPT-2 LM head ((D, V), N ragged against 128),
@@ -259,13 +270,16 @@ GCN_LAUNCHES = {"csr_spmm": 3, "fused_sgd": 1}
 # first-order table), d = 8 (Deep Crossing, WDL-Adult) and one row, in the
 # compact form (keys = ranks); then at the BERT path's two lookups at
 # phase 2 (32 x 512 token ids, about 4,100 of them the padding id 0, into
-# the 30,522-row table; their type ids into the 2-row one; d = 768), in the
-# dense form the backward runs (keys = ids, into the table). Kernel and
+# the 30,522-row table; their type ids into the 2-row one; d = 768) and
+# GPT-2 small's pipeline microbatch (4 x 1,024 ids into its 50,257-row
+# table; section 26), in the dense form the backward runs (keys = ids,
+# into the table). Kernel and
 # plain version add each id's pieces of a chunk in row order and fold them
 # in chunk order: each output must be bit-equal to the plain version and to
 # a rerun, and within rel L2 1e-6 of it.
 EMBED_CASES = [("wdl", 128), ("single_id", 128), ("d1", 1), ("d8", 8),
-               ("n1", 128), ("bert_token", 768), ("bert_type", 768)]
+               ("n1", 128), ("bert_token", 768), ("bert_type", 768),
+               ("gpt2_token", 768)]
 TOL["fused_embed_grad"] = {"rel_l2": 1e-6}
 # WDL-Criteo (examples/ctr/models/wdl_criteo.py) at its published widths
 # and the full Criteo-Kaggle vocabulary (its own default): 26 slots x 128
@@ -597,6 +611,74 @@ HF_CE_CASES = [(LLAMA_B * LLAMA_T, 32000, 2048, "dv", torch.bfloat16),
                (PIPE_B * PIPE_T, PIPE_VOCAB, 768, "vd", torch.float32)]
 HF_EMBED_CASES = [("llama_token", 2048)]
 
+# Slice 8a (sections 26-29, `--pipe` alone): data and pipeline parallelism.
+# The card's host has one card and NCCL refuses two ranks on one device, so
+# the two-rank legs run as two processes on cuda:0 over an explicitly
+# requested gloo group (the runner's --devices cuda:0,cuda:0 --backend
+# gloo), their CUDA tensors staged through pinned host memory.
+# Section 26: GPT-2 small (GPT2_SMALL, bf16, remat) through the transformer
+# pipeline at pp = 2 (parallel/pipeline.py), PP_M microbatches of PP_MB
+# sequences of PP_T: the first step's pipelined gradients by grad_gate
+# (kernels against kernels="off", f32 and bf16; per stage and step, GPipe
+# with remat: 2 x 6 x M flash_attention_fwd, 6 x M _bwd, and on stage 0 M
+# fused_embed_grad, the token lookup); the pipelined loss and gradients
+# against the one-process make_train_step's on the same 32 sequences (f32:
+# the loss within PP_LOSS_REL and each tensor within PP_REL_F32; bf16: the
+# loss within BERT_REL, and all tensors together at most BF16_EXCESS times
+# as far from the f32 one-process gradient as the one-process bf16
+# gradient is); GPipe and 1F1B (the JAX package's table: per stage and
+# step 18 x M flash_attention_fwd on stage 0, 12 x M on the last, whose
+# forward micro-op only stashes, 6 x M _bwd) PP_STEPS AdamW steps each
+# from one init, their first-step gradients within PP_SCHED_REL of each
+# other (only the order of the microbatches' f32 accumulation differs) and
+# their losses within PP_SCHED_LOSS; for each schedule, every step's wall
+# ms, the median after the first, each stage's device-busy share over the
+# last step, profiled (_timed_steps; the two processes' kernels share the
+# card, so their shares overlap), and the bytes each stage sends a step.
+PP_M, PP_MB, PP_T, PP_STEPS, PP_LR = 8, 4, 1024, 3, 3e-4
+PP_LOSS_REL, PP_REL_F32, PP_SCHED_REL, PP_SCHED_LOSS = 1e-5, 1e-4, 1e-5, 1e-3
+# Section 27: BERT-base phase 1 (the BERT_* batch) through
+# make_pretrain_step(cfg, mesh) on a dp = 2 mesh, zero1 off and on,
+# DPB_STEPS steps each: losses within DPB_REL and params within DPB_ATOL of
+# each other, each rank's m/v bytes within [0.5, 0.55] of the replicated
+# run's; the first loss against the one-process step on the whole batch
+# within BERT_REL (the mesh keeps the unfused MLM head); the steps timed
+# by _timed_steps, as section 26's. Per rank and step 24
+# flash_attention_fwd (remat), 12 _bwd, 2 fused_embed_grad.
+DPB_STEPS, DPB_REL, DPB_ATOL = 3, 1e-6, 1e-6
+DPB_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                "fused_embed_grad": 2}
+# Section 28: the same two step factories at dp = pp = 1 over NCCL, in this
+# process: make_pipeline_train_step (GPT-2 small, NCCL_M microbatches)
+# against make_train_step(accum_steps=NCCL_M) without a mesh, and
+# make_pretrain_step(cfg, mesh, zero1=True) against the no-mesh step, one
+# step each: losses within BERT_REL, gradients (pipeline) and updated
+# params (BERT) within GRAD_REL (rel L2, all together).
+# Before them, in the same NCCL group: its backend as the group reports
+# it, and multihost.all_reduce_ (sum and mean) and all_gather on NCCL_ELEMS
+# f32 elements on the card, each equal to the identity on a world of one.
+# The steps' own collectives and sends run only on an axis of size > 1, so
+# at dp = pp = 1 the steps issue none, and a send to oneself is no P2P leg:
+# NCCL's send/recv wait for a host with more than one card.
+NCCL_M, NCCL_ELEMS = 2, 1 << 20
+# Section 29: examples/gpipe.py (the graph-API MLP, 784-512-10) at two
+# stages on two processes, SGD and Adam at GPIPE_LR, GPIPE_ARGS (synthetic
+# MNIST: 5 steps of 8 x 256 rows an epoch, the same steps each epoch):
+# per stage and step 1
+# fused_sgd or fused_adam (the stage's params as one group); the last
+# epoch's mean loss below the first's; SGD's losses against the same run
+# in one process (both stages there) within GPIPE_REL.
+GPIPE_ARGS = ["--stages", "2", "--epochs", "2", "--warmup", "1", "--steps",
+              "5", "--micro-batches-num", "8", "--batch-size", "256"]
+GPIPE_REL = 1e-6
+GPIPE_LR = {"sgd": 0.1, "adam": 1e-3}     # the example's SGD default
+# The kernels at these paths' shapes: GPT-2 small's causal layer at (4,
+# 12, 1024, 64) bf16 (ATTN_CASES[PIPE_ATTN]), a microbatch's 4,096 ids into
+# its 50,257 x 768 table (EMBED_CASES[PIPE_EMBED]), the graph-API MLP's two
+# stages' params (_opt_cases).
+PIPE_ATTN, PIPE_EMBED = 5, 7
+assert ATTN_CASES[PIPE_ATTN][:4] == (PP_MB, 12, PP_T, 64)
+
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
 # fused CE's, mma.sync (HMMA) in flash attention's. Every one named here
@@ -756,7 +838,9 @@ def _opt_cases(k):
     views = [(f"view_{a}", [VIEW_SHAPE], (a,), False) for a in "pgmv"]
     return ([("mlp", MLP_SHAPES, (), False), ("odd", [ODD_SHAPE], (), True)]
             + views + [("k_plus_3", [((37 * i) % 1001 + 1,)
-                                     for i in range(k + 3)], (), False)])
+                                     for i in range(k + 3)], (), False),
+                       ("gpipe_stage0", [(784, 512), (512,)], (), False),
+                       ("gpipe_stage1", [(512, 10), (10,)], (), False)])
 
 
 def _offset_like(x, offset):
@@ -1367,6 +1451,11 @@ def _embed_inputs(case, d, first_ids, bert_batch, gen, dev):
     """(vec, idx, vocab, form) of one EMBED_CASES or HF_EMBED_CASES case;
     CTR ids as float32, as fed; BERT's as the batch holds them; TinyLlama's
     a seeded LLAMA_B x LLAMA_T batch of its vocabulary's ids."""
+    if case == "gpt2_token":
+        idx = torch.randint(0, GPT2_SMALL["vocab_size"], (PP_MB, PP_T),
+                            generator=gen, device=dev)
+        return (torch.randn((idx.numel(), d), generator=gen, device=dev), idx,
+                GPT2_SMALL["vocab_size"], "dense")
     if case == "llama_token":
         from hetu_tpu_torch.examples import hf_standins
         vocab = hf_standins.TINYLLAMA["vocab_size"]
@@ -3733,6 +3822,383 @@ def hf_phases(bert, tfm, bert_forward, registry, dev, bw, f32, bf16):
     return cases, out
 
 
+def _stage_slice(full, stage, pp):
+    """A pipeline rank's tree cut from the whole params (its stage's
+    blocks, the rest whole)."""
+    return {**{k: v for k, v in full.items() if k != "blocks"},
+            "blocks": {k: v.reshape(pp, -1, *v.shape[1:])[stage]
+                       for k, v in full["blocks"].items()}}
+
+
+def gpt2_pipeline_worker(dev, rank):
+    """Section 26 on one of the two stage processes (PP_* above)."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.kernels import registry
+    from hetu_tpu_torch.models import transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib, pipeline as pl
+    out = {}
+    mesh = meshlib.make_mesh(dp=1, pp=2)
+    s, pp = meshlib.axis_rank(mesh, "pp"), 2
+    cfg = tfm.TransformerConfig(**GPT2_SMALL, dtype=torch.bfloat16,
+                                remat=True)
+    L = cfg.n_layers // pp
+    gen = torch.Generator(device=dev).manual_seed(26)
+    tok = torch.randint(0, cfg.vocab_size, (PP_M, PP_MB, PP_T),
+                        generator=gen, device=dev)
+    tgt = torch.roll(tok, -1, 2)
+    full = tfm.init_params(0, cfg, dev)
+    mine = _stage_slice(full, s, pp)
+    want = {"flash_attention_fwd": 2 * L * PP_M,
+            "flash_attention_bwd": L * PP_M}
+    if s == 0:
+        want["fused_embed_grad"] = PP_M
+
+    def piped(c, make=pl.make_pipeline_train_step):
+        step = make(c, mesh, PP_M, lr=PP_LR)
+        return bert_forward.counted(lambda: step.fwd_bwd(mine, tok, tgt))
+
+    # grad_gate asks for each dtype's gradients with the kernels, then
+    # under kernels="off": the first are kept for the checks below
+    kept = {}
+
+    def gate_grads(c):
+        res = piped(c)
+        kept.setdefault(str(c.dtype).split(".")[-1], res[0])
+        return res
+
+    t0 = time.perf_counter()
+    out["grad_gate"] = grad_gate(
+        gate_grads, tfm, registry, cfg, want, "pipeline_grad_check",
+        f"GPT-2 small GPipe stage {s}", stage=s)
+    secs = {"grad_gate": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    # the pipelined loss and gradients against the one-process step's
+    flat_tok, flat_tgt = tok.reshape(-1, PP_T), tgt.reshape(-1, PP_T)
+    one, got = {}, {}
+    for name in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, name))
+        loss, g = tfm.value_and_grad(tfm.loss_fn, full, flat_tok, flat_tgt, c)
+        one[name] = (float(loss), tfm.tree_leaves(_stage_slice(g, s, pp)))
+        got[name] = (float(kept[name][0]), tfm.tree_leaves(kept[name][1]))
+        del g
+    paths = [p for p, _ in tfm.tree_leaves(mine, with_paths=True)]
+    f32 = {p: rel_l2(a, b) for p, a, b in
+           zip(paths, got["float32"][1], one["float32"][1])}
+    cat = lambda xs: torch.cat([x.flatten() for x in xs])  # noqa: E731
+    ref = cat(one["float32"][1])
+    bf_pipe = rel_l2(cat(got["bfloat16"][1]), ref)
+    bf_one = rel_l2(cat(one["bfloat16"][1]), ref)
+    del ref
+    rel = {n: abs(got[n][0] - one[n][0]) / abs(one[n][0]) for n in got}
+    out["vs_one_process"] = dict(
+        loss={n: got[n][0] for n in got}, one_loss={n: one[n][0] for n in one},
+        loss_rel=rel, f32_grad_rel_l2_max=max(f32.values()),
+        f32_worst=max(f32, key=f32.get), bf16_vs_f32=bf_pipe,
+        one_bf16_vs_f32=bf_one)
+    check(rel["float32"] <= PP_LOSS_REL and rel["bfloat16"] <= BERT_REL,
+          f"stage {s}: pipelined loss vs one process {rel}")
+    check(max(f32.values()) <= PP_REL_F32, f"stage {s}: f32 pipelined "
+          f"gradient differs from the one-process one: {f32}")
+    check(bf_pipe <= BF16_EXCESS * bf_one, f"stage {s}: bf16 pipelined "
+          f"gradients rel L2 {bf_pipe} from f32, one process {bf_one}")
+    # GPipe and 1F1B from one init: gradients, then PP_STEPS steps each
+    (_, g_f), _ = piped(cfg, pl.make_pipeline_train_step_1f1b)
+    sched = rel_l2(cat(tfm.tree_leaves(g_f)), cat(got["bfloat16"][1]))
+    check(sched <= PP_SCHED_REL, f"stage {s}: 1F1B gradients rel L2 "
+          f"{sched} from GPipe's")
+    del got, one, kept, g_f
+    secs["vs_one_process"] = time.perf_counter() - t0
+    out["gpipe_vs_1f1b_grad_rel_l2"] = sched
+    fwd_1f1b = (3 if s < pp - 1 else 2) * L * PP_M
+    for name, make, fwd in (("gpipe", pl.make_pipeline_train_step,
+                             2 * L * PP_M),
+                            ("1f1b", pl.make_pipeline_train_step_1f1b,
+                             fwd_1f1b)):
+        state = {"p": tfm.tree_map(torch.clone, mine)}
+        state["o"] = tfm.init_opt_state(state["p"])
+        step = make(cfg, mesh, PP_M, lr=PP_LR)
+        step_want = dict(want, flash_attention_fwd=fwd)
+
+        def run_step():
+            loss, state["p"], state["o"] = step(state["p"], state["o"], tok,
+                                                tgt)
+            return loss
+        t_leg = time.perf_counter()
+        out[name] = dict(
+            _timed_steps(bert_forward, run_step, PP_STEPS, step_want,
+                         f"stage {s} {name}"),
+            bytes_sent_per_step=step.info["bytes_sent"],
+            launches_per_step=step_want)
+        secs[name] = time.perf_counter() - t_leg
+        del state
+    check(np.allclose(out["1f1b"]["losses"], out["gpipe"]["losses"],
+                      rtol=PP_SCHED_LOSS, atol=0),
+          f"1F1B losses {out['1f1b']['losses']} vs GPipe "
+          f"{out['gpipe']['losses']}")
+    if s == pp - 1:
+        # the last stage holds the loss: it must fall across the steps
+        check(out["gpipe"]["losses"][-1] < out["gpipe"]["losses"][0],
+              f"GPipe losses {out['gpipe']['losses']}")
+    out["stage"], out["layers"], out["phase_seconds"] = s, L, secs
+    return out
+
+
+def bert_dp_worker(dev, rank):
+    """Section 27 on one of the two dp ranks (DPB_* above)."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.models import bert, transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib
+    cfg = bert.BERT_BASE
+    mesh = meshlib.make_mesh(dp=2)
+    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
+                                      seed=0, device=dev)
+    one = bert.init_params(0, cfg, dev)
+    one_loss, _, _, _ = bert.make_pretrain_step(cfg, lr=TRAIN_LR)(
+        one, bert.init_opt_state(one), batch)
+    del one
+    runs = {}
+    for zero1 in (False, True):
+        params = bert.init_params(0, cfg, dev)
+        opt = bert.shard_opt_state(bert.init_opt_state(params), cfg, mesh,
+                                   zero1)
+        step = bert.make_pretrain_step(cfg, mesh, lr=TRAIN_LR, zero1=zero1)
+        state = {"p": params, "o": opt}
+
+        def run_step():
+            loss, _, state["p"], state["o"] = step(state["p"], state["o"],
+                                                   batch)
+            return loss
+        res = _timed_steps(bert_forward, run_step, DPB_STEPS, DPB_LAUNCHES,
+                           f"BERT dp zero1={zero1}")
+        res["slot_bytes"] = sum(t.numel() * t.element_size()
+                                for t in tfm.tree_leaves(state["o"]["m"])
+                                + tfm.tree_leaves(state["o"]["v"]))
+        runs[zero1] = dict(res, params=state["p"],
+                           launches_per_step=DPB_LAUNCHES)
+        del params, opt, state
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tfm.tree_leaves(runs[True].pop("params")),
+        tfm.tree_leaves(runs[False].pop("params"))))
+    ratio = runs[True]["slot_bytes"] / runs[False]["slot_bytes"]
+    first_rel = abs(runs[False]["losses"][0] - float(one_loss)) / float(
+        one_loss)
+    check(np.allclose(runs[True]["losses"], runs[False]["losses"],
+                      rtol=DPB_REL, atol=0), f"ZeRO-1 losses {runs}")
+    check(diff <= DPB_ATOL, f"ZeRO-1 params differ by {diff}")
+    check(0.5 <= ratio <= 0.55, f"ZeRO-1 slot bytes ratio {ratio}")
+    check(first_rel <= BERT_REL, f"dp=2 first loss vs one process: rel "
+          f"{first_rel}")
+    return {"replicated": runs[False], "zero1": runs[True],
+            "zero1_param_max_abs_diff": diff, "slot_bytes_ratio": ratio,
+            "one_process_first_loss": float(one_loss),
+            "first_loss_rel": first_rel}
+
+
+def gpipe_graph_worker(opt):
+    """Section 29's leg ``opt`` on one of the two stage processes: the
+    example's main, in this process's group."""
+    from hetu_tpu_torch.examples import gpipe
+    return _quiet(lambda: gpipe.main(
+        ["--opt", opt, "--learning-rate", str(GPIPE_LR[opt])]
+        + GPIPE_ARGS))[0]
+
+
+PIPE_JOBS = {"gpt2": gpt2_pipeline_worker, "bert": bert_dp_worker,
+             "gpipe_sgd": lambda dev, rank: gpipe_graph_worker("sgd"),
+             "gpipe_adam": lambda dev, rank: gpipe_graph_worker("adam")}
+
+
+def pipe_worker(out_dir):
+    """One of the two ranks of sections 26, 27 and 29, started by the
+    runner with --devices cuda:0,cuda:0 --backend gloo: joins the group,
+    runs each job of PIPE_JOBS in turn and writes its result to
+    ``out_dir/<job>_rank<r>.json``."""
+    from hetu_tpu_torch.parallel import multihost
+    import torch.distributed as dist
+    multihost.initialize()
+    dev, rank = multihost.device(), multihost.process_index()
+    for job, run in PIPE_JOBS.items():
+        t0 = time.perf_counter()
+        result = dict(run(dev, rank), rank=rank, device=str(dev),
+                      backend=dist.get_backend())
+        result["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"{job}_rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        torch.cuda.empty_cache()
+    multihost.shutdown()
+    return 0
+
+
+def _two_ranks(command, what, timeout=900):
+    """Run ``command`` as two ranks on cuda:0 over gloo through the runner;
+    a failure fails the phase, with the end of the ranks' output."""
+    runner = [sys.executable, "-m", "hetu_tpu_torch.runner", "-w", "2",
+              "--devices", "cuda:0,cuda:0", "--backend", "gloo"]
+    p = subprocess.run(runner + command, capture_output=True, text=True,
+                       timeout=timeout, cwd=os.path.dirname(
+                           os.path.abspath(__file__)))
+    check(p.returncode == 0, f"{what}: the two ranks exited "
+          f"{p.returncode}: {p.stdout[-2000:]} {p.stderr[-4000:]}")
+    return p.stdout
+
+
+def pipeline_ranks_phase():
+    """Sections 26, 27 and 29's two-rank legs, in one pair of processes;
+    returns their results by job."""
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        _two_ranks([sys.executable, os.path.abspath(__file__),
+                    "--pipe-worker", d], "ranks")
+        for job in PIPE_JOBS:
+            out[job] = [json.load(open(os.path.join(d, f"{job}_rank{r}.json")))
+                        for r in range(2)]
+    emit("pipeline_ranks", wall_seconds=time.perf_counter() - t0,
+         job_seconds={j: [r["seconds"] for r in v] for j, v in out.items()})
+    emit("pipeline_gpt2_small", ranks=out["gpt2"])
+    emit("bert_dp2", ranks=out["bert"])
+    return out
+
+
+def nccl_one_rank_phase(multihost, dev):
+    """Section 28 (NCCL_M above): the NCCL group's collectives, then both
+    step factories at dp = pp = 1 over NCCL in this process, against the
+    no-mesh steps."""
+    import torch.distributed as dist
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.models import bert, transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib, pipeline as pl
+    store = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    out = {}
+    try:
+        multihost.initialize("file://" + os.path.join(store, "rendezvous"),
+                             world_size=1, rank=0, device=dev)
+        backend = dist.get_backend()
+        check(backend == "nccl", f"section 28 joined a {backend} group")
+        # multihost's collectives on CUDA tensors over NCCL, where a world
+        # of one makes each the identity (the steps below, at dp = pp = 1,
+        # issue none: their collectives run only on an axis of size > 1)
+        x = torch.randn(NCCL_ELEMS, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(28))
+        y, z = x.clone(), x.clone()
+        multihost.all_reduce_([y])
+        multihost.all_reduce_([z], mean=True)
+        gathered = multihost.all_gather(x)
+        check(torch.equal(y, x) and torch.equal(z, x)
+              and len(gathered) == 1 and torch.equal(gathered[0], x)
+              and gathered[0].is_cuda, "NCCL all_reduce_/all_gather on a "
+              "world of one are not the identity")
+        out["collectives"] = dict(backend=backend, elements=NCCL_ELEMS,
+                                  all_reduce_identity=True,
+                                  all_gather_identity=True)
+        del x, y, z, gathered
+        mesh = meshlib.make_mesh()
+        cfg = tfm.TransformerConfig(**GPT2_SMALL, dtype=torch.bfloat16,
+                                    remat=True)
+        gen = torch.Generator(device=dev).manual_seed(28)
+        tok = torch.randint(0, cfg.vocab_size, (NCCL_M, PP_MB, PP_T),
+                            generator=gen, device=dev)
+        tgt = torch.roll(tok, -1, 2)
+        params = tfm.init_params(0, cfg, dev)
+        step = pl.make_pipeline_train_step(cfg, mesh, NCCL_M)
+        (loss, g), counts = bert_forward.counted(
+            lambda: step.fwd_bwd(params, tok, tgt))
+        loss_o, g_o = tfm._loss_and_grads(params, tok, tgt, cfg, None,
+                                          NCCL_M, None)
+        cat = lambda t: torch.cat([x.flatten()  # noqa: E731
+                                   for x in tfm.tree_leaves(t)])
+        rel = rel_l2(cat(g), cat(g_o))
+        lrel = abs(float(loss) - float(loss_o)) / float(loss_o)
+        check(lrel <= BERT_REL and rel <= GRAD_REL, f"NCCL pipeline at "
+              f"dp = pp = 1: loss rel {lrel}, gradients rel L2 {rel}")
+        out["pipeline"] = dict(loss=float(loss), no_mesh_loss=float(loss_o),
+                               loss_rel=lrel, grad_rel_l2=rel,
+                               launches=counts)
+        del g, g_o, params
+        bcfg = bert.BERT_BASE
+        batch = bert_forward.phase1_batch(bcfg, BERT_BATCH, BERT_SEQ,
+                                          BERT_PRED, seed=0, device=dev)
+        res = {}
+        for m in (mesh, None):
+            p = bert.init_params(0, bcfg, dev)
+            o = bert.shard_opt_state(bert.init_opt_state(p), bcfg, m,
+                                     zero1=m is not None)
+            st = bert.make_pretrain_step(bcfg, m, lr=TRAIN_LR,
+                                         zero1=m is not None)
+            (l, _, p, o), counts = bert_forward.counted(
+                lambda: st(p, o, batch))
+            res[m is None] = (float(l), cat(p), counts)
+        lrel = abs(res[False][0] - res[True][0]) / res[True][0]
+        prel = rel_l2(res[False][1], res[True][1])
+        check(lrel <= BERT_REL and prel <= GRAD_REL, f"NCCL BERT at dp = 1 "
+              f"(zero1): loss rel {lrel}, params rel L2 {prel}")
+        out["bert_zero1"] = dict(loss=res[False][0], no_mesh_loss=res[True][0],
+                                 loss_rel=lrel, param_rel_l2=prel,
+                                 launches=res[False][2])
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+    emit("pipeline_nccl_one_rank", **out)
+    return out
+
+
+def gpipe_graph_phase(ranks):
+    """Section 29 (GPIPE_* above): examples/gpipe.py's two-stage runs
+    (``ranks``: the two processes' summaries by job), SGD and Adam, against
+    SGD with both stages in this process."""
+    from hetu_tpu_torch.examples import gpipe
+    out = {}
+    for opt in ("sgd", "adam"):
+        got = ranks[f"gpipe_{opt}"]
+        kname = "fused_sgd" if opt == "sgd" else "fused_adam"
+        for r in got:
+            check(r["launches_per_step"] == {kname: 1.0}, f"gpipe {opt} rank "
+                  f"{r['rank']} launched {r['launches_per_step']} a step")
+            m = r["epoch_mean_losses"]
+            check(np.all(np.isfinite(m)) and m[-1] < m[0],
+                  f"gpipe {opt}: epoch losses {m}")
+        out[opt] = got
+    alone = _quiet(lambda: gpipe.main(
+        ["--opt", "sgd", "--learning-rate", str(GPIPE_LR["sgd"])]
+        + GPIPE_ARGS))[0]
+    two = out["sgd"][0]["losses"]
+    check(np.allclose(two, alone["losses"], rtol=GPIPE_REL, atol=0),
+          f"gpipe on two processes {two} vs one {alone['losses']}")
+    out["sgd_one_process"] = alone
+    emit("gpipe_graph_two_stages", args=GPIPE_ARGS, **out)
+    return out
+
+
+def pipe_phases(multihost, dev):
+    """Sections 26-29; returns each path's launches, summed over ranks."""
+    ranks = pipeline_ranks_phase()
+    paths = {}
+    for name, leg, steps in (("pipeline_gpt2_gpipe", "gpipe", PP_STEPS),
+                             ("pipeline_gpt2_1f1b", "1f1b", PP_STEPS)):
+        got = {}
+        for r in ranks["gpt2"]:
+            for k, v in r[leg]["launches_per_step"].items():
+                got[k] = got.get(k, 0) + v * steps
+        paths[name] = got
+    got = {}
+    for r in ranks["bert"]:
+        for k, v in r["replicated"]["launches_per_step"].items():
+            got[k] = got.get(k, 0) + v * 2 * DPB_STEPS     # zero1 off, on
+    paths["bert_dp2"] = got
+    nccl = nccl_one_rank_phase(multihost, dev)
+    got = dict(nccl["pipeline"]["launches"])
+    for k, v in nccl["bert_zero1"]["launches"].items():
+        got[k] = got.get(k, 0) + v
+    paths["nccl_one_rank"] = got
+    graph = gpipe_graph_phase(ranks)
+    for opt in ("sgd", "adam"):
+        kname = "fused_sgd" if opt == "sgd" else "fused_adam"
+        paths[f"gpipe_graph_{opt}"] = {kname: sum(
+            r["launches_per_step"][kname] * r["steps"]
+            for r in graph[opt])}
+    return paths
+
+
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                  quant, hf, launches, by_path):
     """The ``kernels`` JSON object: one entry per ported kernel; its
@@ -3771,7 +4237,8 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         for c in attn + hf["attn"]),
         phase2=_timed(attn[1]), slice_5d={"gpt2_causal": _timed(attn[4])},
         slice_5c={"tinyllama_causal": _timed(hf["attn"][0]),
-                  "moe_causal": _timed(hf["attn"][1])})
+                  "moe_causal": _timed(hf["attn"][1])},
+        slice_8a={"gpt2_pipeline_causal": _timed(attn[PIPE_ATTN])})
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
         c["max_abs_err"] for c in ces + hf["ce"]), phase2=_timed(ces[2]),
         slice_5d={"bert_trainer": _timed(ces[3]),
@@ -3785,7 +4252,8 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         phase2=_timed(attn_bwd[1]),
         slice_5d={"gpt2_causal": _timed(attn_bwd[4])},
         slice_5c={"tinyllama_causal": _timed(hf["attn_bwd"][0]),
-                  "moe_causal": _timed(hf["attn_bwd"][1])})
+                  "moe_causal": _timed(hf["attn_bwd"][1])},
+        slice_8a={"gpt2_pipeline_causal": _timed(attn_bwd[PIPE_ATTN])})
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
         c["max_abs_err"] for c in ce_bwd + hf["ce_bwd"]),
         phase2=_timed(ce_bwd[2]),
@@ -3803,8 +4271,10 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
     # BERT-base's two phase-2 lookups
     kern["fused_embed_grad"] = dict(embed[0], max_abs_err=max(
         c["max_abs_err"] for c in embed + hf["embed"]), phase2={
-            c["case"]: _timed(c) for c in embed if c["form"] == "dense"},
-        slice_5c={"tinyllama_token": _timed(hf["embed"][0])})
+            c["case"]: _timed(c) for c in embed
+            if c["case"] in ("bert_token", "bert_type")},
+        slice_5c={"tinyllama_token": _timed(hf["embed"][0])},
+        slice_8a={"gpt2_pipeline_token": _timed(embed[PIPE_EMBED])})
     # the quantized all-reduce's legs at one int8 step of the DP MLP (fp8
     # in the quant_comm_checked line); bit-equal at every case, so 0
     for k in ("quant_blocks", "dequant_blocks"):
@@ -3820,7 +4290,8 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         **{f: v[f] for f in ("launched_ms", "step_launched_ms",
                              "plain_launched_ms", "library_launched_ms",
                              "library_timing", "shape", "epoch_ms", "phase2",
-                             "slice_5d", "slice_5c", "plan", "large")
+                             "slice_5d", "slice_5c", "slice_8a", "plan",
+                             "large")
            if f in v},
         **({"gather_bound_ms": v["gather_bound"][0]}
            if "gather_bound" in v else {}))
@@ -3868,7 +4339,15 @@ def main(argv=None):
                     help="build, run TinyLlama-1.1B, the switch-MoE LM, "
                          "ViT-B/16, BERT-base through hf_bert and the GPT-2 "
                          "pipeline (sections 21-25), and stop")
+    ap.add_argument("--pipe", action="store_true",
+                    help="build, check the kernels at the pipeline's "
+                         "shapes, run the pipeline, ZeRO-1 and graph-API "
+                         "GPipe legs (sections 26-29), and stop")
+    ap.add_argument("--pipe-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)   # a rank of sections 26-27, 29
     args = ap.parse_args(argv)
+    if args.pipe_worker:
+        return pipe_worker(args.pipe_worker)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
@@ -3931,6 +4410,25 @@ def main(argv=None):
     if args.hf:
         hf_phases(bert, transformer, bert_forward, registry, dev, bw, f32,
                   bf16)
+        return 0
+    if args.pipe:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        emit("slice_8a_kernels_checked",
+             shapes="GPT-2 small's pipeline microbatch, the graph-API MLP's "
+                    "stages",
+             opt={k: opt_group_check(
+                 fused_opt, registry,
+                 lambda shape, scale=1.0: torch.randn(
+                     shape, generator=gen, device=dev) * scale,
+                 torch.tensor(1e-3, device=dev), k == "fused_adam")[1]
+                  for k in ("fused_sgd", "fused_adam")},
+             attn=attention_phase(flash_attention, dev, bw, f32, bf16,
+                                  [ATTN_CASES[PIPE_ATTN]]),
+             attn_bwd=attention_bwd_phase(flash_attention, dev, bw, f32,
+                                          bf16, [ATTN_CASES[PIPE_ATTN]]),
+             embed=embed_grad_phase(embed_grad, registry, None, None, dev,
+                                    bw, f32, [EMBED_CASES[PIPE_EMBED]]))
+        emit("slice_8a_launches", **pipe_phases(multihost, dev))
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -4070,6 +4568,11 @@ def main(argv=None):
                         bw).items()
     hf_cases, hf_paths = hf_phases(bert, transformer, bert_forward, registry,
                                    dev, bw, f32, bf16)
+    # -- 26. GPT-2 small through the pipeline on two stage processes; 27.
+    # BERT-base on dp = 2 with ZeRO-1; 28. both at dp = pp = 1 over NCCL;
+    # 29. the graph-API GPipe on two stage processes -------------------------
+    torch.cuda.empty_cache()
+    paths += pipe_phases(multihost, dev).items()
     for path, got in paths + list(hf_paths.items()):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v

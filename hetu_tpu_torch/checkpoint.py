@@ -12,8 +12,11 @@ reads it back onto the devices and dtypes of ``like``, or as numpy arrays.
 ``keep``.
 
 The reference's sharded restore (``mesh=``, ``specs=``) is not ported: it
-comes with slice 8, where this module moves to
-``torch.distributed.checkpoint``.
+comes with slice 8b, where this module moves to
+``torch.distributed.checkpoint``. A state that holds one rank's part of a
+whole (ZeRO-1's slot shards, a pipeline stage's blocks: tensors marked by
+``parallel.mesh.mark_shard``) is refused before anything is written, for
+the same reason.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .parallel.mesh import shard_of
+
 _FILE = "state.pt"
 
 
@@ -32,8 +37,20 @@ def _no_mesh(mesh, specs):
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "a sharded restore (mesh=, specs=) is not ported to "
-            "hetu_tpu_torch yet: it comes with slice 8 (meshes, TP, PP, "
-            "ZeRO and torch.distributed.checkpoint; ROADMAP Queue 1)")
+            "hetu_tpu_torch yet: it comes with slice 8b "
+            "(torch.distributed.checkpoint; ROADMAP Queue 1)")
+
+
+def _refuse_shards(tree, where=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _refuse_shards(v, f"{where}/{k}")
+    elif shard_of(tree) is not None:
+        raise NotImplementedError(
+            f"checkpoint entry {where} is one rank's {shard_of(tree)} "
+            "shard: a ZeRO-1 or pipeline state is saved by the sharded "
+            "checkpoint of slice 8b (torch.distributed.checkpoint); this "
+            "one-process checkpoint writes whole states only")
 
 
 def _to_cpu(tree):
@@ -60,6 +77,7 @@ def save(path: str, state: Any, force: bool = False) -> None:
     disk. An existing checkpoint at ``path`` is refused unless
     ``force=True``, which replaces it; either way the new one is complete
     before it takes the name."""
+    _refuse_shards(state)
     path = os.path.abspath(os.fspath(path))
     if os.path.exists(path) and not force:
         raise FileExistsError(f"a checkpoint exists at {path}; pass "

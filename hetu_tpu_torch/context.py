@@ -3,8 +3,9 @@
 
 The port runs one process per device: a group of several devices is the
 data-parallel ranks' devices, one per rank (the executor takes its own).
-The placement of model-parallel tuples onto several cards arrives with
-the tensor-parallel slice.
+Under ``Executor(..., gpipe=True)`` each context is a pipeline stage, and
+a device's id is the rank that runs it. The placement of model-parallel
+tuples onto several cards arrives with slice 8b.
 """
 from __future__ import annotations
 
@@ -62,6 +63,16 @@ class DeviceGroup:
         for c in self._contexts:
             out.extend(c) if isinstance(c, tuple) else out.append(c)
         return out
+
+    def __len__(self):
+        return len(self._contexts)
+
+    def __eq__(self, other):
+        return (isinstance(other, DeviceGroup)
+                and self._contexts == other._contexts)
+
+    def __hash__(self):
+        return hash(tuple(self._contexts))
 
     def __repr__(self):
         return f"DeviceGroup({self._contexts})"

@@ -107,6 +107,12 @@ dense parameters too:
   pushes. ``close()`` drains the streams; ``save``/``load`` include the
   server's parameters.
 
+Pipeline parallelism (``gpipe=True``, ``graph/gpipe.py``): each
+``ht.context`` is a stage, run by the processes whose ranks its devices'
+ids name; a list of microbatch feed dicts runs all forwards, then all
+backwards, and the optimizer applies once per stage. Every target of
+such an executor pipelines.
+
 Lint, plan, telemetry, watch, pilot and elastic arrive with later
 slices; so does capturing the step in a CUDA graph.
 """
@@ -158,8 +164,9 @@ def _resolve_device(ctx, mesh, dp_rank: int, dp: int) -> torch.device:
                 f"ctx={ctx!r}: hetu_tpu_torch runs one process per device; "
                 f"a group of {len(ctxs)} devices needs a dp mesh of as many "
                 "processes (python -m hetu_tpu_torch.runner -w N, "
-                "comm_mode='AllReduce'), and model parallelism arrives with "
-                "slice 8")
+                "comm_mode='AllReduce'); a pipeline's stages are contexts "
+                "of an Executor(..., gpipe=True); model parallelism arrives "
+                "with slice 8b")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"the executor runs on {dev} (ctx={ctx!r}) but "
@@ -193,7 +200,8 @@ class HetuConfig:
     that the port has not yet reached raise, naming their slice."""
 
     def __init__(self, eval_node_list, ctx=None, seed=None, comm_mode=None,
-                 mesh=None, dp_axis="dp", gpipe=False, dtype=np.float32,
+                 mesh=None, dp_axis="dp", gpipe=False,
+                 gpipe_microbatches=None, dtype=np.float32,
                  comm_quant=None, comm_quant_block=None,
                  comm_quant_min_size=None, comm_quant_error_feedback=None,
                  comm_quant_force=(), kernels=None, bsp=False, prefetch=True,
@@ -217,10 +225,11 @@ class HetuConfig:
         self.prefetch = bool(prefetch)
         self.cstable_policy = cstable_policy
         self.cache_bound = cache_bound
-        if gpipe:
-            raise NotImplementedError(
-                "gpipe=True: pipeline parallelism arrives with slice 8 (TP, "
-                "PP, ZeRO)")
+        # pipeline parallelism (reference executor.py:99-123): the stages'
+        # processes and groups come from the contexts, not from a mesh;
+        # gpipe_microbatches is M for a step fed by dataloaders
+        self.gpipe = bool(gpipe)
+        self.gpipe_microbatches = gpipe_microbatches
         self.dp_axis = dp_axis
         # quantized communication (docs/COMM_QUANT.md of the JAX package):
         # explicit arguments, then HETU_COMM_QUANT*, then off
@@ -228,19 +237,31 @@ class HetuConfig:
             comm_quant, comm_quant_block, comm_quant_min_size,
             comm_quant_error_feedback, comm_quant_force)
         self.comm_quant = self.comm_quant_policy.mode
+        if self.comm_quant != "off" and self.gpipe:
+            raise ValueError(
+                "comm_quant is not supported with gpipe=True: the pipeline "
+                "executor owns its own cross-stage transfers")
+        if self.gpipe and mesh is not None:
+            raise ValueError("gpipe=True takes its stages' groups from the "
+                             "contexts: pass no mesh")
         self.kernels = registry.resolve_mode(kernels)
         if mesh is not None and dp_axis not in (mesh.mesh_dim_names or ()):
             raise ValueError(
                 f"mesh must be a torch.distributed DeviceMesh with a "
                 f"{dp_axis!r} dimension, got {mesh!r}")
         if mesh is None and comm_mode in ("AllReduce", "Hybrid") \
-                and multihost.process_count() > 1:
+                and multihost.process_count() > 1 and not self.gpipe:
             mesh = multihost.global_mesh()
         self.mesh = mesh
         group = self.dp_group
         self.dp_rank = dist.get_rank(group) if group is not None else 0
         self.dp_size = dist.get_world_size(group) if group is not None else 1
-        self.device = _resolve_device(ctx, mesh, self.dp_rank, self.dp_size)
+        if self.gpipe and multihost.is_initialized():
+            # every stage of this process runs on the device it joined on
+            self.device = multihost.device()
+        else:
+            self.device = _resolve_device(ctx, mesh, self.dp_rank,
+                                          self.dp_size)
         if mesh is not None and mesh.device_type != self.device.type:
             raise ValueError(
                 f"the mesh is over {mesh.device_type!r} devices but this "
@@ -948,8 +969,17 @@ class Executor:
         self.state = {"params": params, "slots": slots, "op_state": op_state,
                       "qresid": qresid, "step": 0}
 
-        self.subexecutors = {name: SubExecutor(name, nodes, self)
-                             for name, nodes in self.eval_node_dict.items()}
+        if config.gpipe:
+            # every target pipelines (validation ones forward only): the
+            # params live with their stages' processes
+            from .gpipe import SubExecutor4Gpipe
+            self.subexecutors = {
+                name: SubExecutor4Gpipe(name, nodes, self)
+                for name, nodes in self.eval_node_dict.items()}
+        else:
+            self.subexecutors = {
+                name: SubExecutor(name, nodes, self)
+                for name, nodes in self.eval_node_dict.items()}
 
     # ------------------------------------------------------------------
     def _rewire_ps_gradients(self, topo):
@@ -1096,10 +1126,23 @@ class Executor:
                        eval_node_list=eval_node_list)
 
     def get_batch_num(self, name="default"):
-        """Batches per epoch for the target's dataloaders (min across them)."""
+        """Batches per epoch for the target's dataloaders (min across them).
+        Under dataloader-fed gpipe this counts steps: each step takes
+        ``gpipe_microbatches`` batches of each loader."""
         nums = [n.get_batch_num(name)
                 for n in self.subexecutors[name].dataloader_nodes]
-        return min(nums) if nums else None
+        if not nums:
+            return None
+        num = min(nums)
+        m = self.config.gpipe_microbatches
+        if self.config.gpipe and m:
+            if num < m:
+                raise ValueError(
+                    f"dataloader provides {num} batches/epoch but one gpipe "
+                    f"step consumes gpipe_microbatches={m}; a 0-step epoch "
+                    "loop would silently train nothing")
+            num //= m
+        return num
 
     def _param_file_names(self):
         """Stable, collision-free file name per parameter: duplicates get a
@@ -1138,6 +1181,11 @@ class Executor:
         shape, float32) — what ``hetu_tpu``'s ``load`` reads. Under data parallelism every rank
         calls it (the residuals are gathered from their shards) and dp
         rank 0 writes."""
+        if self.config.gpipe and multihost.process_count() > 1:
+            raise NotImplementedError(
+                "save() of a pipeline whose stages live in several "
+                "processes: each holds its stage's parameters, and the "
+                "sharded checkpoint comes with slice 8b")
         qresid = {str(i): self._full_qresid(n)
                   for i, n in enumerate(self._qresid_ordered())}
         if self.ps_runtime is not None:
@@ -1247,8 +1295,9 @@ def wrapped_mpi_nccl_init(init_nccl=True, devices=None):
     over gloo on the CPU (``init_nccl=False``). Outside the runner it is a
     world of one process and joins nothing."""
     local = int(os.environ.get("LOCAL_RANK", "0"))
-    multihost.initialize(device=torch.device("cuda", local) if init_nccl
-                         else torch.device("cpu"))
+    device = (os.environ.get("HETU_DEVICE") or torch.device("cuda", local)
+              if init_nccl else torch.device("cpu"))
+    multihost.initialize(device=device)
     return _Comm()
 
 
@@ -1261,10 +1310,37 @@ def mpi_nccl_finish(comm=None):
     multihost.shutdown()
 
 
+class CommGroup:
+    """A sub-group of ranks (reference ``new_group_comm``'s NCCL group):
+    ``mean(x)`` all-reduces over it. The process group itself lives in
+    ``multihost`` (released by ``shutdown``), looked up on each use."""
+
+    def __init__(self, ranks):
+        self.ranks = tuple(sorted(int(r) for r in ranks))
+        multihost.group(self.ranks)          # made now: a collective
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def mean(self, x):
+        """The mean of the group's ``x`` in float32 (every rank of the
+        group calls it)."""
+        y = _f32(x).detach().clone(memory_format=torch.contiguous_format)
+        if self.size > 1:
+            multihost.all_reduce_([y], multihost.group(self.ranks), mean=True)
+        return y
+
+    def __repr__(self):
+        return f"CommGroup(ranks={list(self.ranks)})"
+
+
 def new_group_comm(devices=None):
-    """The default group: sub-groups arrive with slice 8."""
-    if devices is not None:
-        raise NotImplementedError(
-            "new_group_comm(devices): sub-groups of pipeline stages arrive "
-            "with slice 8 (TP, PP, ZeRO)")
-    return None
+    """The group of ``devices`` (contexts whose ids are ranks, or a
+    DeviceGroup), made by a collective of every rank of the world: call it
+    on every rank, in one order. ``None`` is the default group."""
+    if devices is None:
+        return None
+    group = devices if isinstance(devices, DeviceGroup) \
+        else DeviceGroup(devices)
+    return CommGroup(c.device_id for c in group.flat())

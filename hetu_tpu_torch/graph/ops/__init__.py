@@ -43,6 +43,7 @@ from .comm import (
     AllReduceCommunicateOp, allreduceCommunicate_op,
     GroupAllReduceCommunicateOp, groupallreduceCommunicate_op,
     datah2d_op, datad2h_op, dispatch,
+    PipelineSendOp, PipelineReceiveOp, pipeline_send_op, pipeline_receive_op,
 )
 from .ps import (
     parameterServerCommunicate_op, parameterServerSparsePull_op,

@@ -4,6 +4,9 @@ optimizer slots from numpy arrays keyed by the reference's parameter names
 ``Executor.load`` reads a whole directory that ``hetu_tpu``'s
 ``Executor.save`` wrote. ``tree_from_numpy`` carries a functional model's
 params tree (``hetu_tpu.models``' nested dicts) across as tensors.
+``stage_tree`` and ``stages_to_numpy`` carry the pipeline's: the JAX
+package stacks a stage's blocks on a leading ``(pp, L/pp, ...)`` axis,
+where a rank of the port holds its stage's ``(L/pp, ...)`` slice.
 """
 from __future__ import annotations
 
@@ -79,3 +82,30 @@ def tree_from_numpy(tree, device=None, like=None):
         return out.to(device)
 
     return convert(tree, like, "")
+
+
+def stage_tree(tree, stage: int, device=None, like=None):
+    """The JAX package's pipeline params (numpy; ``blocks`` leaves ``(pp,
+    L/pp, ...)``) as stage ``stage``'s tree of the port (``blocks`` leaves
+    ``(L/pp, ...)``, marked as a stage's; the other params whole), checked
+    against ``like`` as ``tree_from_numpy`` checks."""
+    from .parallel.mesh import mark_shard
+    sliced = {**tree, "blocks": {k: np.asarray(v)[stage]
+                                 for k, v in tree["blocks"].items()}}
+    out = tree_from_numpy(sliced, device, like)
+    for v in out["blocks"].values():
+        mark_shard(v, "pipeline stage")
+    return out
+
+
+def stages_to_numpy(trees):
+    """The inverse of ``stage_tree``: the stages' trees of the port, in
+    stage order, as the JAX package's pipeline params in numpy (blocks
+    stacked on a leading pp axis; the other params from stage 0)."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    out = {k: arr(v) for k, v in trees[0].items() if k != "blocks"}
+    out["blocks"] = {k: np.stack([arr(t["blocks"][k]) for t in trees])
+                     for k in trees[0]["blocks"]}
+    return out

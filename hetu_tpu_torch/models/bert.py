@@ -12,7 +12,11 @@ and backward for the MLM loss, and in the backward the embedding gradient's
 segment sum for the token and the type embedding (both gathered by
 ``kernels/embed_grad.py:lookup``). The steps use the trunk's AdamW
 (``transformer.adamw_update``) and update params and optimizer state in
-place. ``param_specs`` is mesh code and comes with the parallel slices.
+place. On a dp mesh (``parallel/mesh.py``) the steps take the global batch
+on every rank, run this rank's rows and return the global batch's loss
+(the MLM mean is weighted by the global count of slots, as the reference
+computes it on the whole batch); ``make_pretrain_step(..., zero1=True)``
+keeps each rank's shard of AdamW's slots, as the trunk's step does.
 """
 from __future__ import annotations
 
@@ -156,9 +160,23 @@ def nsp_logits(params, h):
     return _pool(params, h) @ params["nsp_w"] + params["nsp_b"]
 
 
-def pretrain_loss(params, batch, cfg: BertConfig, mesh=None):
-    """batch: dict of tensors with the data pipeline's rows. Returns
-    ``(loss, (mlm, nsp))``, mlm averaged over the weighted slots."""
+def param_specs(cfg: BertConfig):
+    """Each parameter's partition spec (the trunk's, without the head, and
+    the BERT heads'), as the reference's; ZeRO-1 reads them."""
+    specs = tfm.param_specs(cfg.trunk())
+    del specs["head"]
+    if cfg.attn_proj_bias:
+        specs["mlm_dense_b"] = ("tp",)
+    specs.update({"type_emb": (None, None), "mlm_dense": (None, "tp"),
+                  "mlm_ln_scale": (None,), "mlm_ln_bias": (None,),
+                  "mlm_bias": ("tp",), "pool_w": (None, None),
+                  "pool_b": (None,), "nsp_w": (None, None), "nsp_b": (None,)})
+    return specs
+
+
+def _pretrain_terms(params, batch, cfg: BertConfig, mesh=None):
+    """Per slot the MLM NLL (B, P) and its weight (B, P) f32, per row the
+    NSP label's log-probability (B,)."""
     h = encode(params, batch["input_ids"], batch["segment_ids"], cfg, mesh,
                batch.get("input_mask"))
     if should_fuse(cfg.fused_mlm_ce, mesh, h.device):
@@ -172,11 +190,17 @@ def pretrain_loss(params, batch, cfg: BertConfig, mesh=None):
         logp = torch.log_softmax(logits.float(), -1)
         per_slot = -torch.gather(logp, -1,
                                  batch["mlm_ids"].long()[..., None])[..., 0]
-    w = batch["mlm_weights"].float()
-    mlm = torch.sum(per_slot * w) / torch.clamp_min(torch.sum(w), 1.0)
     nl = torch.log_softmax(nsp_logits(params, h), -1)
-    nsp = -torch.mean(torch.gather(nl, -1,
-                                   batch["nsp_label"].long()[:, None])[:, 0])
+    label_lp = torch.gather(nl, -1, batch["nsp_label"].long()[:, None])[:, 0]
+    return per_slot, batch["mlm_weights"].float(), label_lp
+
+
+def pretrain_loss(params, batch, cfg: BertConfig, mesh=None):
+    """batch: dict of tensors with the data pipeline's rows. Returns
+    ``(loss, (mlm, nsp))``, mlm averaged over the weighted slots."""
+    per_slot, w, label_lp = _pretrain_terms(params, batch, cfg, mesh)
+    mlm = torch.sum(per_slot * w) / torch.clamp_min(torch.sum(w), 1.0)
+    nsp = -torch.mean(label_lp)
     return mlm + nsp, (mlm, nsp)
 
 
@@ -213,29 +237,68 @@ def classify_logits(params, input_ids, segment_ids, cfg: BertConfig,
     return _pool(params, h) @ params["cls_w"] + params["cls_b"]
 
 
-def make_pretrain_step(cfg: BertConfig, mesh=None, lr: float = 1e-4):
+def make_pretrain_step(cfg: BertConfig, mesh=None, lr: float = 1e-4,
+                       zero1: bool = False):
     """Returns ``step(params, opt_state, batch) -> (loss, (mlm, nsp),
-    params, opt_state)``: ``pretrain_loss``'s gradient and one AdamW
-    update. The step updates ``params`` and ``opt_state``'s ``m`` and ``v``
-    in place, as the reference donates its buffers. A mesh raises
-    ``NotImplementedError``."""
-    tfm._check_train_options(cfg.trunk(), mesh)
+    params, opt_state)``: the gradient of ``pretrain_loss``'s value and
+    one AdamW update. The step updates ``params`` and ``opt_state``'s ``m`` and ``v``
+    in place, as the reference donates its buffers.
+
+    ``mesh`` (dp): every rank passes the global batch and gets its loss.
+    Each rank's loss is its rows' share of the global one (its weighted
+    MLM NLL over the global slot weight, its NSP NLL over the global row
+    count), and the gradients are summed over dp. ``zero1=True``: place
+    the state with ``shard_opt_state(opt, cfg, mesh, zero1=True)``."""
+    tfm.meshlib.check_mesh(mesh)
+    if zero1 and mesh is None:
+        raise ValueError("zero1=True shards AdamW's m and v over a mesh's "
+                         "dp axis: pass mesh=")
+    dp = tfm.DataParallel(mesh, zero1_opt_specs(cfg, mesh) if zero1
+                          else None)
+
+    def shared_loss(params, batch, n_rows):
+        per_slot, w, label_lp = _pretrain_terms(params, batch, cfg, mesh)
+        wsum = torch.sum(w).detach()
+        dp.sum_([wsum])
+        mlm = torch.sum(per_slot * w) / torch.clamp_min(wsum, 1.0)
+        nsp = -torch.sum(label_lp) / n_rows
+        return mlm + nsp, (mlm, nsp)
 
     def step(params, opt_state, batch):
+        n_rows = batch["input_ids"].shape[0]
         (loss, parts), grads = tfm.value_and_grad(
-            pretrain_loss, params, batch, cfg, mesh, has_aux=True)
-        params, opt_state = tfm.adamw_update(params, grads, opt_state, lr=lr)
+            shared_loss, params, dp.batch(batch), n_rows, has_aux=True)
+        dp.sum_([loss, *parts] + tfm.tree_leaves(grads))
+        params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, parts, params, opt_state
 
     return step
+
+
+def zero1_opt_specs(cfg: BertConfig, mesh):
+    """ZeRO-1's slot layout for BERT's params (``transformer.zero1_specs``
+    over ``param_specs``)."""
+    return tfm.zero1_specs(param_specs(cfg), init_params(0, cfg, "meta"),
+                           mesh)
+
+
+def shard_opt_state(opt_state, cfg: BertConfig, mesh, zero1: bool = False):
+    """This rank's AdamW state for ``make_pretrain_step(cfg, mesh,
+    zero1=zero1)``."""
+    if not zero1:
+        return opt_state
+    return tfm.place_opt_state(opt_state, zero1_opt_specs(cfg, mesh), mesh)
 
 
 def make_finetune_step(cfg: BertConfig, lr: float = 2e-5, mesh=None):
     """Returns ``step(params, opt_state, batch{input_ids, segment_ids,
     label, [input_mask]}) -> (loss, acc, params, opt_state)`` for the
     classifier params of ``init_classifier_params``; params and optimizer
-    state are updated in place, as in ``make_pretrain_step``."""
-    tfm._check_train_options(cfg.trunk(), mesh)
+    state are updated in place, as in ``make_pretrain_step``. On a dp
+    mesh each rank runs its rows and the loss, accuracy and gradients are
+    averaged over dp (the rows split evenly)."""
+    tfm.meshlib.check_mesh(mesh)
+    dp = tfm.DataParallel(mesh)
 
     def loss_fn(params, batch):
         logits = classify_logits(params, batch["input_ids"],
@@ -248,9 +311,10 @@ def make_finetune_step(cfg: BertConfig, lr: float = 2e-5, mesh=None):
         return loss, acc
 
     def step(params, opt_state, batch):
-        (loss, acc), grads = tfm.value_and_grad(loss_fn, params, batch,
-                                                has_aux=True)
-        params, opt_state = tfm.adamw_update(params, grads, opt_state, lr=lr)
+        (loss, acc), grads = tfm.value_and_grad(loss_fn, params,
+                                                dp.batch(batch), has_aux=True)
+        dp.mean_([loss, acc] + tfm.tree_leaves(grads))
+        params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, acc, params, opt_state
 
     return step

@@ -26,7 +26,7 @@ generator seeded with ``fold_in(key, t)``, as the reference draws from
 draws. The bits differ from ``jax.random.categorical``'s.
 
 Dense blocks only (no MoE), causal configs only, one device: a ``mesh``
-raises ``NotImplementedError`` naming slice 8.
+raises ``NotImplementedError`` naming slice 8b.
 """
 from __future__ import annotations
 
@@ -172,8 +172,7 @@ def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "distributed decode (mesh=) is not ported to hetu_tpu_torch "
-            "yet: it comes with slice 8 (meshes, TP, PP, ZeRO; ROADMAP "
-            "Queue 1)")
+            "yet: it comes with slice 8b (ROADMAP Queue 1)")
 
 
 def _new_cache(cfg, B, M, device):

@@ -31,12 +31,28 @@ The switch top-1 MoE MLP (``n_experts > 0``, ``_moe_mlp``) runs on one
 device in the reference's dense formulation: (S, E, cap) dispatch and
 combine products, the capacity ``int(capacity_factor * S / E)``, tokens
 past an expert's capacity dropped, and the Switch aux loss summed over the
-layers into ``encode``'s ``aux_sum``. Not ported, and refused with
-``NotImplementedError``: ring attention, any mesh (the ``ep`` sharding of
-the experts with it) and ZeRO-1 (slice 8, the parallel slices).
+layers into ``encode``'s ``aux_sum``.
+
+Meshes (``parallel/mesh.py``, dp and pp): ``encode``, ``forward`` and
+``loss_fn`` compute on the tensors they are given, a mesh or not (a dp or
+pp axis changes nothing inside a layer; the reference's sharding
+constraints are layouts). ``make_train_step(cfg, mesh)`` takes the global
+batch on every rank, runs this rank's share of it (its dp coordinate's
+contiguous rows), averages the gradients over the dp group and applies
+AdamW; with ``zero1=True`` each rank keeps and updates only its shard of
+``m`` and ``v`` (``shard_first_free_dim``'s layout, so rank r's shard is
+the JAX array's shard on device r) and the updated params are all-gathered.
+Under dp a dropout mask is drawn over the whole batch and each rank keeps
+its rows (``batch_share``), so the masks do not depend on dp. A mesh keeps
+the unfused LM head, as the reference does. Refused with
+``NotImplementedError``, naming slice 8b: ring attention, a mesh with tp,
+sp or ep, and the MoE on more than one dp rank (the reference routes the
+experts over the global batch).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 import warnings
@@ -50,6 +66,8 @@ from ..kernels import embed_grad, registry
 from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ce import fused_linear_nll, should_fuse
 from ..ndarray import resolve_device
+from ..parallel import mesh as meshlib
+from ..parallel import multihost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +86,7 @@ class TransformerConfig:
     causal: bool = True         # False = bidirectional encoder (BERT)
     # "auto" picks the fused flash kernel for CUDA tensors when the
     # sequence is a multiple of 128, the unfused dot form otherwise
-    attn_impl: str = "auto"     # auto | dot | flash | ring (slice 8)
+    attn_impl: str = "auto"     # auto | dot | flash | ring (slice 8b)
     # LM loss through the fused linear+CE kernel: "auto" = CUDA tensors;
     # True forces (tests); False always materializes the logits
     fused_lm_ce: Any = "auto"
@@ -122,6 +140,8 @@ def split_generator(rng, n: int) -> list[torch.Generator]:
 
 
 def _init_normal(gen, shape, scale, device):
+    if torch.device(device).type == "meta":      # shapes only
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return (torch.randn(shape, generator=gen, dtype=torch.float32)
             * scale).to(device)
 
@@ -193,12 +213,37 @@ def init_params(rng, cfg: TransformerConfig, device=None):
     return params
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh (dp/tp/sp/ep sharding) is not ported to hetu_tpu_torch "
-            "yet: it comes with slice 8 (meshes, TP, PP, ZeRO; ROADMAP "
-            "Queue 1)")
+def param_specs(cfg: TransformerConfig):
+    """Each parameter's partition spec, a tuple naming the mesh axis that
+    splits each dimension (None: whole), as the reference's: Megatron tp,
+    experts over ep, the rest whole. This slice splits nothing inside a
+    layer; ZeRO-1's slot layout (``shard_first_free_dim``) reads the specs
+    to find each slot's dp dimension."""
+    moe = cfg.n_experts > 0
+    blocks = {"ln1_scale": (None, None), "ln1_bias": (None, None),
+              "wqkv": (None, None, "tp"), "wo": (None, "tp", None),
+              "ln2_scale": (None, None), "ln2_bias": (None, None)}
+    if cfg.attn_proj_bias:
+        blocks["bqkv"] = (None, "tp")
+        blocks["bo"] = (None, None)
+    if cfg.mlp == "swiglu":
+        blocks["w3"] = (None, None, "tp")
+    if moe:
+        blocks.update({"router": (None, None, None),
+                       "w1": (None, "ep", None, "tp"),
+                       "b1": (None, "ep", "tp"),
+                       "w2": (None, "ep", "tp", None),
+                       "b2": (None, "ep", None)})
+    else:
+        blocks.update({"w1": (None, None, "tp"), "b1": (None, "tp"),
+                       "w2": (None, "tp", None), "b2": (None, None)})
+    specs = {"embed": (None, "tp"), "blocks": blocks, "lnf_scale": (None,),
+             "lnf_bias": (None,)}
+    if cfg.use_pos_emb:
+        specs["pos"] = (None, "tp")
+    if not cfg.tied_head:
+        specs["head"] = (None, "tp")
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -245,11 +290,34 @@ def _dropout_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
 
 
+# (r, n): this process holds rows r*B .. (r+1)*B of a batch of n*B rows
+_share = contextvars.ContextVar("batch_share", default=(0, 1))
+
+
+@contextlib.contextmanager
+def batch_share(rank: int, n: int):
+    """Within the block, a dropout mask is drawn over the batch of ``n``
+    dp ranks' rows and this rank (``rank``) keeps its own, so a dp step
+    draws the masks a one-device step draws. Wraps the forward and the
+    backward (remat recomputes the masks there)."""
+    token = _share.set((rank, n))
+    try:
+        yield
+    finally:
+        _share.reset(token)
+
+
 def _dropout(x, rate: float, seed):
     """Inverted dropout; identity when rate == 0 or seed is None (eval)."""
     if rate == 0.0 or seed is None:
         return x
-    keep = _dropout_mask(x.shape, rate, seed, x.device)
+    r, n = _share.get()
+    if n > 1:
+        b = x.shape[0]
+        keep = _dropout_mask((n * b,) + tuple(x.shape[1:]), rate, seed,
+                             x.device)[r * b:(r + 1) * b]
+    else:
+        keep = _dropout_mask(x.shape, rate, seed, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -322,7 +390,8 @@ def _resolve_attn_impl(cfg: TransformerConfig, mesh, T, attn_bias=None,
         return "dot"
     if impl != "auto":
         return impl
-    _no_mesh(mesh)   # the reference's sp > 1 -> "ring" rule needs a mesh
+    # the reference's sp > 1 -> "ring" rule: check_mesh refuses sp > 1
+    meshlib.check_mesh(mesh)
     if device is not None and torch.device(device).type == "cuda" \
             and T % 128 == 0:
         return "flash"
@@ -339,8 +408,8 @@ def _attention_core(q, k, v, cfg: TransformerConfig, mesh, impl,
     if impl == "ring":
         raise NotImplementedError(
             "attn_impl='ring' (sequence-parallel ring attention) is not "
-            "ported to hetu_tpu_torch yet: it comes with slice 8 and the "
-            "mesh's sp axis (meshes, TP, PP, ZeRO; ROADMAP Queue 1)")
+            "ported to hetu_tpu_torch yet: it comes with slice 8b and the "
+            "mesh's sp axis (ROADMAP Queue 1)")
     hd = q.shape[-1]
     if impl == "flash":
         kb = None
@@ -524,18 +593,26 @@ def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
     layer's index; omit it for deterministic eval. The masks are drawn
     inside the block from seeds alone, so the recompute draws the same
     bits (no generator state crosses the checkpoint)."""
-    _no_mesh(mesh)
+    meshlib.check_mesh(mesh)
+    return run_blocks(params["blocks"], h, cfg, mesh, attn_bias, dropout_rng)
+
+
+def run_blocks(blocks, h, cfg: TransformerConfig, mesh=None, attn_bias=None,
+               dropout_rng=None, first_layer: int = 0):
+    """``encode``'s loop over the layers stacked in ``blocks`` (each tensor
+    (L', ...)), the first of them layer ``first_layer`` of the model (a
+    pipeline stage's): its dropout seed folds that global index."""
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     # one unbind per stacked tensor: its backward stacks the L layer
     # gradients once, where indexing x[li] would zero-fill and add a whole
     # (L, ...) gradient per layer
-    names = list(params["blocks"])
-    layers = zip(*(params["blocks"][n].unbind(0) for n in names))
+    names = list(blocks)
+    layers = zip(*(blocks[n].unbind(0) for n in names))
     remat = cfg.remat and torch.is_grad_enabled()
     block = registry.bind(lambda h, layer_params, rng: _block(
         h, layer_params, cfg, mesh, attn_bias=attn_bias, dropout_rng=rng))
 
-    for li, layer in enumerate(layers):
+    for li, layer in enumerate(layers, start=first_layer):
         layer_params = dict(zip(names, layer))
         rng = None if dropout_rng is None else fold_in(dropout_rng, li)
         if remat:
@@ -656,9 +733,16 @@ def adamw_update(params, grads, opt_state, lr=1e-3, b1=0.9, b2=0.999,
     state's ``m`` and ``v`` in place (the reference donates them) with
     ``torch._foreach_*`` ops, and returns ``(params, opt_state)`` with a
     new ``t``."""
-    ps, gs = tree_leaves(params), tree_leaves(grads)
-    ms, vs = tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
     t = opt_state["t"] + 1.0
+    _adamw(tree_leaves(params), tree_leaves(grads),
+           tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]), t, lr,
+           b1, b2, eps, wd)
+    return params, {"m": opt_state["m"], "v": opt_state["v"], "t": t}
+
+
+def _adamw(ps, gs, ms, vs, t, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.01):
+    """``adamw_update`` over lists of tensors (params may be views: a
+    ZeRO-1 rank's shards of its params), in place."""
     torch._foreach_mul_(ms, b1)
     torch._foreach_add_(ms, gs, alpha=1 - b1)
     torch._foreach_mul_(vs, b2)
@@ -670,16 +754,167 @@ def adamw_update(params, grads, opt_state, lr=1e-3, b1=0.9, b2=0.999,
     torch._foreach_div_(upd, denom)
     torch._foreach_add_(upd, ps, alpha=wd)
     torch._foreach_add_(ps, upd, alpha=-lr)
-    return params, {"m": opt_state["m"], "v": opt_state["v"], "t": t}
 
 
-def _check_train_options(cfg, mesh, zero1=False):
-    _no_mesh(mesh)
-    if zero1:
+# ---------------------------------------------------------------------------
+# data parallelism and ZeRO-1 over a mesh's dp axis
+# ---------------------------------------------------------------------------
+
+def shard_first_free_dim(spec, shape, dp: int):
+    """Add ``"dp"`` to a spec on the first dimension that no axis splits
+    and ``dp`` divides (the ZeRO-1 slot layout rule, shared with the
+    pipeline steps, whose block specs carry a leading ``"pp"``)."""
+    shape = tuple(shape)
+    parts = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    for ax, part in enumerate(parts):
+        if part is None and shape[ax] % dp == 0:
+            return parts[:ax] + ("dp",) + parts[ax + 1:]
+    return parts
+
+
+def zero1_specs(specs, params, mesh):
+    """ZeRO-1's slot layout for ``params`` (a tree of tensors, ``"meta"``
+    ones included) with partition ``specs`` (a tree of the same keys):
+    each slot split over ``dp`` on its first free, dp-divisible dimension
+    (``shard_first_free_dim``). The one recipe of the trunk, BERT and the
+    pipeline schedules."""
+    if isinstance(specs, dict):
+        return {k: zero1_specs(specs[k], params[k], mesh) for k in specs}
+    return shard_first_free_dim(specs, params.shape,
+                                meshlib.axis_size(mesh, "dp"))
+
+
+def zero1_opt_specs(cfg: TransformerConfig, mesh):
+    """ZeRO-1 for the trunk (``zero1_specs`` over ``param_specs``). A rank
+    keeps, updates and stores only its shard of each AdamW m/v slot, and
+    all-gathers the updated params: the optimizer state shrinks about dp
+    times, the step math is the replicated step's."""
+    return zero1_specs(param_specs(cfg), init_params(0, cfg, "meta"), mesh)
+
+
+def place_opt_state(opt_state, specs, mesh):
+    """This rank's part of an AdamW state laid out by ``specs``: each m/v
+    leaf cut to its shard where a spec names ``"dp"`` (marked, so the
+    one-process checkpoint refuses it), whole elsewhere; the step count
+    whole. The one placement recipe of the trunk and both pipeline
+    schedules."""
+    dp, r = meshlib.axis_size(mesh, "dp"), meshlib.axis_rank(mesh, "dp")
+
+    def place(x, spec):
+        if "dp" not in spec:
+            return x
+        ax = spec.index("dp")
+        k = x.shape[ax] // dp
+        return meshlib.mark_shard(x.narrow(ax, r * k, k).clone(), "zero1")
+
+    return {"m": tree_map(place, opt_state["m"], specs),
+            "v": tree_map(place, opt_state["v"], specs),
+            "t": opt_state["t"]}
+
+
+def shard_opt_state(opt_state, cfg: TransformerConfig, mesh,
+                    zero1: bool = False):
+    """This rank's AdamW state for ``make_train_step(cfg, mesh,
+    zero1=zero1)``: the ZeRO-1 shards when ``zero1``, else as it is
+    (each rank holds every slot whole)."""
+    if not zero1:
+        return opt_state
+    return place_opt_state(opt_state, zero1_opt_specs(cfg, mesh), mesh)
+
+
+class DataParallel:
+    """The dp side of a train step on a mesh, shared by the trunk, BERT
+    and the pipeline schedules: this rank's share of a global batch, the
+    gradients' mean over the dp group, and AdamW over whole tensors or,
+    with ZeRO-1 ``specs``, over this rank's shard of each (the slots are
+    shards already; the updated params are all-gathered). One code path
+    for NCCL and gloo (``multihost``'s helpers pick the transport by the
+    group's backend)."""
+
+    def __init__(self, mesh, zero1_specs=None):
+        self.size = meshlib.axis_size(mesh, "dp")
+        self.rank = meshlib.axis_rank(mesh, "dp")
+        self.mesh = mesh
+        self.specs = zero1_specs
+
+    @property
+    def group(self):
+        return meshlib.axis_group(self.mesh, "dp")
+
+    def share(self, x, axis: int = 0):
+        """This rank's contiguous rows of ``x`` along ``axis``."""
+        if self.size == 1:
+            return x
+        n = x.shape[axis]
+        if n % self.size:
+            raise ValueError(f"batch dimension {n} is not divisible by "
+                             f"dp={self.size}")
+        k = n // self.size
+        return x.narrow(axis, self.rank * k, k)
+
+    def batch(self, tree, axis: int = 0):
+        return tree_map(lambda x: self.share(x, axis), tree)
+
+    def sum_(self, tensors):
+        """Sum f32 ``tensors`` over the dp group, in place."""
+        if self.size > 1:
+            multihost.all_reduce_(tensors, self.group)
+
+    def mean_(self, tensors):
+        if self.size > 1:
+            multihost.all_reduce_(tensors, self.group, mean=True)
+
+    @torch.no_grad()
+    def apply(self, params, grads, opt_state, lr):
+        """AdamW on this rank's part (every rank holds the mean gradient);
+        returns ``(params, opt_state)`` as ``adamw_update`` does."""
+        if self.specs is None:
+            return adamw_update(params, grads, opt_state, lr=lr)
+        t = opt_state["t"] + 1.0
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        # each param's spec, in the params' own key order
+        axes = tree_leaves(tree_map(
+            lambda _, s: s.index("dp") if "dp" in s else None, params,
+            self.specs))
+
+        def part(x, ax):
+            if ax is None:
+                return x
+            k = x.shape[ax] // self.size
+            return x.narrow(ax, self.rank * k, k)
+
+        _adamw([part(p, a) for p, a in zip(ps, axes)],
+               [part(g, a) for g, a in zip(gs, axes)],
+               tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]), t,
+               lr)
+        if self.size > 1:
+            self._gather([(p, a) for p, a in zip(ps, axes) if a is not None])
+        return params, {"m": opt_state["m"], "v": opt_state["v"], "t": t}
+
+    def _gather(self, sharded):
+        """All-gather the updated shards of ``sharded`` (``(param, axis)``
+        pairs) as one flat bucket, one collective (as ``all_reduce_``
+        buckets the gradients), and copy the other ranks' pieces into
+        place."""
+        ks = [p.shape[ax] // self.size for p, ax in sharded]
+        flat = torch.cat([p.narrow(ax, self.rank * k, k).reshape(-1)
+                          for (p, ax), k in zip(sharded, ks)])
+        for j, piece in enumerate(multihost.all_gather(flat, self.group)):
+            if j == self.rank:
+                continue
+            i = 0
+            for (p, ax), k in zip(sharded, ks):
+                dst = p.narrow(ax, j * k, k)
+                dst.copy_(piece[i:i + dst.numel()].view(dst.shape))
+                i += dst.numel()
+
+
+def refuse_moe_over_dp(cfg: TransformerConfig, mesh) -> None:
+    if cfg.n_experts > 0 and meshlib.axis_size(mesh, "dp") > 1:
         raise NotImplementedError(
-            "zero1=True (optimizer state sharded over a dp mesh) is not "
-            "ported to hetu_tpu_torch yet: it comes with slice 8 (meshes, "
-            "TP, PP, ZeRO; ROADMAP Queue 1)")
+            "the switch MoE on more than one dp rank: the reference routes "
+            "each token over the global batch's expert capacity, which "
+            "needs the ep all-to-alls of slice 8b; run the MoE at dp=1")
 
 
 def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
@@ -700,8 +935,16 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
     accumulation microbatch folds in its index, as the reference does.
     With no dropout the step keeps the 4-argument signature.
 
-    A mesh and ``zero1=True`` raise ``NotImplementedError`` (slice 8)."""
-    _check_train_options(cfg, mesh, zero1)
+    ``mesh`` (dp, and pp, which the trunk replicates over): every rank
+    passes the global batch and gets the global loss; see the module
+    docstring. ``zero1=True`` (a mesh only): place the state with
+    ``shard_opt_state(opt, cfg, mesh, zero1=True)`` first."""
+    meshlib.check_mesh(mesh)
+    if zero1 and mesh is None:
+        raise ValueError("zero1=True shards AdamW's m and v over a mesh's "
+                         "dp axis: pass mesh=")
+    refuse_moe_over_dp(cfg, mesh)
+    dp = DataParallel(mesh, zero1_opt_specs(cfg, mesh) if zero1 else None)
     use_dropout = cfg.dropout_rate > 0.0
 
     def step(params, opt_state, tokens, targets, dropout_rng=None):
@@ -709,32 +952,38 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
             # a forgotten key must not silently train without dropout
             raise ValueError("cfg.dropout_rate > 0: pass dropout_rng to "
                              "the train step")
-        if accum_steps == 1:
-            loss, grads = value_and_grad(loss_fn, params, tokens, targets,
-                                         cfg, mesh, dropout_rng=dropout_rng)
-        else:
-            if tokens.shape[0] != accum_steps:
-                raise ValueError(f"leading (accumulation) axis "
-                                 f"{tokens.shape[0]} != accum_steps "
-                                 f"{accum_steps}")
-            loss, grads = None, None
-            for mi in range(accum_steps):
-                rng = (None if dropout_rng is None
-                       else fold_in(dropout_rng, mi))
-                l, g = value_and_grad(loss_fn, params, tokens[mi],
-                                      targets[mi], cfg, mesh,
-                                      dropout_rng=rng)
-                if grads is None:
-                    loss, grads = l, g
-                else:
-                    loss = loss + l
-                    torch._foreach_add_(tree_leaves(grads), tree_leaves(g))
-            loss = loss / accum_steps
-            torch._foreach_div_(tree_leaves(grads), accum_steps)
-        params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
+        axis = 0 if accum_steps == 1 else 1
+        tokens, targets = dp.share(tokens, axis), dp.share(targets, axis)
+        with batch_share(dp.rank, dp.size):
+            loss, grads = _loss_and_grads(params, tokens, targets, cfg, mesh,
+                                          accum_steps, dropout_rng)
+        dp.mean_([loss] + tree_leaves(grads))
+        params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, params, opt_state
 
     if use_dropout:
         return step
     return lambda params, opt_state, tokens, targets: step(
         params, opt_state, tokens, targets)
+
+
+def _loss_and_grads(params, tokens, targets, cfg, mesh, accum_steps,
+                    dropout_rng):
+    if accum_steps == 1:
+        return value_and_grad(loss_fn, params, tokens, targets, cfg, mesh,
+                              dropout_rng=dropout_rng)
+    if tokens.shape[0] != accum_steps:
+        raise ValueError(f"leading (accumulation) axis {tokens.shape[0]} "
+                         f"!= accum_steps {accum_steps}")
+    loss, grads = None, None
+    for mi in range(accum_steps):
+        rng = None if dropout_rng is None else fold_in(dropout_rng, mi)
+        l, g = value_and_grad(loss_fn, params, tokens[mi], targets[mi], cfg,
+                              mesh, dropout_rng=rng)
+        if grads is None:
+            loss, grads = l, g
+        else:
+            loss = loss + l
+            torch._foreach_add_(tree_leaves(grads), tree_leaves(g))
+    torch._foreach_div_(tree_leaves(grads), accum_steps)
+    return loss / accum_steps, grads

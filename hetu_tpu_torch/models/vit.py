@@ -14,7 +14,7 @@ multiple of 128, so ``attn_impl="auto"`` takes the unfused ``dot`` form on
 the card, as the reference does off the TPU; the sequence is not padded to
 reach the flash kernel. Training (``make_train_step``) uses the trunk's
 AdamW and updates params and optimizer state in place. ``param_specs`` is
-mesh code and comes with the parallel slices.
+mesh code and comes with slice 8b.
 """
 from __future__ import annotations
 
@@ -134,9 +134,13 @@ def make_train_step(cfg: ViTConfig, lr: float = 1e-3, mesh=None):
     """Returns ``step(params, opt_state, images, labels) -> (loss, acc,
     params, opt_state)``: the classifier's cross entropy, its gradient and
     one AdamW update, params and optimizer state updated in place (the
-    reference donates them). A mesh raises ``NotImplementedError``."""
+    reference donates them). A mesh raises ``NotImplementedError``: ViT's
+    partition specs come with slice 8b."""
     assert cfg.n_classes > 0, "training needs a classification head"
-    tfm._check_train_options(cfg.trunk(), mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            "ViT's train step on a mesh (its partition specs) comes with "
+            "slice 8b")
 
     def loss_fn(params, images, labels):
         logits = classify_logits(params, images, cfg, mesh)

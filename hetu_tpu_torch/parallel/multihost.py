@@ -8,6 +8,14 @@ device, joined in one process group, NCCL for CUDA tensors and gloo for
 CPU tensors. ``hetu_tpu_torch.runner`` starts the processes and exports
 the rank environment that :func:`initialize` reads.
 
+Gloo also carries CUDA tensors where it is asked for by name
+(``backend="gloo"``, the runner's ``--backend gloo``): NCCL refuses two
+ranks on one card, so two stage processes sharing a card meet over gloo.
+PyTorch's gloo takes CUDA tensors for ``all_reduce`` and ``broadcast``
+only; :func:`send`, :func:`recv` and :func:`all_gather` stage a CUDA
+tensor through pinned host memory when the group's backend is gloo, and
+pass it as it is to NCCL.
+
 A :class:`torch.distributed.device_mesh.DeviceMesh` with a ``"dp"``
 dimension stands for the JAX package's ``jax.sharding.Mesh``
 (:func:`global_mesh`); ``HetuConfig(mesh=...)`` takes one.
@@ -32,6 +40,8 @@ _device: Optional[torch.device] = None
 _meshes: list = []
 # the grids process_grid made, whose groups shutdown() releases
 _grids: list = []
+# the sub-groups group() made, by their ranks; shutdown() releases them
+_groups: dict = {}
 
 
 def is_initialized() -> bool:
@@ -46,7 +56,7 @@ def _env_int(name: str) -> Optional[int]:
 def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None,
                rank: Optional[int] = None,
-               device=None) -> bool:
+               device=None, backend: Optional[str] = None) -> bool:
     """Join (or create) the process group. Idempotent.
 
     The rendezvous is ``init_method`` (``file://<path>`` or
@@ -56,10 +66,14 @@ def initialize(init_method: Optional[str] = None,
     With no world given at all this is a one-process no-op that returns
     False, so scripts can call it unconditionally.
 
-    ``device``: this process's device. A CUDA device (the default:
-    ``cuda:LOCAL_RANK``) joins over NCCL, whose communicator is created
-    here and checked with one all-reduce, so a failed NCCL init raises
-    now rather than at the first gradient; the CPU joins over gloo.
+    ``device``: this process's device (default ``HETU_DEVICE``, which
+    the runner's ``--devices`` sets, else ``cuda:LOCAL_RANK``).
+    ``backend``: ``"nccl"`` or ``"gloo"`` (default ``HETU_BACKEND``, which
+    the runner's ``--backend`` sets, else NCCL for a CUDA device and gloo
+    for the CPU). NCCL's communicator is created here and checked with
+    one all-reduce, so a failed NCCL init raises now rather than at the
+    first gradient. Gloo is taken for a CUDA device only where it is
+    asked for: never because CUDA or NCCL is missing.
     """
     global _device
     if is_initialized():
@@ -79,15 +93,25 @@ def initialize(init_method: Optional[str] = None,
             "HETU_INIT_METHOD or MASTER_ADDR/MASTER_PORT, or run under "
             "python -m hetu_tpu_torch.runner)")
     if device is None:
-        device = torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+        device = os.environ.get("HETU_DEVICE") or torch.device(
+            "cuda", _env_int("LOCAL_RANK") or 0)
     device = torch.device(device)
+    backend = backend or os.environ.get("HETU_BACKEND") or (
+        "nccl" if device.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"initialize: backend must be 'nccl' or 'gloo', "
+                         f"got {backend!r}")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"initialize: NCCL needs a CUDA device, got "
+                         f"{device}")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"initialize: NCCL on {device} needs CUDA, and "
+                f"initialize: {backend} on {device} needs CUDA, and "
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "join over gloo")
         torch.cuda.set_device(device)
+    if backend == "nccl":
         dist.init_process_group("nccl", init_method=init_method,
                                 world_size=world_size, rank=rank,
                                 device_id=device)
@@ -113,6 +137,88 @@ def collective(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` crosses ``group`` through host memory: a CUDA tensor
+    on a gloo group (chosen by the group's backend, never by catching a
+    failure)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of CUDA tensor ``t``."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+class Sent:
+    """An outstanding :func:`send`: ``wait()`` completes it (once; a
+    second call returns at once, where gloo's work would wait for a
+    second completion that never comes). It keeps the sent buffer (or its
+    staged host copy) alive until then."""
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.work.wait()
+        self.work = self.buf = None
+
+
+def send(t: torch.Tensor, dst: int, group=None) -> Sent:
+    """Send ``t`` to global rank ``dst`` without blocking; the caller must
+    ``wait()`` the handle (and must not write ``t`` before then on
+    NCCL). Messages between two ranks arrive in the order sent."""
+    buf = _host(t) if _staged(t, group) else t.contiguous()
+    return Sent(dist.isend(buf, dst=dst, group=group), buf)
+
+
+def recv(shape, dtype, src: int, group=None) -> torch.Tensor:
+    """Receive a tensor of ``shape`` and ``dtype`` from global rank
+    ``src``, onto this process's device; blocks until it arrives."""
+    buf = torch.empty(tuple(shape), dtype=dtype, device=device())
+    if _staged(buf, group):
+        host = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+        dist.recv(host, src=src, group=group)
+        return buf.copy_(host)
+    dist.recv(buf, src=src, group=group)
+    return buf
+
+
+def all_gather(t: torch.Tensor, group=None) -> list:
+    """Every rank's ``t`` (one shape on all) in group-rank order, on
+    ``t``'s device."""
+    n = dist.get_world_size(group)
+    if _staged(t, group):
+        h = _host(t.detach())
+        out = [torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+               for _ in range(n)]
+        dist.all_gather(out, h, group=group)
+        return [o.to(t.device) for o in out]
+    t = t.detach().contiguous()
+    out = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(out, t, group=group)
+    return out
+
+
+def all_reduce_(tensors, group=None, mean: bool = False) -> None:
+    """Sum ``tensors`` (float32, one device) over ``group`` in place, as
+    one flat bucket (one collective); ``mean`` divides by the group's
+    size. Gloo takes CUDA tensors for this collective as they are."""
+    tensors = list(tensors)
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    if mean:
+        flat.div_(dist.get_world_size(group))
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
+
+
 def shutdown() -> None:
     """Leave the process group: a barrier, then destroy it in this
     process, and release the groups that the meshes of
@@ -133,6 +239,7 @@ def shutdown() -> None:
     for grid in _grids:
         grid.release()
     _grids.clear()
+    _groups.clear()
     _device = None
 
 
@@ -181,7 +288,8 @@ def broadcast_from_chief(x):
 def global_mesh(dp: int = 0):
     """A one-dimensional ``DeviceMesh`` named ``"dp"`` over every process,
     on this process's device type. ``dp`` is the world size, or 0 for
-    "whatever it is"; the model axes (tp, pp) arrive with slice 8."""
+    "whatever it is"; ``parallel.mesh.make_mesh`` lays the five-axis
+    mesh."""
     from torch.distributed.device_mesh import init_device_mesh
     if not is_initialized():
         raise RuntimeError("global_mesh: call multihost.initialize() first")
@@ -192,6 +300,22 @@ def global_mesh(dp: int = 0):
                             mesh_dim_names=("dp",))
     _meshes.append(weakref.ref(mesh))
     return mesh
+
+
+def group(ranks):
+    """The process group of global ``ranks`` (ascending), made once per
+    process by ``dist.new_group``, a collective of the whole world: every
+    rank asks for each group, in one order, also ranks outside it. Not
+    kept by callers past :func:`shutdown`, which releases it; the world
+    itself where ``ranks`` are all of it."""
+    ranks = tuple(sorted(int(r) for r in ranks))
+    if not is_initialized():
+        raise RuntimeError("group: call multihost.initialize() first")
+    if ranks == tuple(range(process_count())):
+        return dist.group.WORLD
+    if ranks not in _groups:
+        _groups[ranks] = dist.new_group(list(ranks))
+    return _groups[ranks]
 
 
 class ProcessGrid:

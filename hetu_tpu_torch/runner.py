@@ -17,6 +17,15 @@ the runner removes when the job ends, so no port is taken.
 worker on a card joins over NCCL, which needs a card per worker; on the
 CPU the workers join over gloo.
 
+``--devices cuda:0,cuda:1`` gives rank r the r-th device (``HETU_DEVICE``;
+default ``cuda:LOCAL_RANK``) and prints the rank -> device map;
+``--backend gloo`` asks for gloo by name (``HETU_BACKEND``). Two ranks on
+one card need both, since NCCL refuses them: they meet over gloo, which
+stages their CUDA tensors through host memory::
+
+    python -m hetu_tpu_torch.runner -w 2 --devices cuda:0,cuda:0 \
+        --backend gloo python -m hetu_tpu_torch.examples.gpipe --stages 2
+
 A cluster yaml whose nodes list ``servers: N`` also starts a
 parameter-server scheduler and N servers on this machine, as light
 processes (``ps/_light_role.py``), and gives every worker the
@@ -87,13 +96,17 @@ def _code(c: int) -> int:
     return c if c > 0 else 128 - c
 
 
-def run(command, n_workers: int, n_servers: int = 0) -> int:
+def run(command, n_workers: int, n_servers: int = 0, devices=None,
+        backend=None) -> int:
     """Run ``n_workers`` copies of ``command``, beside a PS scheduler and
-    ``n_servers`` servers when ``n_servers > 0``; the job's exit code."""
+    ``n_servers`` servers when ``n_servers > 0``; the job's exit code.
+    ``devices``: each rank's device, ``backend``: the process group's."""
     store_dir = tempfile.mkdtemp(prefix="hetu_run_")
     env = dict(os.environ, WORLD_SIZE=str(n_workers),
                HETU_NUM_WORKER=str(n_workers),
                HETU_INIT_METHOD="file://" + os.path.join(store_dir, "store"))
+    if backend:
+        env["HETU_BACKEND"] = backend
     procs, roles = [], []
     stopfile = os.path.join(store_dir, "ps_stop")
     try:
@@ -107,9 +120,11 @@ def run(command, n_workers: int, n_servers: int = 0) -> int:
                               lc.spawn_light_server(i, base, stopfile)))
             env.update(base, DMLC_ROLE="worker")
         for rank in range(n_workers):
-            procs.append(subprocess.Popen(command, env=dict(
-                env, RANK=str(rank), LOCAL_RANK=str(rank),
-                WORKER_ID=str(rank))))
+            renv = dict(env, RANK=str(rank), LOCAL_RANK=str(rank),
+                        WORKER_ID=str(rank))
+            if devices:
+                renv["HETU_DEVICE"] = devices[rank]
+            procs.append(subprocess.Popen(command, env=renv))
         while True:
             codes = [p.poll() for p in procs]
             failed = [c for c in codes if c not in (None, 0)]
@@ -145,6 +160,12 @@ def main(argv=None) -> int:
                        help="number of local worker processes")
     group.add_argument("-c", "--config",
                        help="cluster yaml (nodes: host/servers/workers)")
+    parser.add_argument("--devices", default="",
+                        help="each rank's device, comma-separated (default "
+                             "cuda:LOCAL_RANK), e.g. cuda:0,cuda:0")
+    parser.add_argument("--backend", choices=("nccl", "gloo"),
+                        help="the process group's backend (default NCCL on "
+                             "a card, gloo on the CPU)")
     parser.add_argument("--elastic", action="store_true",
                         help="not ported: slice 9")
     parser.add_argument("--pilot", action="store_true",
@@ -166,8 +187,15 @@ def main(argv=None) -> int:
                   else parse_cluster(args.config))
     if n < 1:
         parser.error(f"need at least one worker, got {n}")
+    devices = [d.strip() for d in args.devices.split(",") if d.strip()]
+    if devices:
+        if len(devices) != n:
+            parser.error(f"--devices names {len(devices)} devices for {n} "
+                         "workers")
+        print("hetu_tpu_torch.runner: " + ", ".join(
+            f"rank {r} -> {d}" for r, d in enumerate(devices)), flush=True)
     signal.signal(signal.SIGTERM, _terminated)
-    return run(args.command, n, servers)
+    return run(args.command, n, servers, devices, args.backend)
 
 
 if __name__ == "__main__":

@@ -201,10 +201,11 @@ def test_unported_paths_raise(batch):
     plain = tt.TransformerConfig(dtype=torch.float32, **LM)
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.forward(p, tokens, plain, mesh=object())
-    # the train steps' options that wait for later slices
+    # an object that is no DeviceMesh waits for slice 8b's meshes; ZeRO-1
+    # shards over a mesh's dp axis, so it needs one
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.make_train_step(plain, mesh=object())
-    with pytest.raises(NotImplementedError, match="zero1"):
+    with pytest.raises(ValueError, match="zero1"):
         tt.make_train_step(plain, zero1=True)
     # training-time dropout is ported: its step refuses a missing key
     drop = tt.TransformerConfig(dtype=torch.float32, dropout_rate=0.1, **LM)

@@ -224,6 +224,68 @@ def test_a_cpu_dp_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
     assert "LOADED []" in p.stdout, p.stdout
 
 
+def test_a_cpu_pipeline_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
+    """The slice-8a path on the CPU: two gloo ranks (a file store) lay a
+    pp = 2 mesh and take a GPipe, a 1F1B and a ZeRO-1 step of the
+    transformer pipeline, and a two-stage graph-API GPipe step."""
+    script = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import torch
+        import hetu_tpu_torch as ht
+        from hetu_tpu_torch.models import transformer as tfm
+        from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+        from hetu_tpu_torch.parallel import pipeline as pl
+        rank = int(sys.argv[1])
+        multihost.initialize("file://{tmp_path}/store", 2, rank,
+                             device="cpu")
+        mesh = meshlib.make_mesh(pp=2)
+        cfg = tfm.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                                    n_layers=2, d_ff=32, max_seq_len=8,
+                                    dtype=torch.float32, remat=False)
+        tok = torch.randint(0, 32, (2, 2, 8), generator=torch.Generator()
+                            .manual_seed(0))
+        for make in (pl.make_pipeline_train_step,
+                     pl.make_pipeline_train_step_1f1b):
+            for zero1 in (False, True):
+                p = pl.init_pipeline_params(0, cfg, mesh, "cpu")
+                o = pl.shard_pipeline_opt_state(tfm.init_opt_state(p), cfg,
+                                                mesh, zero1)
+                loss, p, o = make(cfg, mesh, 2, zero1=zero1)(
+                    p, o, tok, tok.roll(-1, 2))
+                assert torch.isfinite(loss)
+        with ht.context(ht.cpu(0)):
+            x = ht.Variable(name="x", trainable=False)
+            h = ht.relu_op(ht.matmul_op(x, ht.init.random_normal(
+                (4, 8), stddev=0.1, name="w0")))
+        with ht.context(ht.cpu(1)):
+            y_ = ht.Variable(name="y_", trainable=False)
+            loss = ht.reduce_mean_op(ht.softmaxcrossentropy_op(
+                ht.matmul_op(h, ht.init.random_normal((8, 3), stddev=0.1,
+                                                      name="w1")), y_), [0])
+            op = ht.optim.SGDOptimizer(0.1).minimize(loss)
+        ex = ht.Executor({{"train": [loss, op]}}, gpipe=True, seed=0,
+                         ctx=ht.cpu(0))
+        fd = [{{x: np.ones((2, 4), np.float32),
+                y_: np.eye(3, dtype=np.float32)[:2]}}] * 2
+        assert np.isfinite(ex.run("train", feed_dict=fd,
+                                  convert_to_numpy_ret_vals=True)[0]).all()
+        multihost.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=REPO)
+             for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        assert "LOADED []" in out, out
+
+
 def test_a_cpu_hybrid_step_loads_neither_jax_nor_hetu_tpu():
     """Two Hybrid steps of a small WDL-Criteo against a local PS cluster
     (the port's own library, its light roles) on the CPU."""
