@@ -68,8 +68,14 @@ on the one card over gloo (the runner's ``--devices cuda:0,cuda:0
 pipelines at pp 2 (its first step against ``kernels="off"`` and against
 the one-process step), BERT-base on a dp 2 mesh with ZeRO-1 off and on,
 and the graph-API ``examples/gpipe.py`` at two stages (SGD, Adam); then
-both step factories at dp = pp = 1 over NCCL. Each path is checked to have gone
-through its kernels.
+both step factories at dp = pp = 1 over NCCL; then (slice 8b) checks the
+attention kernels at the ring's chunks and, with four processes on the
+card over gloo, trains TinyLlama-1.1B at tp 2 x sp 2 (ring attention; its
+first step's gradients against one process's), the switch-MoE LM at dp 2
+x ep 2 (its dropped tokens equal to one process's), BERT-base at tp 2 x
+sp 2 on a padded batch through the ring, runs ViT-B/16's forward and
+GPT-2 small's greedy decoding at dp 2 x tp 2, each against one process.
+Each path is checked to have gone through its kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bert-kernels   # sections 1-3 only: a minute
@@ -83,6 +89,7 @@ through its kernels.
     python3 chip_smoke.py --nlp            # build, sections 16-20
     python3 chip_smoke.py --hf             # build, sections 21-25
     python3 chip_smoke.py --pipe           # build, sections 26-29
+    python3 chip_smoke.py --tp             # build, sections 30-34
 
 Needs one CUDA card (``cuda:0``) and ``nvcc``; exits non-zero, printing no
 result, when either is missing or any phase fails. Prints one JSON line per
@@ -102,7 +109,8 @@ sampled-GCN and NCF phases (sections 13-15) alone; ``--nlp`` the BERT
 trainer, decoding, dropout, LM-trainer and demo phases (sections 16-20)
 alone; ``--hf`` the kernels at slice 5c's shapes and the TinyLlama, MoE,
 ViT, HF BERT and GPT-2 pipeline phases (sections 21-25) alone; ``--pipe``
-the kernels at slice 8a's shapes and sections 26-29 alone.
+the kernels at slice 8a's shapes and sections 26-29 alone; ``--tp`` the
+kernels at the ring's chunks and sections 30-34 alone.
 """
 import argparse
 import concurrent.futures
@@ -157,13 +165,19 @@ SGD_LOSS_MAX, ADAM_LOSS_MAX = 1e-2, 1e-2
 # phase-2 BERT-base layer (S = 512), a long causal sequence, a small f32
 # case also held against the unfused softmax(q k^T) v in f32, and GPT-2
 # small's causal layer at T = 128 (the dropout path, section 18) and at T =
-# 1,024 in a pipeline microbatch of 4 (section 26).
+# 1,024 in a pipeline microbatch of 4 (section 26); the ring chunks of
+# slice 8b (sections 30, 32): TinyLlama's (1 x 2048 tokens at sp 2, the 16
+# query heads of a tp rank), causal on the diagonal and not on an earlier
+# chunk, and BERT-base's 64-row chunk with its key bias.
 ATTN_CASES = [(32, 12, 128, 64, torch.bfloat16, False, True),
               (32, 12, 512, 64, torch.bfloat16, False, True),
               (8, 12, 512, 64, torch.bfloat16, True, False),
               (2, 4, 256, 128, torch.float32, True, True),
               (8, 12, 128, 64, torch.bfloat16, True, False),
-              (4, 12, 1024, 64, torch.bfloat16, True, False)]
+              (4, 12, 1024, 64, torch.bfloat16, True, False),
+              (1, 16, 1024, 64, torch.bfloat16, True, False),
+              (1, 16, 1024, 64, torch.bfloat16, False, False),
+              (32, 12, 64, 64, torch.bfloat16, False, True)]
 # Fused linear+CE checks (N, V, D, layout, dtype): BERT-base's MLM loss (32
 # rows x 20 slots against the tied (V, D) embedding, with the MLM bias; the
 # main path's shape), a GPT-2 LM head ((D, V), N ragged against 128),
@@ -678,6 +692,70 @@ GPIPE_LR = {"sgd": 0.1, "adam": 1e-3}     # the example's SGD default
 # stages' params (_opt_cases).
 PIPE_ATTN, PIPE_EMBED = 5, 7
 assert ATTN_CASES[PIPE_ATTN][:4] == (PP_MB, 12, PP_T, 64)
+
+# Slice 8b (sections 30-34, `--tp` alone): tensor, sequence and expert
+# parallelism in the transformer family. As slice 8a's, the legs run as
+# TP_RANKS processes on cuda:0 over an explicitly requested gloo group, in
+# one runner launch (NCCL refuses two ranks on one device), their CUDA
+# tensors staged through pinned host memory. Each leg's one-process
+# comparison runs on rank 0 alone while the other ranks wait at a barrier
+# with nothing on the card, so that memory fits: four TinyLlama ranks at
+# tp 2 hold about 9 GB each with AdamW (its f32 params, m and v split in
+# two, and a gradient), and the one-process gradients of section 30 take
+# about 14 GB more.
+# Section 30: TinyLlama-1.1B (hf_standins.TINYLLAMA drawn from seed 0, as
+# section 21) at tp 2 x sp 2, bf16 with remat, TP_LLAMA_B x TP_LLAMA_T
+# tokens: the first step's gradients (summed over the data ranks,
+# gathered over tp) against one process's, by mesh_grad_gate (f32: each
+# tensor within GRAD_REL; bf16, as grad_gate's deep: all together within
+# BF16_EXCESS times the one-process bf16 gradient's distance from its f32
+# one, and as far from the f32 gradient at most), then TP_STEPS AdamW
+# steps timed by _timed_steps. Ring attention over sp: each layer's
+# forward runs #4 on chunks 0..s on sp rank s (the diagonal causal, later
+# chunks skipped), in the forward and the recompute, and its backward #5
+# on the same chunks: 2 x 22 x (s + 1) and 22 x (s + 1) a step; 1
+# fused_embed_grad (the embedding's D/2 shard). A mesh keeps the einsum
+# head, as the reference does: no fused CE.
+TP_RANKS = 4
+TP_LLAMA_B, TP_LLAMA_T, TP_STEPS, TP_LR = 1, 2048, 3, 4e-4
+# Section 31: the switch-MoE LM (section 22's: GPT-2 small widths, MOE_E
+# experts, MOE_CAP, MOE_B x MOE_T tokens, remat) at dp 2 x ep 2 in f32:
+# each layer's dropped tokens in a forward (over the global batch) equal
+# to one process's, the first step's loss within TP_MOE_REL of one
+# process's (its fused CE head against the mesh's einsum); TP_STEPS steps.
+# Per rank and step: 24 #4, 12 #5, 1 fused_embed_grad.
+TP_MOE_REL = 1e-5
+TP_MOE_LAUNCHES = {"flash_attention_fwd": 24, "flash_attention_bwd": 12,
+                   "fused_embed_grad": 1}
+# Section 32: BERT-base phase 1 (the BERT_* batch, padded: lengths in [64,
+# 128], so a row's second chunk may be all pads) at tp 2 x sp 2, bf16 with
+# remat: the mask rides the ring (chunks of 64) as a rotating key bias.
+# The first step's gradients (summed over the data ranks, gathered over
+# tp) against one process's by mesh_grad_gate, in f32 and bf16 (one
+# process's MLM head is the fused CE, the mesh's the einsum); then
+# TP_BERT_STEPS steps, each loss within BERT_REL of one process's at the
+# same step, and the last below the first. Five, not TP_STEPS: at TRAIN_LR
+# on this batch the third step's loss rises above the first in one process
+# too (AdamW's first steps overshoot; the pretraining phase's own curve
+# shows it), and the fifth is the first below it.
+TP_BERT_STEPS = 5
+# Per rank and step: #4 on both chunks of each layer (not causal) in the
+# forward and the recompute, 48; #5, 24; 2 fused_embed_grad (the token
+# embedding's shard, the types).
+TP_BERT_LAUNCHES = {"flash_attention_fwd": 48, "flash_attention_bwd": 24,
+                    "fused_embed_grad": 2}
+# Section 33: ViT-B/16's forward (f32, VIT_IMAGES images of seed 33) at dp
+# 2 x tp 2: each dp rank's logits within VIT_REL (rel L2) of one
+# process's; the dot form (T = 197), no kernel.
+# Section 34: GPT-2 small greedy decoding (f32, TP_DEC_B prompts of
+# TP_DEC_P ids to TP_DEC_LEN) at dp 2 x tp 2: the weights stay split, each
+# rank's cache holds its heads; the tokens equal one process's. Decoding
+# launches no kernel. Sections 33-34 time their calls (median of
+# TP_CALLS).
+TP_DEC_B, TP_DEC_P, TP_DEC_LEN, TP_CALLS = 8, 32, 64, 3
+# The kernels at these paths' shapes: the three ring chunks above.
+TP_ATTN = (6, 7, 8)
+assert ATTN_CASES[TP_ATTN[0]][:4] == (TP_LLAMA_B, 16, TP_LLAMA_T // 2, 64)
 
 # The bf16 kernels, forward and backward (the *_tc_kernel functions of each
 # source), and the SASS instruction each must hold: wgmma (HGMMA) in the
@@ -3477,14 +3555,20 @@ def _timed_steps(bert_forward, one_step, n, want, what):
 
 
 def _lm_step(tfm, cfg, lr, params, x, y):
-    """One ``make_train_step`` step a call on ``x``, ``y``, the params and
-    AdamW state carried from call to call; returns the loss."""
-    step = tfm.make_train_step(cfg, lr=lr)
+    """One ``make_train_step`` step a call on ``x``, ``y`` (``_carried``)."""
+    return _carried(tfm, tfm.make_train_step(cfg, lr=lr), params, x, y)
+
+
+def _carried(tfm, step, params, *args):
+    """A closure calling ``step(params, opt_state, *args)`` once a call, the
+    params and AdamW state carried from call to call; returns the loss
+    (the step's first output)."""
     state = {"p": params, "o": tfm.init_opt_state(params)}
 
     def one():
-        loss, state["p"], state["o"] = step(state["p"], state["o"], x, y)
-        return loss
+        out = step(state["p"], state["o"], *args)
+        state["p"], state["o"] = out[-2], out[-1]
+        return out[0]
     return one
 
 
@@ -4029,15 +4113,16 @@ def pipe_worker(out_dir):
     return 0
 
 
-def _two_ranks(command, what, timeout=900):
-    """Run ``command`` as two ranks on cuda:0 over gloo through the runner;
-    a failure fails the phase, with the end of the ranks' output."""
-    runner = [sys.executable, "-m", "hetu_tpu_torch.runner", "-w", "2",
-              "--devices", "cuda:0,cuda:0", "--backend", "gloo"]
+def _two_ranks(command, what, timeout=900, n=2):
+    """Run ``command`` as ``n`` ranks on cuda:0 over gloo through the
+    runner; a failure fails the phase, with the end of the ranks'
+    output."""
+    runner = [sys.executable, "-m", "hetu_tpu_torch.runner", "-w", str(n),
+              "--devices", ",".join(["cuda:0"] * n), "--backend", "gloo"]
     p = subprocess.run(runner + command, capture_output=True, text=True,
                        timeout=timeout, cwd=os.path.dirname(
                            os.path.abspath(__file__)))
-    check(p.returncode == 0, f"{what}: the two ranks exited "
+    check(p.returncode == 0, f"{what}: the {n} ranks exited "
           f"{p.returncode}: {p.stdout[-2000:]} {p.stderr[-4000:]}")
     return p.stdout
 
@@ -4199,6 +4284,407 @@ def pipe_phases(multihost, dev):
     return paths
 
 
+# -- slice 8b: tp, sp and ep (sections 30-34) ----------------------------
+
+def _sq_parts(got, want):
+    """Per tensor ``(||got - want||^2, ||want||^2)`` in f64, ``want`` moved
+    to ``got``'s device a tensor at a time."""
+    out = []
+    for a, b in zip(got, want):
+        b = b.to(a.device, torch.float32)
+        out.append((float(torch.sum((a.float() - b).double() ** 2)),
+                    float(torch.sum(b.double() ** 2))))
+    return out
+
+
+def _rel(parts):
+    num, den = (sum(p[i] for p in parts) for i in (0, 1))
+    return (num / den) ** 0.5 if den > 0 else num ** 0.5
+
+
+def mesh_grad_gate(one, mesh, paths, what):
+    """The mesh's first-step gradients against one process's at the same
+    config: ``one`` and ``mesh`` map "float32"/"bfloat16" to ``(loss,
+    tensors)`` (one's on the host). f32: the loss within BERT_REL and each
+    tensor within GRAD_REL; bf16 (TinyLlama's depth, as grad_gate's
+    ``deep``): all tensors together within the larger of GRAD_REL and
+    BF16_EXCESS times the one-process bf16 gradient's distance from its f32
+    one, and the mesh's bf16 gradient at most that far from the one-process
+    f32 gradient. Returns the agreement by dtype."""
+    agree = {}
+    for name in ("float32", "bfloat16"):
+        (l1, g1), (lm, gm) = one[name], mesh[name]
+        per = _sq_parts(gm, g1)
+        rels = {p: _rel([x]) for p, x in zip(paths, per)}
+        worst = max(rels, key=rels.get)
+        agree[name] = dict(loss=lm, one_process_loss=l1,
+                           loss_rel=abs(lm - l1) / abs(l1),
+                           grad_rel_l2_all=_rel(per),
+                           grad_rel_l2_max=rels[worst],
+                           grad_rel_l2_worst=worst)
+        tol = GRAD_REL
+        if name == "bfloat16":
+            o_all = _rel(_sq_parts(g1, one["float32"][1]))
+            m_all = _rel(_sq_parts(gm, one["float32"][1]))
+            tol = max(GRAD_REL, BF16_EXCESS * o_all)
+            agree[name].update(one_process_vs_f32_all=o_all,
+                               vs_f32_all=m_all, excess_limit=BF16_EXCESS)
+            check(m_all <= BF16_EXCESS * o_all, f"{what} bfloat16 mesh "
+                  f"gradients are rel L2 {m_all} from the f32 ones, one "
+                  f"process {o_all}")
+        else:
+            check(rels[worst] < GRAD_REL, f"{what} float32 gradient of "
+                  f"{worst} differs from one process's by rel L2 "
+                  f"{rels[worst]}")
+        agree[name]["grad_rel_l2_tol"] = tol
+        check(agree[name]["loss_rel"] < BERT_REL, f"{what} {name} first "
+              f"loss {lm} vs one process's {l1}")
+        check(agree[name]["grad_rel_l2_all"] < tol, f"{what} {name} "
+              f"gradients differ from one process's: {agree[name]}")
+    return agree
+
+
+def _tp_steps(bert_forward, multihost, step, n, want, what):
+    """``_timed_steps`` over ``step`` (a call is one training step; returns
+    its loss), with the bytes this rank's collectives moved in each step
+    (``multihost.traffic``)."""
+    moved = []
+
+    def one():
+        multihost.reset_traffic()
+        loss = step()
+        torch.cuda.synchronize()
+        moved.append(multihost.traffic())
+        return loss
+    res = _timed_steps(bert_forward, one, n, want, what)
+    res["collective_bytes_per_step"] = moved[-1]
+    return res
+
+
+def tp_llama_worker(dev, rank):
+    """Section 30 on one of the TP_RANKS ranks (TP_* above)."""
+    from hetu_tpu_torch.examples import bert_forward, hf_standins
+    from hetu_tpu_torch.models import hf_llama, transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+    mesh = meshlib.make_mesh(tp=2, sp=2)
+    s = meshlib.axis_rank(mesh, "sp")
+    full, cfg = hf_llama.params_from_hf(hf_standins.llama(0, dev),
+                                        device=dev)
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16, remat=True)
+    x, y = _tokens(cfg.vocab_size, TP_LLAMA_B, TP_LLAMA_T, 30, dev)
+    paths = [p for p, _ in tfm.tree_leaves(full, with_paths=True)]
+    t0 = time.perf_counter()
+    one = {}
+    if rank == 0:     # one process's gradients, the other ranks waiting
+        for name in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=getattr(torch, name))
+            loss, g = tfm.value_and_grad(tfm.loss_fn, full, x, y, c)
+            one[name] = (float(loss), [t.cpu() for t in tfm.tree_leaves(g)])
+            del g
+            torch.cuda.empty_cache()
+    multihost.barrier()
+    one_s = time.perf_counter() - t0
+    params = tfm.shard_params(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    want = {"flash_attention_fwd": 2 * L * (s + 1),
+            "flash_attention_bwd": L * (s + 1), "fused_embed_grad": 1}
+    dp = tfm.DataParallel(mesh)
+    xs, ys = dp.seq_share(x), dp.seq_share(y)
+    got = {}
+    for name in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, name))
+        (loss, g), counts = bert_forward.counted(lambda: tfm.value_and_grad(
+            tfm.loss_fn, params, xs, ys, c, mesh))
+        check(counts == want, f"TinyLlama tp2 x sp2 {name} gradient "
+              f"launched {counts}, expected {want}")
+        tfm.sum_shared_kv_(g, c, mesh)
+        dp.mean_([loss] + tfm.tree_leaves(g))
+        whole = tfm.tree_leaves(tfm.gather_params(g, c, mesh))
+        del g
+        if rank == 0:
+            got[name] = (float(loss), whole)
+        del whole
+        torch.cuda.empty_cache()
+    out = dict(sp_rank=s, tp_rank=meshlib.axis_rank(mesh, "tp"),
+               one_process_seconds=one_s)
+    if rank == 0:
+        out["gate"] = mesh_grad_gate(one, got, paths, "TinyLlama tp2 x sp2")
+    del one, got
+    torch.cuda.empty_cache()
+    step = _carried(tfm, tfm.make_train_step(cfg, mesh, lr=TP_LR), params,
+                      x, y)
+    out.update(_tp_steps(bert_forward, multihost, step, TP_STEPS, want,
+                         "TinyLlama tp2 x sp2"))
+    check(out["losses"][-1] < out["losses"][0],
+          f"TinyLlama tp2 x sp2 losses {out['losses']}")
+    out["launches_per_step"] = want
+    return out
+
+
+def tp_moe_worker(dev, rank):
+    """Section 31 on one of the TP_RANKS ranks."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.models import transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+    mesh = meshlib.make_mesh(dp=2, ep=2)
+    cfg, full = _gpt2(tfm, dev, n_experts=MOE_E, capacity_factor=MOE_CAP,
+                      remat=True, dtype=torch.float32)
+    x, y = _tokens(cfg.vocab_size, MOE_B, MOE_T, 3, dev)
+    one = None
+    if rank == 0:
+        with tfm.moe_log() as log, torch.no_grad():
+            loss = tfm.loss_fn(full, x, y, cfg)
+        one = dict(loss=float(loss), dropped=[e["dropped"] for e in log],
+                   tokens=log[0]["tokens"], cap=log[0]["cap"])
+    one = multihost.broadcast_from_chief(one)
+    params = tfm.shard_params(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    dp = tfm.DataParallel(mesh)
+    with tfm.moe_log() as log, torch.no_grad():
+        tfm.loss_fn(params, dp.share(x), dp.share(y), cfg, mesh)
+    dropped = [e["dropped"] for e in log]
+    check(dropped == one["dropped"], f"the MoE at dp 2 x ep 2 dropped "
+          f"{dropped} tokens by layer, one process {one['dropped']}")
+    step = _carried(tfm, tfm.make_train_step(cfg, mesh, lr=MOE_LR), params,
+                      x, y)
+    out = _tp_steps(bert_forward, multihost, step, TP_STEPS,
+                    TP_MOE_LAUNCHES, "the MoE at dp 2 x ep 2")
+    rel = abs(out["losses"][0] - one["loss"]) / abs(one["loss"])
+    check(rel <= TP_MOE_REL, f"the MoE at dp 2 x ep 2: first loss "
+          f"{out['losses'][0]} vs one process's {one['loss']}")
+    return dict(out, one_process=one, dropped_by_layer=dropped,
+                dropped_share_by_layer=[d / one["tokens"] for d in dropped],
+                first_loss_rel=rel, launches_per_step=TP_MOE_LAUNCHES,
+                ep_rank=meshlib.axis_rank(mesh, "ep"),
+                experts_held=int(params["blocks"]["w1"].shape[1]))
+
+
+def tp_bert_worker(dev, rank):
+    """Section 32 on one of the TP_RANKS ranks."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.models import bert, transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+    mesh = meshlib.make_mesh(tp=2, sp=2)
+    cfg = bert.BERT_BASE
+    batch = bert_forward.phase1_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PRED,
+                                      seed=0, device=dev)
+    full = bert.init_params(0, cfg, dev)
+    paths = [p for p, _ in tfm.tree_leaves(full, with_paths=True)]
+    one = {}
+    if rank == 0:     # one process's gradients, the other ranks waiting
+        for name in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=getattr(torch, name))
+            loss, _, g = bert.make_pretrain_grads(c)(full, batch)
+            one[name] = (float(loss), [t.cpu() for t in tfm.tree_leaves(g)])
+            del g
+        step = _carried(tfm, bert.make_pretrain_step(cfg, lr=TRAIN_LR),
+                        tfm.tree_map(torch.clone, full), batch)
+        one["losses"] = [float(step()) for _ in range(TP_BERT_STEPS)]
+        del step
+        torch.cuda.empty_cache()
+    multihost.barrier()
+    params = bert.shard_params(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    got = {}
+    for name in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, name))
+        (loss, _, g), counts = bert_forward.counted(
+            lambda: bert.make_pretrain_grads(c, mesh)(params, batch))
+        check(counts == TP_BERT_LAUNCHES, f"BERT-base tp2 x sp2 {name} "
+              f"gradient launched {counts}, expected {TP_BERT_LAUNCHES}")
+        whole = tfm.tree_leaves(bert.gather_params(g, c, mesh))
+        del g
+        if rank == 0:
+            got[name] = (float(loss), whole)
+        del whole
+    out = dict(sp_rank=meshlib.axis_rank(mesh, "sp"),
+               tp_rank=meshlib.axis_rank(mesh, "tp"))
+    if rank == 0:
+        out["gate"] = mesh_grad_gate(one, got, paths, "BERT-base tp2 x sp2")
+    ref = multihost.broadcast_from_chief(
+        one["losses"] if rank == 0 else None)
+    del one, got
+    torch.cuda.empty_cache()
+    step = _carried(tfm, bert.make_pretrain_step(cfg, mesh, lr=TRAIN_LR),
+                      params, batch)
+    out.update(_tp_steps(bert_forward, multihost, step, TP_BERT_STEPS,
+                         TP_BERT_LAUNCHES, "BERT-base tp2 x sp2"))
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], ref)]
+    check(max(rel) <= BERT_REL, f"BERT-base tp2 x sp2: losses "
+          f"{out['losses']} vs one process's {ref}")
+    check(out["losses"][-1] < out["losses"][0],
+          f"BERT-base tp2 x sp2 losses {out['losses']}")
+    return dict(out, one_process_losses=ref, loss_rel_by_step=rel,
+                chunk=BERT_SEQ // 2, launches_per_step=TP_BERT_LAUNCHES)
+
+
+def _median_call(bert_forward, multihost, fn, n, what):
+    """``n`` calls of ``fn``, each launching no kernel; returns the last
+    result, the median wall ms and the bytes a call's collectives moved."""
+    ms = []
+    for _ in range(n):
+        multihost.reset_traffic()
+        t0 = time.perf_counter()
+        res, counts = bert_forward.counted(fn)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(counts == {}, f"{what} launched {counts}")
+    return res, dict(call_ms=ms, median_ms=float(np.median(ms)),
+                     collective_bytes_per_call=multihost.traffic(),
+                     launches_per_call={})
+
+
+def tp_vit_worker(dev, rank):
+    """Section 33 on one of the TP_RANKS ranks."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.models import transformer as tfm, vit
+    from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+    mesh = meshlib.make_mesh(dp=2, tp=2)
+    cfg = dataclasses.replace(vit.VIT_BASE, n_classes=1000)
+    full = vit.init_params(0, cfg, dev)
+    images = torch.randn((VIT_IMAGES, 3, cfg.image_size, cfg.image_size),
+                         generator=torch.Generator().manual_seed(33)).to(dev)
+    one = None
+    if rank == 0:
+        with torch.no_grad():
+            one = vit.classify_logits(full, images, cfg).cpu().tolist()
+    one = torch.tensor(multihost.broadcast_from_chief(one))
+    params = vit.shard_params(full, cfg, mesh)
+    del full
+    dp = tfm.DataParallel(mesh)
+    with torch.no_grad():
+        logits, out = _median_call(
+            bert_forward, multihost, lambda: vit.classify_logits(
+                params, dp.share(images), cfg, mesh), TP_CALLS,
+            "ViT-B/16's forward at dp 2 x tp 2")
+    rel = rel_l2(logits.cpu(), dp.share(one))
+    check(rel <= VIT_REL, f"ViT-B/16 at dp 2 x tp 2: logits rel L2 {rel} "
+          f"from one process's")
+    return dict(out, logits_rel_l2=rel, images=VIT_IMAGES)
+
+
+def tp_decode_worker(dev, rank):
+    """Section 34 on one of the TP_RANKS ranks."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.models import generate as gen, transformer as tfm
+    from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+    mesh = meshlib.make_mesh(dp=2, tp=2)
+    cfg, full = _gpt2(tfm, dev, dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab_size, (TP_DEC_B, TP_DEC_P),
+                           generator=torch.Generator().manual_seed(34)).to(dev)
+    one = None
+    if rank == 0:
+        one = gen.make_generate_fn(cfg, TP_DEC_LEN)(full, prompt)[0].tolist()
+    one = multihost.broadcast_from_chief(one)
+    params = tfm.shard_params(full, cfg, mesh)
+    del full
+    fn = gen.make_generate_fn(cfg, TP_DEC_LEN, mesh=mesh)
+    (toks, _), out = _median_call(bert_forward, multihost,
+                                  lambda: fn(params, prompt), TP_CALLS,
+                                  "GPT-2 small's decode at dp 2 x tp 2")
+    check(toks.tolist() == one, "GPT-2 small's greedy tokens at dp 2 x tp 2 "
+          "differ from one process's")
+    return dict(out, tokens_equal=True, batch=TP_DEC_B, prompt=TP_DEC_P,
+                max_len=TP_DEC_LEN, tokens_per_s=TP_DEC_B * (
+                    TP_DEC_LEN - TP_DEC_P) / out["median_ms"] * 1e3,
+                cache_heads=gen._Weights(params, cfg, mesh).nkv)
+
+
+TP_JOBS = {"tinyllama": tp_llama_worker, "moe": tp_moe_worker,
+           "bert": tp_bert_worker, "vit": tp_vit_worker,
+           "decode": tp_decode_worker}
+
+
+def tp_worker(out_dir):
+    """One of the TP_RANKS ranks of sections 30-34, started by the runner
+    with --devices cuda:0,... --backend gloo: joins the group, runs each
+    job of TP_JOBS in turn and writes its result to
+    ``out_dir/<job>_rank<r>.json``."""
+    from hetu_tpu_torch.parallel import multihost
+    import torch.distributed as dist
+    multihost.initialize()
+    dev, rank = multihost.device(), multihost.process_index()
+    for job, run in TP_JOBS.items():
+        t0 = time.perf_counter()
+        result = dict(run(dev, rank), rank=rank, device=str(dev),
+                      backend=dist.get_backend())
+        result["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"{job}_rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        torch.cuda.empty_cache()
+        multihost.barrier()
+    multihost.shutdown()
+    return 0
+
+
+def one_rank_ring_phase(dev):
+    """``ring_attention`` without an sp group on the card (attn_impl="ring"
+    on a mesh whose sp is 1): its one diagonal step launches #4 once and
+    #5 once and gives ``flash_attention``'s output and gradients bit for
+    bit (the same kernels on the same inputs), at TinyLlama's ring-chunk
+    shape in bf16, causal. Returns the path's launches."""
+    from hetu_tpu_torch.examples import bert_forward
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    from hetu_tpu_torch.parallel import ring_attention as ra
+    gen = torch.Generator(device=dev).manual_seed(35)
+    q, k, v, do = (torch.randn((TP_LLAMA_B, 16, TP_LLAMA_T // 2, 64),
+                               generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+
+    def run(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        return [o.detach()] + [x.grad for x in leaves]
+    got, counts = bert_forward.counted(lambda: run(
+        lambda *a: ra.ring_attention(*a, group=None, causal=True)))
+    want = {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    check(counts == want, f"the one-rank ring launched {counts}, expected "
+          f"{want}")
+    ref = run(lambda *a: fa.flash_attention(*a, causal=True))
+    err = {n: float((a.float() - b.float()).abs().max())
+           for n, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+    check(all(e == 0 for e in err.values()), f"the one-rank ring differs "
+          f"from flash_attention: {err}")
+    emit("tp_one_rank_ring", shape=list(q.shape), launches=counts,
+         max_abs_err=err)
+    return counts
+
+
+def tp_phases():
+    """The one-rank ring in this process, then sections 30-34 in one
+    launch of TP_RANKS processes on the card; returns each path's
+    launches, summed over the ranks and steps."""
+    paths = {"tp_one_rank_ring": one_rank_ring_phase(
+        torch.device("cuda", 0))}
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        _two_ranks([sys.executable, os.path.abspath(__file__),
+                    "--tp-worker", d], "slice 8b ranks", n=TP_RANKS)
+        for job in TP_JOBS:
+            out[job] = [json.load(open(os.path.join(d, f"{job}_rank{r}.json")))
+                        for r in range(TP_RANKS)]
+    emit("tp_ranks", wall_seconds=time.perf_counter() - t0,
+         job_seconds={j: [r["seconds"] for r in v] for j, v in out.items()})
+    for job, line in (("tinyllama", "tp_tinyllama_tp2_sp2"),
+                      ("moe", "tp_moe_dp2_ep2"), ("bert", "tp_bert_tp2_sp2"),
+                      ("vit", "tp_vit_dp2_tp2"),
+                      ("decode", "tp_decode_dp2_tp2")):
+        emit(line, ranks=out[job])
+    for job in ("tinyllama", "moe", "bert"):
+        got = {}
+        for r in out[job]:
+            for k, v in r["launches_per_step"].items():
+                got[k] = got.get(k, 0) + v * len(r["losses"])
+        paths["tp_" + job] = got
+    return paths
+
+
 def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
                  quant, hf, launches, by_path):
     """The ``kernels`` JSON object: one entry per ported kernel; its
@@ -4238,7 +4724,8 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         phase2=_timed(attn[1]), slice_5d={"gpt2_causal": _timed(attn[4])},
         slice_5c={"tinyllama_causal": _timed(hf["attn"][0]),
                   "moe_causal": _timed(hf["attn"][1])},
-        slice_8a={"gpt2_pipeline_causal": _timed(attn[PIPE_ATTN])})
+        slice_8a={"gpt2_pipeline_causal": _timed(attn[PIPE_ATTN])},
+        slice_8b=_tp_timed(attn))
     kern["fused_linear_nll_fwd"] = dict(ces[0], max_abs_err=max(
         c["max_abs_err"] for c in ces + hf["ce"]), phase2=_timed(ces[2]),
         slice_5d={"bert_trainer": _timed(ces[3]),
@@ -4253,7 +4740,8 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         slice_5d={"gpt2_causal": _timed(attn_bwd[4])},
         slice_5c={"tinyllama_causal": _timed(hf["attn_bwd"][0]),
                   "moe_causal": _timed(hf["attn_bwd"][1])},
-        slice_8a={"gpt2_pipeline_causal": _timed(attn_bwd[PIPE_ATTN])})
+        slice_8a={"gpt2_pipeline_causal": _timed(attn_bwd[PIPE_ATTN])},
+        slice_8b=_tp_timed(attn_bwd))
     kern["fused_linear_nll_bwd"] = dict(ce_bwd[0], max_abs_err=max(
         c["max_abs_err"] for c in ce_bwd + hf["ce_bwd"]),
         phase2=_timed(ce_bwd[2]),
@@ -4290,12 +4778,21 @@ def kernels_line(kern, attn, ces, attn_bwd, ce_bwd, spmm, spmv, embed,
         **{f: v[f] for f in ("launched_ms", "step_launched_ms",
                              "plain_launched_ms", "library_launched_ms",
                              "library_timing", "shape", "epoch_ms", "phase2",
-                             "slice_5d", "slice_5c", "slice_8a", "plan",
+                             "slice_5d", "slice_5c", "slice_8a", "slice_8b",
+                             "plan",
                              "large")
            if f in v},
         **({"gather_bound_ms": v["gather_bound"][0]}
            if "gather_bound" in v else {}))
         for k, v in kern.items()]}
+
+
+def _tp_timed(cases):
+    """The ring chunks of slice 8b (TP_ATTN), timed, for the kernels
+    line."""
+    return {name: _timed(cases[i]) for name, i in zip(
+        ("tinyllama_ring_diagonal_causal", "tinyllama_ring_earlier_chunk",
+         "bert_ring_chunk_key_bias"), TP_ATTN)}
 
 
 def _timed(case):
@@ -4345,9 +4842,18 @@ def main(argv=None):
                          "GPipe legs (sections 26-29), and stop")
     ap.add_argument("--pipe-worker", metavar="OUT",
                     help=argparse.SUPPRESS)   # a rank of sections 26-27, 29
+    ap.add_argument("--tp", action="store_true",
+                    help="build, check the kernels at the ring's chunks, "
+                         "run TinyLlama, the MoE, BERT-base, ViT-B/16 and "
+                         "GPT-2 decoding on tp, sp and ep meshes (sections "
+                         "30-34), and stop")
+    ap.add_argument("--tp-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)   # a rank of sections 30-34
     args = ap.parse_args(argv)
     if args.pipe_worker:
         return pipe_worker(args.pipe_worker)
+    if args.tp_worker:
+        return tp_worker(args.tp_worker)
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import comm_quant
     from hetu_tpu_torch.examples import (bert_forward, bert_pretrain,
@@ -4429,6 +4935,16 @@ def main(argv=None):
              embed=embed_grad_phase(embed_grad, registry, None, None, dev,
                                     bw, f32, [EMBED_CASES[PIPE_EMBED]]))
         emit("slice_8a_launches", **pipe_phases(multihost, dev))
+        return 0
+    if args.tp:
+        cases = [ATTN_CASES[i] for i in TP_ATTN]
+        emit("slice_8b_kernels_checked",
+             shapes="the ring chunks of TinyLlama at tp 2 x sp 2 and of "
+                    "BERT-base at sp 2",
+             attn=attention_phase(flash_attention, dev, bw, f32, bf16, cases),
+             attn_bwd=attention_bwd_phase(flash_attention, dev, bw, f32,
+                                          bf16, cases))
+        emit("slice_8b_launches", **tp_phases())
         return 0
     if args.csr_kernels:
         tr = gnn_main.Trainer(dev, "gcn", "arxiv", lr=GCN_LR)
@@ -4573,6 +5089,11 @@ def main(argv=None):
     # 29. the graph-API GPipe on two stage processes -------------------------
     torch.cuda.empty_cache()
     paths += pipe_phases(multihost, dev).items()
+    # -- 30. TinyLlama-1.1B at tp 2 x sp 2; 31. the switch MoE at dp 2 x ep
+    # 2; 32. BERT-base at tp 2 x sp 2; 33. ViT-B/16 at dp 2 x tp 2; 34.
+    # GPT-2 small decoding at dp 2 x tp 2 (four processes on the card) -----
+    torch.cuda.empty_cache()
+    paths += tp_phases().items()
     for path, got in paths + list(hf_paths.items()):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v

@@ -12,7 +12,7 @@ reads it back onto the devices and dtypes of ``like``, or as numpy arrays.
 ``keep``.
 
 The reference's sharded restore (``mesh=``, ``specs=``) is not ported: it
-comes with slice 8b, where this module moves to
+comes with slice 8c, where this module moves to
 ``torch.distributed.checkpoint``. A state that holds one rank's part of a
 whole (ZeRO-1's slot shards, a pipeline stage's blocks: tensors marked by
 ``parallel.mesh.mark_shard``) is refused before anything is written, for
@@ -37,7 +37,7 @@ def _no_mesh(mesh, specs):
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "a sharded restore (mesh=, specs=) is not ported to "
-            "hetu_tpu_torch yet: it comes with slice 8b "
+            "hetu_tpu_torch yet: it comes with slice 8c "
             "(torch.distributed.checkpoint; ROADMAP Queue 1)")
 
 
@@ -49,7 +49,7 @@ def _refuse_shards(tree, where=""):
         raise NotImplementedError(
             f"checkpoint entry {where} is one rank's {shard_of(tree)} "
             "shard: a ZeRO-1 or pipeline state is saved by the sharded "
-            "checkpoint of slice 8b (torch.distributed.checkpoint); this "
+            "checkpoint of slice 8c (torch.distributed.checkpoint); this "
             "one-process checkpoint writes whole states only")
 
 

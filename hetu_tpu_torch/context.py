@@ -5,7 +5,7 @@ The port runs one process per device: a group of several devices is the
 data-parallel ranks' devices, one per rank (the executor takes its own).
 Under ``Executor(..., gpipe=True)`` each context is a pipeline stage, and
 a device's id is the rank that runs it. The placement of model-parallel
-tuples onto several cards arrives with slice 8b.
+tuples onto several cards arrives with slice 8c.
 """
 from __future__ import annotations
 

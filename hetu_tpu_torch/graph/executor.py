@@ -166,7 +166,7 @@ def _resolve_device(ctx, mesh, dp_rank: int, dp: int) -> torch.device:
                 "processes (python -m hetu_tpu_torch.runner -w N, "
                 "comm_mode='AllReduce'); a pipeline's stages are contexts "
                 "of an Executor(..., gpipe=True); model parallelism arrives "
-                "with slice 8b")
+                "with slice 8c")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"the executor runs on {dev} (ctx={ctx!r}) but "
@@ -1185,7 +1185,7 @@ class Executor:
             raise NotImplementedError(
                 "save() of a pipeline whose stages live in several "
                 "processes: each holds its stage's parameters, and the "
-                "sharded checkpoint comes with slice 8b")
+                "sharded checkpoint comes with slice 8c")
         qresid = {str(i): self._full_qresid(n)
                   for i, n in enumerate(self._qresid_ordered())}
         if self.ps_runtime is not None:

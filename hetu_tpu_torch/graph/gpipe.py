@@ -242,7 +242,7 @@ class SubExecutor4Gpipe:
                             f"stages {s} and {t} have dp widths "
                             f"{self.stages[s].dp} and {self.stages[t].dp}; "
                             "a boundary between unequal widths reshards, "
-                            "which comes with slice 8b")
+                            "which comes with slice 8c")
         if self.training:
             var_pos = {id(v): i for i, v in enumerate(self.opt_vars)}
             for st in self.stages:

@@ -10,7 +10,7 @@ sub-group that ``new_group_comm(devices)`` made. Pipeline send and
 receive are stage-boundary markers: the GPipe executor
 (``graph/gpipe.py``) cuts the graph at context boundaries and carries the
 values between stage processes. The ``dispatch`` tensor-parallel marker
-arrives with slice 8b.
+arrives with slice 8c.
 """
 from __future__ import annotations
 
@@ -125,8 +125,8 @@ def pipeline_receive_op(source=None, comm=None, stream=None, ctx=None):
 
 def dispatch(node, parts, duplicate=1):
     """The tensor-parallel partition marker: a GSPMD PartitionSpec in the
-    JAX package, explicit splits and collectives here, in slice 8b."""
+    JAX package, explicit splits and collectives here, in slice 8c."""
     raise NotImplementedError(
         "ht.dispatch (tensor parallelism, DispatchOp and "
-        "dispatch_gradient) arrives with slice 8b; hetu_tpu_torch runs "
+        "dispatch_gradient) arrives with slice 8c; hetu_tpu_torch runs "
         "data and pipeline parallelism")

@@ -7,6 +7,9 @@ params tree (``hetu_tpu.models``' nested dicts) across as tensors.
 ``stage_tree`` and ``stages_to_numpy`` carry the pipeline's: the JAX
 package stacks a stage's blocks on a leading ``(pp, L/pp, ...)`` axis,
 where a rank of the port holds its stage's ``(L/pp, ...)`` slice.
+``mesh_tree`` and ``mesh_to_numpy`` carry a tree to and from a rank's tp
+and ep slices (``transformer.shard_params``; the JAX package keeps one
+global array where each rank of the port holds its slice).
 """
 from __future__ import annotations
 
@@ -109,3 +112,21 @@ def stages_to_numpy(trees):
     out["blocks"] = {k: np.stack([arr(t["blocks"][k]) for t in trees])
                      for k in trees[0]["blocks"]}
     return out
+
+
+def mesh_tree(tree, cfg, mesh, device=None, specs=None):
+    """The JAX package's params (numpy) as this rank's slice on ``mesh``
+    (``transformer.shard_params`` of ``tree_from_numpy``). ``cfg``: the
+    port's ``TransformerConfig`` (a family's ``trunk()``); ``specs``: the
+    family's partition specs (default the trunk's)."""
+    from .models import transformer
+    return transformer.shard_params(tree_from_numpy(tree, device), cfg,
+                                    mesh, specs)
+
+
+def mesh_to_numpy(params, cfg, mesh, specs=None):
+    """The inverse of ``mesh_tree``: every rank's slices gathered (a
+    collective of tp and ep) into the whole tree, in numpy."""
+    from .models import transformer
+    whole = transformer.gather_params(params, cfg, mesh, specs)
+    return transformer.tree_map(lambda t: t.detach().cpu().numpy(), whole)

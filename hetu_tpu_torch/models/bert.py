@@ -30,6 +30,7 @@ from . import transformer as tfm
 from ..kernels import embed_grad
 from ..kernels.fused_ce import fused_linear_nll, should_fuse
 from ..ndarray import resolve_device
+from ..parallel import multihost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,9 +114,11 @@ def encode(params, input_ids, segment_ids, cfg: BertConfig, mesh=None,
            input_mask=None):
     """-> final hidden states (B, T, D). Pre-LN: trunk then the final LN
     (lnf). Post-LN: lnf is the embedding LayerNorm, and the trunk output is
-    final as it is."""
+    final as it is. On a mesh the inputs are this rank's rows and sequence
+    chunk, and so is the output; a padding mask rides the ring as a
+    rotating per-key bias."""
     trunk = cfg.trunk()
-    h = tfm.embed_tokens(params, input_ids, trunk)
+    h = tfm.embed_tokens(params, input_ids, trunk, mesh)
     h = h + embed_grad.lookup(params["type_emb"], segment_ids).to(h.dtype)
     if cfg.post_ln:
         h = tfm._layer_norm(h, params["lnf_scale"], params["lnf_bias"],
@@ -131,23 +134,43 @@ def encode(params, input_ids, segment_ids, cfg: BertConfig, mesh=None,
                            cfg.ln_eps)
 
 
-def mlm_transform(params, h, positions, cfg: BertConfig):
+def whole_sequence(h, mesh=None):
+    """This rank's chunk of the encoder's output gathered over sp into the
+    whole sequence (the heads read global positions); the gradient goes
+    back summed over the sp ranks (each rank's heads read every chunk)."""
+    return multihost.gather_dim(h, 1, tfm.meshlib.axis_group(mesh, "sp"))
+
+
+def mlm_transform(params, h, positions, cfg: BertConfig, mesh=None):
     """Gather (B, P) masked positions from h (B, T, D) and run the MLM
-    transform (dense + bias + gelu + LN) -> (B, P, D)."""
+    transform (dense + bias + gelu + LN) -> (B, P, D). On a tp mesh the
+    dense is column-parallel and its output all-gathered before the LN."""
     idx = positions.long()[..., None].expand(-1, -1, h.shape[-1])
-    g = tfm._mm(torch.gather(h, 1, idx), params["mlm_dense"])
+    group = tfm.meshlib.axis_group(mesh, "tp")
+    g = tfm._mm(multihost.copy_to(torch.gather(h, 1, idx), group),
+                params["mlm_dense"])
     if "mlm_dense_b" in params:
         g = g + params["mlm_dense_b"].to(g.dtype)
-    g = tfm._gelu(g, cfg)
+    g = multihost.gather_dim(tfm._gelu(g, cfg), -1, group, grad="slice")
     return tfm._layer_norm(g, params["mlm_ln_scale"], params["mlm_ln_bias"],
                            cfg.ln_eps)
 
 
-def mlm_logits(params, h, positions, cfg: BertConfig):
+def mlm_logits(params, h, positions, cfg: BertConfig, mesh=None):
     """MLM transform + decode tied to the token embedding -> (B, P, V) f32
-    (the materializing form; the fused path skips this tensor)."""
-    g = mlm_transform(params, h, positions, cfg)
-    return tfm._mm32(g, params["embed"].t()) + params["mlm_bias"]
+    (the materializing form; the fused path skips this tensor). On a tp
+    mesh each rank multiplies its D columns by its embedding shard, the
+    partial logits are summed over tp and the vocab-split bias gathered."""
+    g = mlm_transform(params, h, positions, cfg, mesh)
+    group = tfm.meshlib.axis_group(mesh, "tp")
+    if group is None:
+        return tfm._mm32(g, params["embed"].t()) + params["mlm_bias"]
+    Dl = params["embed"].shape[1]
+    x = multihost.copy_to(g, group).narrow(
+        -1, tfm.meshlib.axis_rank(mesh, "tp") * Dl, Dl)
+    logits = multihost.reduce_from(tfm._mm32(x, params["embed"].t()), group)
+    return logits + multihost.gather_dim(params["mlm_bias"], -1, group,
+                                         grad="slice")
 
 
 def _pool(params, h):
@@ -162,7 +185,8 @@ def nsp_logits(params, h):
 
 def param_specs(cfg: BertConfig):
     """Each parameter's partition spec (the trunk's, without the head, and
-    the BERT heads'), as the reference's; ZeRO-1 reads them."""
+    the BERT heads'), as the reference's; ``shard_params`` and ZeRO-1 read
+    them."""
     specs = tfm.param_specs(cfg.trunk())
     del specs["head"]
     if cfg.attn_proj_bias:
@@ -174,11 +198,23 @@ def param_specs(cfg: BertConfig):
     return specs
 
 
+def shard_params(params, cfg: BertConfig, mesh):
+    """This rank's tp slice of BERT's whole ``params`` (by
+    ``param_specs``; ``transformer.shard_params``)."""
+    return tfm.shard_params(params, cfg.trunk(), mesh, param_specs(cfg))
+
+
+def gather_params(params, cfg: BertConfig, mesh):
+    """The inverse of ``shard_params`` (every rank of tp calls it)."""
+    return tfm.gather_params(params, cfg.trunk(), mesh, param_specs(cfg))
+
+
 def _pretrain_terms(params, batch, cfg: BertConfig, mesh=None):
     """Per slot the MLM NLL (B, P) and its weight (B, P) f32, per row the
     NSP label's log-probability (B,)."""
-    h = encode(params, batch["input_ids"], batch["segment_ids"], cfg, mesh,
-               batch.get("input_mask"))
+    h = whole_sequence(encode(params, batch["input_ids"],
+                              batch["segment_ids"], cfg, mesh,
+                              batch.get("input_mask")), mesh)
     if should_fuse(cfg.fused_mlm_ce, mesh, h.device):
         g = mlm_transform(params, h, batch["mlm_positions"], cfg)
         B, Pm, D = g.shape
@@ -186,7 +222,7 @@ def _pretrain_terms(params, batch, cfg: BertConfig, mesh=None):
             g.reshape(B * Pm, D), params["embed"].to(g.dtype),
             params["mlm_bias"], batch["mlm_ids"].reshape(-1)).reshape(B, Pm)
     else:
-        logits = mlm_logits(params, h, batch["mlm_positions"], cfg)
+        logits = mlm_logits(params, h, batch["mlm_positions"], cfg, mesh)
         logp = torch.log_softmax(logits.float(), -1)
         per_slot = -torch.gather(logp, -1,
                                  batch["mlm_ids"].long()[..., None])[..., 0]
@@ -233,21 +269,17 @@ def init_classifier_params(rng, cfg: BertConfig, n_classes: int,
 def classify_logits(params, input_ids, segment_ids, cfg: BertConfig,
                     mesh=None, input_mask=None):
     """-> (B, n_classes) f32 logits of the classifier on pooled [CLS]."""
-    h = encode(params, input_ids, segment_ids, cfg, mesh, input_mask)
+    h = whole_sequence(encode(params, input_ids, segment_ids, cfg, mesh,
+                              input_mask), mesh)
     return _pool(params, h) @ params["cls_w"] + params["cls_b"]
 
 
 def make_pretrain_step(cfg: BertConfig, mesh=None, lr: float = 1e-4,
                        zero1: bool = False):
     """Returns ``step(params, opt_state, batch) -> (loss, (mlm, nsp),
-    params, opt_state)``: the gradient of ``pretrain_loss``'s value and
-    one AdamW update. The step updates ``params`` and ``opt_state``'s ``m`` and ``v``
-    in place, as the reference donates its buffers.
-
-    ``mesh`` (dp): every rank passes the global batch and gets its loss.
-    Each rank's loss is its rows' share of the global one (its weighted
-    MLM NLL over the global slot weight, its NSP NLL over the global row
-    count), and the gradients are summed over dp. ``zero1=True``: place
+    params, opt_state)``: ``make_pretrain_grads``'s gradient and one AdamW
+    update. The step updates ``params`` and ``opt_state``'s ``m`` and ``v``
+    in place, as the reference donates its buffers. ``zero1=True``: place
     the state with ``shard_opt_state(opt, cfg, mesh, zero1=True)``."""
     tfm.meshlib.check_mesh(mesh)
     if zero1 and mesh is None:
@@ -255,24 +287,62 @@ def make_pretrain_step(cfg: BertConfig, mesh=None, lr: float = 1e-4,
                          "dp axis: pass mesh=")
     dp = tfm.DataParallel(mesh, zero1_opt_specs(cfg, mesh) if zero1
                           else None)
-
-    def shared_loss(params, batch, n_rows):
-        per_slot, w, label_lp = _pretrain_terms(params, batch, cfg, mesh)
-        wsum = torch.sum(w).detach()
-        dp.sum_([wsum])
-        mlm = torch.sum(per_slot * w) / torch.clamp_min(wsum, 1.0)
-        nsp = -torch.sum(label_lp) / n_rows
-        return mlm + nsp, (mlm, nsp)
+    grads_of = _pretrain_grads(cfg, mesh, dp)
 
     def step(params, opt_state, batch):
-        n_rows = batch["input_ids"].shape[0]
-        (loss, parts), grads = tfm.value_and_grad(
-            shared_loss, params, dp.batch(batch), n_rows, has_aux=True)
-        dp.sum_([loss, *parts] + tfm.tree_leaves(grads))
+        loss, parts, grads = grads_of(params, batch)
         params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, parts, params, opt_state
 
     return step
+
+
+def make_pretrain_grads(cfg: BertConfig, mesh=None):
+    """Returns ``grads(params, batch) -> (loss, (mlm, nsp), grads)``:
+    ``pretrain_loss``'s value and gradient.
+
+    ``mesh`` (dp, tp, sp): every rank passes the global batch and gets its
+    loss; ``params`` are this rank's (``shard_params``) and so are the
+    gradients. Each rank's loss is its rows' share of the global one (its
+    weighted MLM NLL over the global slot weight, its NSP NLL over the
+    global row count), over sp (each sp rank's heads read the whole
+    gathered sequence), and the loss and gradients are summed over the
+    data ranks."""
+    tfm.meshlib.check_mesh(mesh)
+    return _pretrain_grads(cfg, mesh, tfm.DataParallel(mesh))
+
+
+def _pretrain_grads(cfg: BertConfig, mesh, dp):
+    def shared_loss(params, batch, n_rows):
+        per_slot, w, label_lp = _pretrain_terms(params, batch, cfg, mesh)
+        wsum = torch.sum(w).detach()
+        if dp.size > 1:
+            multihost.all_reduce_([wsum], dp.group)
+        mlm = torch.sum(per_slot * w) / torch.clamp_min(wsum, 1.0) / dp.sp
+        nsp = -torch.sum(label_lp) / n_rows / dp.sp
+        return mlm + nsp, (mlm, nsp)
+
+    def grads_of(params, batch):
+        n_rows = batch["input_ids"].shape[0]
+        (loss, parts), grads = tfm.value_and_grad(
+            shared_loss, params, _local_batch(dp, batch), n_rows,
+            has_aux=True)
+        tfm.sum_shared_kv_(grads, cfg.trunk(), mesh)
+        dp.sum_([loss, *parts] + tfm.tree_leaves(grads))
+        return loss, parts, grads
+
+    return grads_of
+
+
+_SEQUENCE = ("input_ids", "segment_ids", "input_mask")
+
+
+def _local_batch(dp, batch):
+    """This rank's rows of ``batch`` (dp), and of its sequence columns its
+    sp chunk."""
+    rows = dp.batch(batch)
+    return {k: dp.seq_share(v) if k in _SEQUENCE else v
+            for k, v in rows.items()}
 
 
 def zero1_opt_specs(cfg: BertConfig, mesh):
@@ -311,8 +381,9 @@ def make_finetune_step(cfg: BertConfig, lr: float = 2e-5, mesh=None):
         return loss, acc
 
     def step(params, opt_state, batch):
-        (loss, acc), grads = tfm.value_and_grad(loss_fn, params,
-                                                dp.batch(batch), has_aux=True)
+        (loss, acc), grads = tfm.value_and_grad(
+            loss_fn, params, _local_batch(dp, batch), has_aux=True)
+        tfm.sum_shared_kv_(grads, cfg.trunk(), mesh)
         dp.mean_([loss, acc] + tfm.tree_leaves(grads))
         params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, acc, params, opt_state

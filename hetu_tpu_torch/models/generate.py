@@ -25,8 +25,16 @@ generator seeded with ``fold_in(key, t)``, as the reference draws from
 ``jax.random.fold_in(key, t)``: skipping prefill steps never shifts the
 draws. The bits differ from ``jax.random.categorical``'s.
 
-Dense blocks only (no MoE), causal configs only, one device: a ``mesh``
-raises ``NotImplementedError`` naming slice 8b.
+Dense blocks only (no MoE, as the reference refuses it), causal configs
+only. ``make_generate_fn(..., mesh=)`` decodes on a dp x tp mesh, as the
+reference's: the params stay in their Megatron layout
+(``transformer.shard_params``; each rank runs its heads and its ``d_ff``
+columns, with the trunk's all-reduces), the KV cache is split batch over
+dp and heads over tp (each rank's cache holds the kv heads its query heads
+read: where tp does not divide ``kv_heads`` the head axis is replicated
+over the ranks that share a head), the prompt's rows are split over dp
+and every rank returns the whole batch's tokens and logits. Decoding never
+gathers the weights.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from typing import Optional
 import torch
 
 from . import transformer as tfm
+from ..parallel import mesh as meshlib
+from ..parallel import multihost
 
 
 _NORM_PARAMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
@@ -49,9 +59,20 @@ class _Weights:
     f32), and the LM head's ``tfm.head_matrix``. The arithmetic is
     ``transformer``'s, rounded at the same places."""
 
-    def __init__(self, params, cfg):
+    def __init__(self, params, cfg, mesh=None):
         names = list(params["blocks"])
-        self.params, self.cfg = params, cfg
+        self.params, self.cfg, self.mesh = params, cfg, mesh
+        tp, t = meshlib.axis_size(mesh, "tp"), meshlib.axis_rank(mesh, "tp")
+        _, self.nq, lo, hi = tfm.head_layout(cfg, tp, t)
+        self.nkv = hi - lo
+        # the query heads' kv heads where they do not group contiguously
+        # (a rank whose query heads straddle two kv groups)
+        e = tfm.kv_expand(cfg, tp, t, "cpu")
+        g = self.nq // self.nkv
+        self.kv_index = None
+        if e is not None and (self.nq % self.nkv or not torch.equal(
+                e, torch.arange(self.nq) // g)):
+            self.kv_index = e.to(params["embed"].device)
         self.layers = [
             {n: x if n in _NORM_PARAMS else x.to(cfg.dtype)
              for n, x in zip(names, layer)}
@@ -60,10 +81,10 @@ class _Weights:
         self.head = tfm.head_matrix(params, cfg)
 
     def logits(self, h):
-        return tfm.lm_head(self.params, h, self.cfg, self.head)
+        return tfm.lm_head(self.params, h, self.cfg, self.head, self.mesh)
 
 
-def _decode_layer(h, p, kc, vc, *, cfg, pos, visible):
+def _decode_layer(h, p, kc, vc, *, cfg, pos, visible, w=None):
     """One transformer block for a chunk of C new tokens against the cache
     (C = 1 is the decode step; C > 1 a prefill or a speculative verify
     chunk: causal within the chunk, full over the cached prefix).
@@ -71,10 +92,13 @@ def _decode_layer(h, p, kc, vc, *, cfg, pos, visible):
     h: (B, C, D) at positions [pos, pos + C); kc, vc: (B, nkv, M, hd), one
     layer's cache, written in place at those positions; visible: (C, M),
     ``kpos <= qpos``. Returns the new h. Every dialect knob of
-    ``transformer._block`` is mirrored here."""
+    ``transformer._block`` is mirrored here. ``w``: the call's
+    ``_Weights``, whose mesh splits the heads over tp."""
     B, C, D = h.shape
-    nh, hd = cfg.n_heads, cfg.head_dim
-    nkv = cfg.kv_heads
+    hd = cfg.head_dim
+    nh, nkv = (cfg.n_heads, cfg.kv_heads) if w is None else (w.nq, w.nkv)
+    mesh = None if w is None else w.mesh
+    group = meshlib.axis_group(mesh, "tp")
 
     post = cfg.post_ln
     attn_in = h if post else tfm._norm(h, p["ln1_scale"], p["ln1_bias"], cfg)
@@ -93,22 +117,25 @@ def _decode_layer(h, p, kc, vc, *, cfg, pos, visible):
     vc[:, :, pos:pos + C] = v
 
     # gqa: g query heads share each cached kv head
-    g = nh // nkv
-    qg = q.reshape(B, nkv, g, C, hd)
-    scores = torch.matmul(qg.float(), kc.float()[:, :, None].transpose(-1, -2)
+    kr, vr = kc, vc
+    if w is not None and w.kv_index is not None:
+        kr, vr = kc.index_select(1, w.kv_index), vc.index_select(1, w.kv_index)
+    g = nh // kr.shape[1]
+    qg = q.reshape(B, kr.shape[1], g, C, hd)
+    scores = torch.matmul(qg.float(), kr.float()[:, :, None].transpose(-1, -2)
                           ) / math.sqrt(hd)            # (B, nkv, g, C, M)
     scores = torch.where(visible, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(h.dtype)
-    ctx = torch.matmul(probs, vc[:, :, None])           # (B, nkv, g, C, hd)
-    ctx = ctx.reshape(B, nh, C, hd).transpose(1, 2).reshape(B, C, D)
-    attn_out = tfm._mm(ctx, p["wo"])
+    ctx = torch.matmul(probs, vr[:, :, None])           # (B, nkv, g, C, hd)
+    ctx = ctx.reshape(B, nh, C, hd).transpose(1, 2).reshape(B, C, nh * hd)
+    attn_out = tfm._row_sum(tfm._mm(ctx, p["wo"]), group, h.dtype)
     if cfg.attn_proj_bias:
         attn_out = attn_out + p["bo"].to(h.dtype)
     h = h + attn_out
     if post:
         h = tfm._norm(h, p["ln1_scale"], p["ln1_bias"], cfg)
     mlp_in = h if post else tfm._norm(h, p["ln2_scale"], p["ln2_bias"], cfg)
-    h = h + tfm._dense_mlp(mlp_in, p, cfg, None)
+    h = h + tfm._dense_mlp(mlp_in, p, cfg, mesh)
     if post:
         h = tfm._norm(h, p["ln2_scale"], p["ln2_bias"], cfg)
     return h
@@ -122,12 +149,15 @@ def _chunk_hidden(w: _Weights, toks, kcache, vcache, pos):
     h = w.params["embed"][toks.long()].to(cfg.dtype)
     if cfg.use_pos_emb:
         h = h + w.params["pos"][pos:pos + C].to(cfg.dtype)
+    # the tables' D split over tp: the looked-up columns all-gathered
+    h = multihost.gather_dim(h, -1, meshlib.axis_group(w.mesh, "tp"),
+                             grad="slice")
     # query i (position pos + i) sees cache entries at positions <= pos + i
     kpos = torch.arange(kcache.shape[3], device=h.device)
     visible = kpos[None, :] <= pos + torch.arange(C, device=h.device)[:, None]
     for li, p in enumerate(w.layers):
         h = _decode_layer(h, p, kcache[li], vcache[li], cfg=cfg, pos=pos,
-                          visible=visible)
+                          visible=visible, w=w)
     return h
 
 
@@ -168,15 +198,19 @@ def _check_decode_args(cfg: tfm.TransformerConfig, max_len: int,
                          f"{cfg.vocab_size}]")
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "distributed decode (mesh=) is not ported to hetu_tpu_torch "
-            "yet: it comes with slice 8b (ROADMAP Queue 1)")
+def _check_decode_mesh(mesh):
+    """Mesh decoding splits the batch over dp and the heads over tp; the
+    other axes must be 1."""
+    meshlib.check_mesh(mesh)
+    over = {a: meshlib.axis_size(mesh, a) for a in ("pp", "sp", "ep")
+            if meshlib.axis_size(mesh, a) > 1}
+    if over:
+        raise ValueError(f"mesh decoding splits the batch over dp and the "
+                         f"heads over tp; the mesh has {over}")
 
 
-def _new_cache(cfg, B, M, device):
-    shape = (cfg.n_layers, B, cfg.kv_heads, M, cfg.head_dim)
+def _new_cache(cfg, B, M, device, n_kv=None):
+    shape = (cfg.n_layers, B, n_kv or cfg.kv_heads, M, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
@@ -227,20 +261,36 @@ def make_generate_fn(cfg: tfm.TransformerConfig, max_len: int,
     ``chunked_prefill`` (rectangular prompts only): positions [0, P - 1) as
     one chunk instead of P - 1 single-token steps. It may accumulate in
     another order than the tokenwise path, so an exact logit tie can
-    argmax differently; ``False`` gives the tokenwise path."""
+    argmax differently; ``False`` gives the tokenwise path.
+
+    ``mesh`` (dp x tp): ``params`` are this rank's (``shard_params``);
+    every rank passes the whole prompt and gets the whole result (see the
+    module docstring)."""
     _check_decode_args(cfg, max_len, top_k)
-    _no_mesh(mesh)
+    _check_decode_mesh(mesh)
+    dp = tfm.DataParallel(mesh)
 
     @torch.no_grad()
     def gen(params, prompt, key=0, temperature=1.0, prompt_lens=None):
         device = params["embed"].device
         prompt = _as_prompt(prompt, device)
+        if prompt_lens is not None:
+            prompt_lens = dp.share(torch.as_tensor(prompt_lens))
+        toks, logits = _decode(params, dp.share(prompt), key, temperature,
+                               prompt_lens)
+        if dp.size > 1:
+            toks = torch.cat(multihost.all_gather(toks, dp.group))
+            logits = torch.cat(multihost.all_gather(logits, dp.group))
+        return toks, logits
+
+    def _decode(params, prompt, key, temperature, prompt_lens):
+        device = params["embed"].device
         B, P = prompt.shape
         if P > max_len:
             raise ValueError(f"prompt length {P} > max_len {max_len}")
         plens = _lens(prompt_lens, B, P, device)
-        w = _Weights(params, cfg)
-        kcache, vcache = _new_cache(cfg, B, max_len, device)
+        w = _Weights(params, cfg, mesh)
+        kcache, vcache = _new_cache(cfg, B, max_len, device, w.nkv)
         tok_seq = torch.zeros((B, max_len), dtype=torch.int64, device=device)
         tok_seq[:, :P] = prompt
         logits = torch.empty((B, max_len, cfg.vocab_size),

@@ -27,33 +27,44 @@ reference folds or splits its key, and each mask is drawn by
 with that site's value. A mask is a function of its seed alone, so a block
 recomputed in the backward (remat) draws the same bits.
 
-The switch top-1 MoE MLP (``n_experts > 0``, ``_moe_mlp``) runs on one
-device in the reference's dense formulation: (S, E, cap) dispatch and
-combine products, the capacity ``int(capacity_factor * S / E)``, tokens
+The switch top-1 MoE MLP (``n_experts > 0``, ``_moe_mlp``) runs in the
+reference's dense formulation: (S, E, cap) dispatch and combine products,
+the capacity ``int(capacity_factor * S / E)`` over the global batch, tokens
 past an expert's capacity dropped, and the Switch aux loss summed over the
 layers into ``encode``'s ``aux_sum``.
 
-Meshes (``parallel/mesh.py``, dp and pp): ``encode``, ``forward`` and
-``loss_fn`` compute on the tensors they are given, a mesh or not (a dp or
-pp axis changes nothing inside a layer; the reference's sharding
-constraints are layouts). ``make_train_step(cfg, mesh)`` takes the global
-batch on every rank, runs this rank's share of it (its dp coordinate's
-contiguous rows), averages the gradients over the dp group and applies
-AdamW; with ``zero1=True`` each rank keeps and updates only its shard of
-``m`` and ``v`` (``shard_first_free_dim``'s layout, so rank r's shard is
-the JAX array's shard on device r) and the updated params are all-gathered.
-Under dp a dropout mask is drawn over the whole batch and each rank keeps
-its rows (``batch_share``), so the masks do not depend on dp. A mesh keeps
-the unfused LM head, as the reference does. Refused with
-``NotImplementedError``, naming slice 8b: ring attention, a mesh with tp,
-sp or ep, and the MoE on more than one dp rank (the reference routes the
-experts over the global batch).
+Meshes (``parallel/mesh.py``). ``make_train_step(cfg, mesh)`` takes the
+global batch on every rank and runs this rank's share of it: its dp
+coordinate's contiguous rows and, under sp, its chunk of each sequence
+(rows ``s·T/sp .. (s+1)·T/sp``); the gradients are averaged over the data
+ranks (dp × sp) and AdamW applied; with ``zero1=True`` each rank keeps and
+updates only its shard (over dp) of ``m`` and ``v``
+(``shard_first_free_dim``'s layout) and the updated params are
+all-gathered. The params are this rank's slice (``shard_params``):
+Megatron's tp (``wqkv``, ``w1``, ``w3`` column-parallel behind
+``multihost.copy_to``; ``wo``, ``w2`` row-parallel with
+``multihost.reduce_from``; the embedding and positions split on D and
+their looked-up columns all-gathered; the untied head split on V with a
+vocab-parallel NLL, the tied head on the embedding's D split), the
+experts over ep (``_moe_mlp``: no token moves, the ep ranks sum their
+outputs). ``wqkv`` is split by heads, so each rank's q, k and v are its own
+heads'; where tp does not divide ``kv_heads`` the ranks of a query group
+hold its kv head and ``sum_shared_kv_`` sums that column's gradient.
+Attention under sp is ring attention (``parallel/ring_attention.py``) for
+``auto``; positions are absolute. A rank's loss counts once over tp and
+ep (each rank of those groups computes the same value) and its gradients
+are averaged over the data ranks; the collectives' backwards are written
+for that rule. Under a mesh a dropout mask is drawn over the whole batch
+and each rank keeps its rows and chunk (``batch_share``), so the masks do
+not depend on the mesh. A mesh keeps the unfused LM head, as the
+reference does.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Any, Optional
@@ -86,7 +97,7 @@ class TransformerConfig:
     causal: bool = True         # False = bidirectional encoder (BERT)
     # "auto" picks the fused flash kernel for CUDA tensors when the
     # sequence is a multiple of 128, the unfused dot form otherwise
-    attn_impl: str = "auto"     # auto | dot | flash | ring (slice 8b)
+    attn_impl: str = "auto"     # auto | dot | flash | ring
     # LM loss through the fused linear+CE kernel: "auto" = CUDA tensors;
     # True forces (tests); False always materializes the logits
     fused_lm_ce: Any = "auto"
@@ -216,9 +227,10 @@ def init_params(rng, cfg: TransformerConfig, device=None):
 def param_specs(cfg: TransformerConfig):
     """Each parameter's partition spec, a tuple naming the mesh axis that
     splits each dimension (None: whole), as the reference's: Megatron tp,
-    experts over ep, the rest whole. This slice splits nothing inside a
-    layer; ZeRO-1's slot layout (``shard_first_free_dim``) reads the specs
-    to find each slot's dp dimension."""
+    experts over ep, the rest whole. ``shard_params`` cuts each rank's
+    slice by them (``wqkv``/``bqkv`` by heads); ZeRO-1's slot layout
+    (``shard_first_free_dim``) reads them to find each slot's dp
+    dimension."""
     moe = cfg.n_experts > 0
     blocks = {"ln1_scale": (None, None), "ln1_bias": (None, None),
               "wqkv": (None, None, "tp"), "wo": (None, "tp", None),
@@ -244,6 +256,140 @@ def param_specs(cfg: TransformerConfig):
     if not cfg.tied_head:
         specs["head"] = (None, "tp")
     return specs
+
+
+# ---------------------------------------------------------------------------
+# the Megatron layout: each rank's slice of the params
+# ---------------------------------------------------------------------------
+
+def head_layout(cfg: TransformerConfig, tp: int, t: int):
+    """``(q0, nq, kv_lo, kv_hi)``: tp rank ``t`` holds query heads ``q0 ..
+    q0 + nq - 1`` and the kv heads ``kv_lo .. kv_hi - 1`` they read. Where
+    tp divides ``kv_heads`` those are ``kv_heads / tp`` heads of its own;
+    where it does not (MQA/GQA with fewer kv heads than tp ranks), the kv
+    head a query group reads is held by every rank of that group."""
+    nh, g = cfg.n_heads, cfg.n_heads // cfg.kv_heads
+    if nh % tp:
+        raise ValueError(f"n_heads {nh} is not divisible by tp {tp}")
+    nq = nh // tp
+    q0 = t * nq
+    return q0, nq, q0 // g, (q0 + nq - 1) // g + 1
+
+
+def qkv_columns(cfg: TransformerConfig, tp: int, t: int) -> torch.Tensor:
+    """The columns of the fused ``wqkv`` (and ``bqkv``) that tp rank ``t``
+    holds: its query heads' q columns, then its kv heads' k and v columns.
+
+    The port splits the fused projection by heads, so each rank's q, k and
+    v are its own heads'; the reference's spec ``P(None, None, "tp")``
+    splits it contiguously and GSPMD reshuffles that. Gathered back, both
+    are the same tensor."""
+    q0, nq, lo, hi = head_layout(cfg, tp, t)
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.kv_heads
+    return torch.cat([torch.arange(q0 * hd, (q0 + nq) * hd),
+                      nh * hd + torch.arange(lo * hd, hi * hd),
+                      (nh + nkv) * hd + torch.arange(lo * hd, hi * hd)])
+
+
+def kv_expand(cfg: TransformerConfig, tp: int, t: int, device):
+    """Each of rank ``t``'s query heads' kv head, as an index into its own
+    kv heads (None where they map one to one)."""
+    q0, nq, lo, hi = head_layout(cfg, tp, t)
+    if hi - lo == nq:
+        return None
+    g = cfg.n_heads // cfg.kv_heads
+    return (torch.arange(q0, q0 + nq) // g - lo).to(device)
+
+
+_QKV = ("wqkv", "bqkv")
+_SPLIT_AXES = ("tp", "ep")
+
+
+def _split(x, spec, name, cfg, mesh, gather=False):
+    """``x``'s slice on this rank (``gather``: the inverse, this rank's
+    slice made whole by an all-gather over each splitting axis)."""
+    for ax, part in enumerate(tuple(spec)):
+        if part not in _SPLIT_AXES:
+            continue
+        n = meshlib.axis_size(mesh, part)
+        if n == 1:
+            continue
+        r = meshlib.axis_rank(mesh, part)
+        if part == "tp" and name in _QKV:
+            if gather:
+                pieces = multihost.all_gather(x.contiguous(),
+                                              meshlib.axis_group(mesh, "tp"))
+                shape = list(x.shape)
+                shape[ax] = (cfg.n_heads + 2 * cfg.kv_heads) * cfg.head_dim
+                full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+                for j, piece in enumerate(pieces):
+                    full.index_copy_(ax, qkv_columns(cfg, n, j).to(
+                        x.device), piece)
+                x = full
+            else:
+                x = x.index_select(ax, qkv_columns(cfg, n, r).to(x.device))
+            continue
+        if gather:
+            x = torch.cat(multihost.all_gather(
+                x.contiguous(), meshlib.axis_group(mesh, part)), ax)
+        else:
+            if x.shape[ax] % n:
+                raise ValueError(f"{name}: dimension {ax} of "
+                                 f"{tuple(x.shape)} is not divisible by "
+                                 f"{part}={n}")
+            k = x.shape[ax] // n
+            x = x.narrow(ax, r * k, k)
+    return x.contiguous() if gather else x.contiguous().clone()
+
+
+def _map_specs(fn, params, specs, cfg, mesh):
+    def go(node, spec, name):
+        if isinstance(node, dict):
+            return {k: go(v, spec[k], k) for k, v in node.items()}
+        return fn(node, spec, name, cfg, mesh)
+    return go(params, specs, "")
+
+
+def shard_params(params, cfg: TransformerConfig, mesh, specs=None):
+    """This rank's slice of the whole ``params`` (a new tree): each tensor
+    cut on the dimensions its spec (``specs``, default ``param_specs(cfg)``)
+    splits over ``tp`` or ``ep``, ``wqkv``/``bqkv`` by heads
+    (``qkv_columns``). dp, sp and pp split no parameter here (a pipeline
+    stage takes its blocks in ``pipeline.init_pipeline_params``)."""
+    return _map_specs(_split, params, specs or param_specs(cfg), cfg, mesh)
+
+
+def gather_params(params, cfg: TransformerConfig, mesh, specs=None):
+    """The inverse of ``shard_params``: every rank's slices made whole, by
+    all-gathers over tp and ep (every rank of those groups calls it)."""
+    return _map_specs(functools.partial(_split, gather=True), params,
+                      specs or param_specs(cfg), cfg, mesh)
+
+
+def sum_shared_kv_(grads, cfg: TransformerConfig, mesh) -> None:
+    """Where tp ranks share a kv head (tp does not divide ``kv_heads``),
+    each holds its query heads' part of that column's gradient: sum the k/v
+    columns of ``wqkv``/``bqkv`` over the ranks that hold them, in place
+    (one all-reduce over tp of the whole kv width, each rank's columns
+    scattered into it)."""
+    tp, t = meshlib.axis_size(mesh, "tp"), meshlib.axis_rank(mesh, "tp")
+    if tp == 1 or cfg.kv_heads % tp == 0:
+        return
+    q0, nq, lo, hi = head_layout(cfg, tp, t)
+    hd, nkv = cfg.head_dim, cfg.kv_heads
+    nql, nkl = nq * hd, (hi - lo) * hd
+    cols = torch.cat([torch.arange(lo * hd, hi * hd),
+                      nkv * hd + torch.arange(lo * hd, hi * hd)])
+    for name in _QKV:
+        g = grads["blocks"].get(name)
+        if g is None:
+            continue
+        kv = g.narrow(-1, nql, 2 * nkl)
+        full = torch.zeros(g.shape[:-1] + (2 * nkv * hd,), dtype=torch.float32,
+                           device=g.device)
+        full.index_copy_(-1, cols.to(g.device), kv.float())
+        full = multihost._sum(full, meshlib.axis_group(mesh, "tp"))
+        kv.copy_(full.index_select(-1, cols.to(g.device)))
 
 
 # ---------------------------------------------------------------------------
@@ -290,17 +436,19 @@ def _dropout_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
 
 
-# (r, n): this process holds rows r*B .. (r+1)*B of a batch of n*B rows
-_share = contextvars.ContextVar("batch_share", default=(0, 1))
+# (r, n, sr, sn): this process holds rows r*B .. (r+1)*B of a batch of n*B
+# rows, and positions sr*T .. (sr+1)*T of sequences of sn*T
+_share = contextvars.ContextVar("batch_share", default=(0, 1, 0, 1))
 
 
 @contextlib.contextmanager
-def batch_share(rank: int, n: int):
+def batch_share(rank: int, n: int, seq_rank: int = 0, seq_n: int = 1):
     """Within the block, a dropout mask is drawn over the batch of ``n``
-    dp ranks' rows and this rank (``rank``) keeps its own, so a dp step
-    draws the masks a one-device step draws. Wraps the forward and the
-    backward (remat recomputes the masks there)."""
-    token = _share.set((rank, n))
+    dp ranks' rows (and ``seq_n`` sp ranks' chunks of each sequence) and
+    this rank keeps its own, so a mesh step draws the masks a one-device
+    step draws. Wraps the forward and the backward (remat recomputes the
+    masks there)."""
+    token = _share.set((rank, n, seq_rank, seq_n))
     try:
         yield
     finally:
@@ -311,11 +459,12 @@ def _dropout(x, rate: float, seed):
     """Inverted dropout; identity when rate == 0 or seed is None (eval)."""
     if rate == 0.0 or seed is None:
         return x
-    r, n = _share.get()
-    if n > 1:
-        b = x.shape[0]
-        keep = _dropout_mask((n * b,) + tuple(x.shape[1:]), rate, seed,
-                             x.device)[r * b:(r + 1) * b]
+    r, n, sr, sn = _share.get()
+    if n > 1 or sn > 1:
+        b, t = x.shape[0], x.shape[1]
+        keep = _dropout_mask((n * b, sn * t) + tuple(x.shape[2:]), rate,
+                             seed, x.device)[r * b:(r + 1) * b,
+                                             sr * t:(sr + 1) * t]
     else:
         keep = _dropout_mask(x.shape, rate, seed, x.device)
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
@@ -373,7 +522,8 @@ def _is_key_padding_bias(attn_bias):
 def _resolve_attn_impl(cfg: TransformerConfig, mesh, T, attn_bias=None,
                        device=None):
     """The reference's rule with the card in the TPU's place: ``auto``
-    picks ``flash`` for CUDA tensors when T % 128 == 0, else ``dot``."""
+    picks ``ring`` under ``sp > 1``, else ``flash`` for CUDA tensors when
+    the (whole) sequence T % 128 == 0, else ``dot``."""
     impl = cfg.attn_impl
     if attn_bias is not None and not _is_key_padding_bias(attn_bias):
         if impl not in ("auto", "dot"):
@@ -390,83 +540,136 @@ def _resolve_attn_impl(cfg: TransformerConfig, mesh, T, attn_bias=None,
         return "dot"
     if impl != "auto":
         return impl
-    # the reference's sp > 1 -> "ring" rule: check_mesh refuses sp > 1
-    meshlib.check_mesh(mesh)
+    if meshlib.axis_size(mesh, "sp") > 1:
+        return "ring"   # key-padding biases rotate with the k/v chunks
     if device is not None and torch.device(device).type == "cuda" \
             and T % 128 == 0:
         return "flash"
     return "dot"
 
 
+def _key_bias(attn_bias, B):
+    """(B, 1, 1, T) -> the (B, T) per-key f32 form; a broadcast-batch
+    (1, 1, 1, T) mask expands to the real batch."""
+    if attn_bias is None:
+        return None
+    kb = attn_bias.reshape(attn_bias.shape[0], attn_bias.shape[-1])
+    if kb.shape[0] == 1 and B > 1:
+        kb = kb.expand(B, kb.shape[1])
+    return kb.float().contiguous()
+
+
 def _attention_core(q, k, v, cfg: TransformerConfig, mesh, impl,
                     attn_bias=None):
-    """q/k/v: (B, nh, T, hd) -> (B, nh, T, hd). ``flash``: the ported
-    online-softmax kernel, folding a key-padding ``attn_bias`` (B, 1, 1, T)
-    into its scores; ``dot``: the unfused reference form, any additive
-    ``attn_bias``; ``ring`` is not ported (the reference runs it only over
-    a mesh's ``sp`` axis)."""
+    """q/k/v: (B, nh, T, hd) -> (B, nh, T, hd), this rank's heads and its
+    chunk of the sequence. ``flash``: the ported online-softmax kernel,
+    folding a key-padding ``attn_bias`` (B, 1, 1, T) into its scores;
+    ``dot``: the unfused reference form, any additive ``attn_bias``;
+    ``ring``: ``parallel/ring_attention.py`` over the mesh's ``sp`` axis
+    (one chunk without one).
+
+    Under ``sp > 1`` an explicit ``dot`` or ``flash`` gathers k and v over
+    sp (the reference's Ulysses form); the flash kernel's causal mask
+    assumes q and k aligned, so ``flash`` there gathers q too, runs the
+    whole sequence and keeps this rank's rows."""
+    sp = meshlib.axis_size(mesh, "sp")
     if impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (sequence-parallel ring attention) is not "
-            "ported to hetu_tpu_torch yet: it comes with slice 8b and the "
-            "mesh's sp axis (ROADMAP Queue 1)")
+        from ..parallel.ring_attention import ring_attention
+        return ring_attention(q, k, v, _key_bias(attn_bias, q.shape[0]),
+                              group=meshlib.axis_group(mesh, "sp"),
+                              causal=cfg.causal)
     hd = q.shape[-1]
-    if impl == "flash":
-        kb = None
+    Tl = q.shape[2]
+    s = meshlib.axis_rank(mesh, "sp")
+    if sp > 1:
+        group = meshlib.axis_group(mesh, "sp")
+        k = multihost.gather_dim(k, 2, group)
+        v = multihost.gather_dim(v, 2, group)
         if attn_bias is not None:
-            # (B, 1, 1, T) -> the (B, T) per-key form; a broadcast-batch
-            # (1, 1, 1, T) mask expands to the real batch
-            kb = attn_bias.reshape(attn_bias.shape[0], attn_bias.shape[-1])
-            if kb.shape[0] == 1 and q.shape[0] > 1:
-                kb = kb.expand(q.shape[0], kb.shape[1])
-            kb = kb.float().contiguous()
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               cfg.causal, k_bias=kb)
-    T = q.shape[2]
+            attn_bias = multihost._gather_cat(attn_bias.detach(), -1, group)
+    if impl == "flash":
+        kb = _key_bias(attn_bias, q.shape[0])
+        if sp > 1:
+            q = multihost.gather_dim(q, 2, group)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            cfg.causal, k_bias=kb)
+        return o if sp == 1 else o.narrow(2, s * Tl, Tl)
+    T = k.shape[2]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
     if cfg.causal:
-        pos = torch.arange(T, device=q.device)
-        scores = torch.where(pos[None, :] <= pos[:, None], scores, -1e30)
+        qpos = s * Tl + torch.arange(Tl, device=q.device)
+        kpos = torch.arange(T, device=q.device)
+        scores = torch.where(kpos[None, :] <= qpos[:, None], scores, -1e30)
     if attn_bias is not None:
         scores = scores + attn_bias.float()
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
 
 
+def _row_sum(part, group, dtype):
+    """A row-parallel product's partial sums made whole over ``group``
+    (Megatron's ``g``, summed in f32), in ``dtype``."""
+    if group is None:
+        return part
+    return multihost.reduce_from(part.float(), group).to(dtype)
+
+
 def _attention(h, p, cfg: TransformerConfig, mesh, attn_bias=None):
+    """Self-attention of this rank's heads (tp) over its chunk of the
+    sequence (sp): ``wqkv`` column-parallel behind Megatron's ``f``, ``wo``
+    row-parallel with its all-reduce; q and k rotated at their absolute
+    positions ``s * T + t``."""
     B, T, D = h.shape
-    nh, hd = cfg.n_heads, cfg.head_dim
-    nkv = cfg.kv_heads
-    impl = _resolve_attn_impl(cfg, mesh, T, attn_bias, device=h.device)
-    qkv = _mm(h, p["wqkv"])
+    hd = cfg.head_dim
+    tp, t = meshlib.axis_size(mesh, "tp"), meshlib.axis_rank(mesh, "tp")
+    sp = meshlib.axis_size(mesh, "sp")
+    _, nq, lo, hi = head_layout(cfg, tp, t)
+    nkl = hi - lo
+    tp_group = meshlib.axis_group(mesh, "tp")
+    impl = _resolve_attn_impl(cfg, mesh, T * sp, attn_bias, device=h.device)
+    qkv = _mm(multihost.copy_to(h, tp_group), p["wqkv"])
     if cfg.attn_proj_bias:
         qkv = qkv + p["bqkv"].to(h.dtype)
-    q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
-    q = q.reshape(B, T, nh, hd).transpose(1, 2)
-    k = k.reshape(B, T, nkv, hd).transpose(1, 2)
-    v = v.reshape(B, T, nkv, hd).transpose(1, 2)
+    q, k, v = torch.split(qkv, [nq * hd, nkl * hd, nkl * hd], dim=-1)
+    q = q.reshape(B, T, nq, hd).transpose(1, 2)
+    k = k.reshape(B, T, nkl, hd).transpose(1, 2)
+    v = v.reshape(B, T, nkl, hd).transpose(1, 2)
     if cfg.rope:
         # rotate before any gqa broadcast (rope is per kv head)
-        q = _rope(q, 0, cfg.rope_theta)
-        k = _rope(k, 0, cfg.rope_theta)
-    if nkv != nh:
-        k = k.repeat_interleave(nh // nkv, dim=1)
-        v = v.repeat_interleave(nh // nkv, dim=1)
-    out = _attention_core(q, k, v, cfg, mesh, impl, attn_bias)
-    out = _mm(out.transpose(1, 2).reshape(B, T, D), p["wo"])
+        pos0 = meshlib.axis_rank(mesh, "sp") * T
+        q = _rope(q, pos0, cfg.rope_theta)
+        k = _rope(k, pos0, cfg.rope_theta)
+    expand = kv_expand(cfg, tp, t, h.device)
+    if impl == "ring":
+        # the ring carries the unrepeated kv heads and expands them locally
+        from ..parallel.ring_attention import ring_attention
+        out = ring_attention(q, k, v, _key_bias(attn_bias, B),
+                             group=meshlib.axis_group(mesh, "sp"),
+                             causal=cfg.causal, expand=expand)
+    else:
+        if expand is not None:
+            k, v = k.index_select(1, expand), v.index_select(1, expand)
+        out = _attention_core(q, k, v, cfg, mesh, impl, attn_bias)
+    out = _mm(out.transpose(1, 2).reshape(B, T, nq * hd), p["wo"])
+    out = _row_sum(out, tp_group, h.dtype)
     if cfg.attn_proj_bias:
         out = out + p["bo"].to(h.dtype)
     return out
 
 
 def _dense_mlp(h, p, cfg, mesh):
+    """The MLP: ``w1``/``w3`` column-parallel, ``w2`` row-parallel over
+    the mesh's tp axis (whole without one)."""
+    group = meshlib.axis_group(mesh, "tp")
+    x = multihost.copy_to(h, group)
     if cfg.mlp == "swiglu":
         # Llama MLP: down(silu(gate(x)) * up(x)); b1/b2 exist but are unused
-        gate = _mm32(h, p["w1"])
-        up = _mm32(h, p["w3"])
-        return _mm((F.silu(gate) * up).to(h.dtype), p["w2"])
-    u = _gelu(_mm(h, p["w1"]) + p["b1"].to(h.dtype), cfg)
-    return _mm(u, p["w2"]) + p["b2"].to(h.dtype)
+        gate = _mm32(x, p["w1"])
+        up = _mm32(x, p["w3"])
+        return _row_sum(_mm((F.silu(gate) * up).to(h.dtype), p["w2"]),
+                        group, h.dtype)
+    u = _gelu(_mm(x, p["w1"]) + p["b1"].to(h.dtype), cfg)
+    return _row_sum(_mm(u, p["w2"]), group, h.dtype) + p["b2"].to(h.dtype)
 
 
 def moe_route(x, router, cfg: TransformerConfig):
@@ -475,39 +678,119 @@ def moe_route(x, router, cfg: TransformerConfig):
     token goes to its argmax expert (ties to the first index) at the next
     free slot ``pos`` of that expert's buffer of ``cap`` slots; ``keep`` is
     False for a token past the capacity, which is dropped."""
-    S = x.shape[0]
-    E = cfg.n_experts
-    cap = max(1, int(cfg.capacity_factor * S / E))
+    return _route(x, router, cfg, None, 1)[:7]
+
+
+def _route(x, router, cfg: TransformerConfig, mesh, rows: int):
+    """``moe_route`` over this rank's tokens x (S, D), ``rows`` rows of
+    its share of the global batch, and the global batch's count of tokens
+    a expert, ``total (E,)``. On a mesh whose data ranks (dp × sp) split
+    the batch, ``pos`` and ``cap`` follow the reference's global order
+    (b-major, t-minor over the global batch): a token's slot counts the
+    tokens routed to its expert before it, from an all-gather of each
+    row's per-expert counts over the data ranks; ``cap`` is
+    ``capacity_factor · S_global / E``. Without one both are the local
+    batch's."""
+    S, E = x.shape[0], cfg.n_experts
+    dp, sp = meshlib.axis_size(mesh, "dp"), meshlib.axis_size(mesh, "sp")
+    d, s = meshlib.axis_rank(mesh, "dp"), meshlib.axis_rank(mesh, "sp")
+    cap = max(1, int(cfg.capacity_factor * S * dp * sp / E))
     probs = torch.softmax(x.float() @ router.float(), -1)
     gate, expert = torch.amax(probs, -1), torch.argmax(probs, -1)
     # the position within the expert's buffer, counted in integers
     onehot = F.one_hot(expert, E)
-    pos = (torch.cumsum(onehot, 0) * onehot).amax(-1) - 1
-    return probs, gate, expert, onehot, pos, pos < cap, cap
+    per_row = onehot.reshape(rows, S // rows, E)
+    counts = per_row.sum(1)                                   # (rows, E)
+    data = meshlib.data_group(mesh)
+    if data is not None:
+        counts = torch.stack(multihost.all_gather(counts, data))
+    counts = counts.reshape(dp, sp, rows, E)
+    ordered = counts.sum(1).reshape(dp * rows, E)  # global rows, in order
+    before = (torch.cumsum(ordered, 0) - ordered)[d * rows:(d + 1) * rows]
+    before = before + counts[d, :s].sum(0)        # the row's earlier chunks
+    pos = ((before[:, None, :] + torch.cumsum(per_row, 1)) * per_row).amax(
+        -1).reshape(S) - 1
+    return (probs, gate, expert, onehot, pos, pos < cap, cap,
+            counts.sum((0, 1, 2)))
+
+
+# the MoE layers' routing, recorded while ``moe_log()`` is open
+_moe_log = contextvars.ContextVar("moe_log", default=None)
+
+
+@contextlib.contextmanager
+def moe_log():
+    """Within the block each MoE layer appends its routing to the list it
+    yields: ``{"keep": this rank's tokens' keep mask (S,) on the CPU,
+    "dropped": the tokens dropped in the global batch, "tokens": the
+    global batch's tokens, "cap": the capacity}`` (one read from the device
+    a layer; run it on a forward without remat)."""
+    log = []
+    token = _moe_log.set(log)
+    try:
+        yield log
+    finally:
+        _moe_log.reset(token)
+
+
+def _record_moe(keep, dropped, tokens, cap):
+    log = _moe_log.get()
+    if log is not None:
+        log.append({"keep": keep.detach().cpu(), "dropped": int(dropped),
+                    "tokens": int(tokens), "cap": int(cap)})
 
 
 def _moe_mlp(h, p, cfg: TransformerConfig, mesh):
-    """Switch-style top-1 MoE with capacity, on one device (``moe_route``);
-    a dropped token is a zero row of the dispatch, so it adds nothing.
-    Returns ``(out (B, T, D), the Switch aux loss)``."""
+    """Switch-style top-1 MoE with capacity (``_route``): dense (S, E, cap)
+    dispatch and combine products, a dropped token a zero row of the
+    dispatch, so it adds nothing. Returns ``(out (B, T, D), the Switch aux
+    loss)``.
+
+    On a mesh, the reference's layout: the batch is split over dp (rows)
+    and sp (each row's chunks) and whole across ep and tp; each ep rank
+    holds ``E / ep`` experts, their ``d_ff`` split over tp. So no token
+    moves: each rank routes its tokens in the global order, runs its own
+    experts' slice of the dispatch, and the ep ranks sum their outputs;
+    the aux loss's densities are sums over the data ranks."""
     B, T, D = h.shape
     E = cfg.n_experts
+    ep, er = meshlib.axis_size(mesh, "ep"), meshlib.axis_rank(mesh, "ep")
+    if E % ep:
+        raise ValueError(f"n_experts {E} is not divisible by ep {ep}")
+    El, e0 = E // ep, er * (E // ep)
     x = h.reshape(B * T, D)
-    probs, gate, _, onehot, pos, keep, cap = moe_route(x, p["router"], cfg)
+    probs, gate, _, onehot, pos, keep, cap, total = _route(
+        x, p["router"], cfg, mesh, B)
+    S_glob = B * T * meshlib.axis_size(mesh, "dp") * meshlib.axis_size(
+        mesh, "sp")
+    if _moe_log.get() is not None:
+        _record_moe(keep, S_glob - int(torch.clamp_max(total, cap).sum()),
+                    S_glob, cap)
+    tp_group = meshlib.axis_group(mesh, "tp")
+    ep_group = meshlib.axis_group(mesh, "ep")
+    # the experts' input and gate reach partial consumers on each ep (and
+    # tp) rank: Megatron's f there; the router's own path is replicated
+    xe = multihost.copy_to(multihost.copy_to(x, ep_group), tp_group)
+    gate_e = multihost.copy_to(gate, ep_group)
     # (pos == slot) is all-zero past the capacity (jax.nn.one_hot's row
     # for an index out of range), and keep masks it explicitly as the
     # reference does
     slot = pos[:, None] == torch.arange(cap, device=x.device)
-    dispatch = (onehot.to(x.dtype)[:, :, None] * slot.to(x.dtype)[:, None, :]
-                * keep[:, None, None].to(x.dtype))           # (S, E, cap)
-    expert_in = torch.einsum("sec,sd->ecd", dispatch, x)     # (E, cap, D)
+    dispatch = (onehot[:, e0:e0 + El].to(x.dtype)[:, :, None]
+                * slot.to(x.dtype)[:, None, :]
+                * keep[:, None, None].to(x.dtype))          # (S, El, cap)
+    expert_in = torch.einsum("sec,sd->ecd", dispatch, xe)   # (El, cap, D)
     u = _gelu(_mm(expert_in, p["w1"]) + p["b1"][:, None, :].to(x.dtype), cfg)
-    y = _mm(u, p["w2"]) + p["b2"][:, None, :].to(x.dtype)   # (E, cap, D)
-    combine = dispatch * gate[:, None, None].to(x.dtype)
-    out = torch.einsum("sec,ecd->sd", combine, y)
-    # aux load-balancing loss (Switch Transformer eq. 4)
-    density = onehot.float().mean(0)
-    density_proxy = probs.mean(0)
+    y = (_row_sum(_mm(u, p["w2"]), tp_group, x.dtype)
+         + p["b2"][:, None, :].to(x.dtype))                  # (El, cap, D)
+    combine = dispatch * gate_e[:, None, None].to(x.dtype)
+    out = _row_sum(torch.einsum("sec,ecd->sd", combine, y), ep_group,
+                   x.dtype)
+    # aux load-balancing loss (Switch Transformer eq. 4) over the global
+    # batch
+    density = total.float() / S_glob
+    density_proxy = multihost.sum_both(probs.sum(0),
+                                       meshlib.data_group(mesh)) / S_glob
     aux = E * torch.sum(density * density_proxy)
     return out.reshape(B, T, D), aux
 
@@ -549,37 +832,111 @@ def _block(h, layer_params, cfg: TransformerConfig, mesh, attn_bias=None,
     return h, aux
 
 
-def embed_tokens(params, tokens, cfg: TransformerConfig):
+def embed_tokens(params, tokens, cfg: TransformerConfig, mesh=None,
+                 pos0: Optional[int] = None):
     """(..., T) integer tokens -> (..., T, D) embeddings (+ learned
-    positions, unless the dialect carries positions via rope)."""
+    positions, unless the dialect carries positions via rope). On a mesh
+    the tokens are this rank's chunk, at positions ``pos0`` (default: its
+    sp coordinate times T) on; the tables' D split over tp is looked up
+    (the shard's gradient stays on ``fused_embed_grad``) and the columns
+    all-gathered."""
     T = tokens.shape[-1]
+    if pos0 is None:
+        pos0 = meshlib.axis_rank(mesh, "sp") * T
     h = embed_grad.lookup(params["embed"], tokens).to(cfg.dtype)
     if cfg.use_pos_emb:
-        h = h + params["pos"][:T].to(cfg.dtype)
-    return h
+        h = h + params["pos"][pos0:pos0 + T].to(cfg.dtype)
+    return multihost.gather_dim(h, -1, meshlib.axis_group(mesh, "tp"),
+                                grad="slice")
 
 
 def head_matrix(params, cfg: TransformerConfig):
     """The (D, V) vocab projection as ``lm_head``'s ``_mm32`` multiplies
-    it: rounded to ``cfg.dtype``, then widened to f32."""
+    it: rounded to ``cfg.dtype``, then widened to f32 (on a tp mesh this
+    rank's part: the tied embedding's (D/tp, V), the head's (D, V/tp))."""
     w = params["embed"].t() if cfg.tied_head else params["head"]
     return w.to(cfg.dtype).float()
 
 
-def lm_head(params, h, cfg: TransformerConfig, head=None):
+def lm_head(params, h, cfg: TransformerConfig, head=None, mesh=None,
+            gather: bool = True):
     """Final norm (pre-LN only) + vocab projection -> f32 logits. ``head``:
     ``head_matrix(params, cfg)`` made once by a caller that applies the
-    head many times (a decoder); by default it is formed at this call."""
+    head many times (a decoder); by default it is formed at this call.
+
+    On a tp mesh the tied head multiplies this rank's D columns by its
+    embedding shard and sums over tp (whole logits); the untied head gives
+    this rank's vocab slice, gathered over tp unless ``gather=False``
+    (``vocab_nll`` reads the slice)."""
     if not cfg.post_ln:
         h = _norm(h, params["lnf_scale"], params["lnf_bias"], cfg)
     if head is None:
         head = head_matrix(params, cfg)
-    return torch.matmul(h.float(), head)
+    group = meshlib.axis_group(mesh, "tp")
+    if group is None:
+        return torch.matmul(h.float(), head)
+    x = multihost.copy_to(h, group)
+    if cfg.tied_head:
+        Dl = head.shape[0]
+        x = x.narrow(-1, meshlib.axis_rank(mesh, "tp") * Dl, Dl)
+        return multihost.reduce_from(torch.matmul(x.float(), head), group)
+    logits = torch.matmul(x.float(), head)
+    return multihost.gather_dim(logits, -1, group, grad="slice") if gather \
+        else logits
 
 
 def nll_loss(logits, targets):
     logp = torch.log_softmax(logits.float(), -1)
     return torch.mean(-torch.gather(logp, -1, targets.long()[..., None])[..., 0])
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-token NLL over logits whose vocabulary is split over a group:
+    the max, the sum of exponentials and the target's logit are
+    all-reduced; the gradient is this rank's slice of ``softmax - onehot``
+    (no collective)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0, group):
+        Vl = logits.shape[-1]
+        m = multihost.max_over(logits.amax(-1), group)
+        e = torch.exp(logits - m[..., None])
+        se = multihost._sum(e.sum(-1), group)
+        local = targets - v0
+        ours = (local >= 0) & (local < Vl)
+        tl = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+        tl = multihost._sum(torch.where(ours, tl, 0.0), group)
+        ctx.save_for_backward(e / se[..., None], local, ours)
+        return torch.log(se) + m - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        prob, local, ours = ctx.saved_tensors
+        Vl = prob.shape[-1]
+        grad = prob.clone().scatter_add_(
+            -1, local.clamp(0, Vl - 1)[..., None],
+            -ours.to(prob.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def vocab_nll(logits, targets, mesh=None):
+    """The mean NLL of ``targets`` under ``logits`` whose last dimension is
+    this rank's vocabulary slice on a tp mesh (``lm_head(...,
+    gather=False)``), the whole vocabulary without one."""
+    group = meshlib.axis_group(mesh, "tp")
+    if group is None:
+        return nll_loss(logits, targets)
+    v0 = meshlib.axis_rank(mesh, "tp") * logits.shape[-1]
+    return torch.mean(_VocabNLL.apply(logits.float(), targets.long(), v0,
+                                      group))
+
+
+def lm_nll(params, h, targets, cfg: TransformerConfig, mesh=None):
+    """The LM head's mean NLL of ``targets`` from the trunk's output ``h``:
+    on a tp mesh through this rank's vocabulary slice (untied head) or the
+    whole logits of the D-split tied head."""
+    return vocab_nll(lm_head(params, h, cfg, mesh=mesh, gather=False),
+                     targets, None if cfg.tied_head else mesh)
 
 
 def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
@@ -592,7 +949,8 @@ def encode(params, h, cfg: TransformerConfig, mesh: Optional[Any] = None,
     training-time dropout when ``cfg.dropout_rate > 0``, folded with each
     layer's index; omit it for deterministic eval. The masks are drawn
     inside the block from seeds alone, so the recompute draws the same
-    bits (no generator state crosses the checkpoint)."""
+    bits (no generator state crosses the checkpoint). On a mesh ``h`` is
+    this rank's rows and sequence chunk."""
     meshlib.check_mesh(mesh)
     return run_blocks(params["blocks"], h, cfg, mesh, attn_bias, dropout_rng)
 
@@ -627,16 +985,18 @@ def run_blocks(blocks, h, cfg: TransformerConfig, mesh=None, attn_bias=None,
 def forward_hidden(params, tokens, cfg: TransformerConfig, mesh=None,
                    dropout_rng=None):
     """tokens (B, T) -> (hidden (B, T, D), aux) before the LM head."""
-    h = embed_tokens(params, tokens, cfg)
+    meshlib.check_mesh(mesh)
+    h = embed_tokens(params, tokens, cfg, mesh)
     return encode(params, h, cfg, mesh, dropout_rng=dropout_rng)
 
 
 def forward(params, tokens, cfg: TransformerConfig, mesh=None,
             dropout_rng=None):
-    """tokens (B, T) -> logits (B, T, V)."""
+    """tokens (B, T) -> logits (B, T, V). On a mesh: this rank's tokens
+    (its rows and sequence chunk) and their whole-vocabulary logits."""
     h, aux_sum = forward_hidden(params, tokens, cfg, mesh,
                                 dropout_rng=dropout_rng)
-    return lm_head(params, h, cfg), aux_sum
+    return lm_head(params, h, cfg, mesh=mesh), aux_sum
 
 
 def loss_fn(params, tokens, targets, cfg: TransformerConfig, mesh=None,
@@ -659,8 +1019,9 @@ def loss_fn(params, tokens, targets, cfg: TransformerConfig, mesh=None,
             torch.zeros((V,), dtype=torch.float32, device=h.device),
             targets.reshape(-1), w_layout=layout)
         return torch.mean(per) + aux_weight * aux
-    logits, aux = forward(params, tokens, cfg, mesh, dropout_rng=dropout_rng)
-    return nll_loss(logits, targets) + aux_weight * aux
+    h, aux = forward_hidden(params, tokens, cfg, mesh,
+                            dropout_rng=dropout_rng)
+    return lm_nll(params, h, targets, cfg, mesh) + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------
@@ -823,17 +1184,21 @@ def shard_opt_state(opt_state, cfg: TransformerConfig, mesh,
 
 
 class DataParallel:
-    """The dp side of a train step on a mesh, shared by the trunk, BERT
-    and the pipeline schedules: this rank's share of a global batch, the
-    gradients' mean over the dp group, and AdamW over whole tensors or,
-    with ZeRO-1 ``specs``, over this rank's shard of each (the slots are
-    shards already; the updated params are all-gathered). One code path
-    for NCCL and gloo (``multihost``'s helpers pick the transport by the
-    group's backend)."""
+    """The data side of a train step on a mesh, shared by the trunk, BERT,
+    ViT and the pipeline schedules: this rank's share of a global batch
+    (its dp rows; ``seq_share`` its sp chunk of each row), the gradients'
+    sum or mean over the data ranks (dp x sp, ``meshlib.data_group``), and
+    AdamW over whole tensors or, with ZeRO-1 ``specs``, over this rank's
+    shard of each over dp (the slots are shards already; the updated
+    params are all-gathered). One code path for NCCL and gloo
+    (``multihost``'s helpers pick the transport by the group's
+    backend)."""
 
     def __init__(self, mesh, zero1_specs=None):
         self.size = meshlib.axis_size(mesh, "dp")
         self.rank = meshlib.axis_rank(mesh, "dp")
+        self.sp = meshlib.axis_size(mesh, "sp")
+        self.sp_rank = meshlib.axis_rank(mesh, "sp")
         self.mesh = mesh
         self.specs = zero1_specs
 
@@ -841,28 +1206,42 @@ class DataParallel:
     def group(self):
         return meshlib.axis_group(self.mesh, "dp")
 
+    @property
+    def data_group(self):
+        return meshlib.data_group(self.mesh)
+
     def share(self, x, axis: int = 0):
         """This rank's contiguous rows of ``x`` along ``axis``."""
-        if self.size == 1:
+        return self._part(x, axis, self.size, self.rank, "dp")
+
+    def seq_share(self, x, axis: int = 1):
+        """This rank's contiguous chunk of ``x``'s sequence ``axis`` (its
+        sp coordinate's)."""
+        return self._part(x, axis, self.sp, self.sp_rank, "sp")
+
+    @staticmethod
+    def _part(x, axis, n_ranks, rank, name):
+        if n_ranks == 1:
             return x
         n = x.shape[axis]
-        if n % self.size:
-            raise ValueError(f"batch dimension {n} is not divisible by "
-                             f"dp={self.size}")
-        k = n // self.size
-        return x.narrow(axis, self.rank * k, k)
+        if n % n_ranks:
+            raise ValueError(f"dimension {n} is not divisible by "
+                             f"{name}={n_ranks}")
+        k = n // n_ranks
+        return x.narrow(axis, rank * k, k)
 
     def batch(self, tree, axis: int = 0):
         return tree_map(lambda x: self.share(x, axis), tree)
 
     def sum_(self, tensors):
-        """Sum f32 ``tensors`` over the dp group, in place."""
-        if self.size > 1:
-            multihost.all_reduce_(tensors, self.group)
+        """Sum f32 ``tensors`` over the data ranks, in place."""
+        if self.data_group is not None:
+            multihost.all_reduce_(tensors, self.data_group)
 
     def mean_(self, tensors):
-        if self.size > 1:
-            multihost.all_reduce_(tensors, self.group, mean=True)
+        """Average f32 ``tensors`` over the data ranks, in place."""
+        if self.data_group is not None:
+            multihost.all_reduce_(tensors, self.data_group, mean=True)
 
     @torch.no_grad()
     def apply(self, params, grads, opt_state, lr):
@@ -909,14 +1288,6 @@ class DataParallel:
                 i += dst.numel()
 
 
-def refuse_moe_over_dp(cfg: TransformerConfig, mesh) -> None:
-    if cfg.n_experts > 0 and meshlib.axis_size(mesh, "dp") > 1:
-        raise NotImplementedError(
-            "the switch MoE on more than one dp rank: the reference routes "
-            "each token over the global batch's expert capacity, which "
-            "needs the ep all-to-alls of slice 8b; run the MoE at dp=1")
-
-
 def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
                     accum_steps: int = 1, zero1: bool = False):
     """Returns ``step(params, opt_state, tokens, targets) -> (loss, params,
@@ -935,15 +1306,15 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
     accumulation microbatch folds in its index, as the reference does.
     With no dropout the step keeps the 4-argument signature.
 
-    ``mesh`` (dp, and pp, which the trunk replicates over): every rank
-    passes the global batch and gets the global loss; see the module
+    ``mesh`` (any of dp, tp, sp, ep; pp, which the trunk replicates
+    over): every rank passes the global batch and gets the global loss;
+    ``params`` are this rank's (``shard_params``); see the module
     docstring. ``zero1=True`` (a mesh only): place the state with
     ``shard_opt_state(opt, cfg, mesh, zero1=True)`` first."""
     meshlib.check_mesh(mesh)
     if zero1 and mesh is None:
         raise ValueError("zero1=True shards AdamW's m and v over a mesh's "
                          "dp axis: pass mesh=")
-    refuse_moe_over_dp(cfg, mesh)
     dp = DataParallel(mesh, zero1_opt_specs(cfg, mesh) if zero1 else None)
     use_dropout = cfg.dropout_rate > 0.0
 
@@ -953,10 +1324,12 @@ def make_train_step(cfg: TransformerConfig, mesh=None, lr=1e-3,
             raise ValueError("cfg.dropout_rate > 0: pass dropout_rng to "
                              "the train step")
         axis = 0 if accum_steps == 1 else 1
-        tokens, targets = dp.share(tokens, axis), dp.share(targets, axis)
-        with batch_share(dp.rank, dp.size):
+        tokens, targets = (dp.seq_share(dp.share(x, axis), axis + 1)
+                           for x in (tokens, targets))
+        with batch_share(dp.rank, dp.size, dp.sp_rank, dp.sp):
             loss, grads = _loss_and_grads(params, tokens, targets, cfg, mesh,
                                           accum_steps, dropout_rng)
+        sum_shared_kv_(grads, cfg, mesh)
         dp.mean_([loss] + tree_leaves(grads))
         params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, params, opt_state

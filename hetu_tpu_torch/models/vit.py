@@ -13,8 +13,14 @@ Attention: ViT-B/16's sequence is 197 (196 patches and [CLS]), not a
 multiple of 128, so ``attn_impl="auto"`` takes the unfused ``dot`` form on
 the card, as the reference does off the TPU; the sequence is not padded to
 reach the flash kernel. Training (``make_train_step``) uses the trunk's
-AdamW and updates params and optimizer state in place. ``param_specs`` is
-mesh code and comes with slice 8b.
+AdamW and updates params and optimizer state in place.
+
+On a mesh (``param_specs``, the reference's): the patch projection is
+column-parallel over tp (``patch_w``, ``patch_b`` and the position table
+split on D, the projected patches all-gathered before [CLS] joins them),
+the blocks are the trunk's Megatron layout, and the train step splits the
+batch's images over dp. The sequence (197 for ViT-B/16) is not split over
+sp.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import torch
 
 from . import transformer as tfm
 from ..ndarray import resolve_device
+from ..parallel import mesh as meshlib
+from ..parallel import multihost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +104,30 @@ def init_params(rng, cfg: ViTConfig, device=None):
     return params
 
 
+def param_specs(cfg: ViTConfig):
+    """Each parameter's partition spec, as the reference's."""
+    trunk = tfm.param_specs(cfg.trunk())
+    specs = {"patch_w": (None, "tp"), "patch_b": ("tp",),
+             "cls_token": (None, None, None), "pos": (None, "tp"),
+             "blocks": trunk["blocks"], "lnf_scale": (None,),
+             "lnf_bias": (None,)}
+    if cfg.n_classes:
+        specs["cls_w"] = (None, None)
+        specs["cls_b"] = (None,)
+    return specs
+
+
+def shard_params(params, cfg: ViTConfig, mesh):
+    """This rank's tp slice of ViT's whole ``params`` (by
+    ``param_specs``)."""
+    return tfm.shard_params(params, cfg.trunk(), mesh, param_specs(cfg))
+
+
+def gather_params(params, cfg: ViTConfig, mesh):
+    """The inverse of ``shard_params`` (every rank of tp calls it)."""
+    return tfm.gather_params(params, cfg.trunk(), mesh, param_specs(cfg))
+
+
 def patchify(images, cfg: ViTConfig):
     """images (B, C, H, W) -> (B, N, P*P*C) non-overlapping patches, each
     flattened in (c, ph, pw) order: the stride-P conv's receptive field
@@ -109,15 +141,23 @@ def patchify(images, cfg: ViTConfig):
 
 def encode(params, images, cfg: ViTConfig, mesh=None):
     """images (B, C, H, W) f32 -> final hidden states (B, N+1, D) after
-    the final LayerNorm ([CLS] first, as in HF)."""
+    the final LayerNorm ([CLS] first, as in HF). On a tp mesh each rank
+    projects its D columns and the projection and position table are
+    all-gathered."""
+    if meshlib.axis_size(mesh, "sp") > 1:
+        raise ValueError("ViT's sequence is not split over sp (197 for "
+                         "ViT-B/16); use a mesh with sp=1")
     B = images.shape[0]
+    group = meshlib.axis_group(mesh, "tp")
     patches = patchify(images.float(), cfg)
     # f32 patches times the weight rounded to cfg.dtype, summed in f32
     w = params["patch_w"].to(cfg.dtype).float()
     h = (torch.matmul(patches, w) + params["patch_b"]).to(cfg.dtype)
+    h = multihost.gather_dim(h, -1, group, grad="slice")
     cls = params["cls_token"].to(cfg.dtype).expand(B, 1, cfg.d_model)
     h = torch.cat([cls, h], dim=1)
-    h = h + params["pos"].to(cfg.dtype)[None]
+    pos = multihost.gather_dim(params["pos"], -1, group, grad="slice")
+    h = h + pos.to(cfg.dtype)[None]
     h, _aux = tfm.encode(params, h, cfg.trunk(), mesh)
     return tfm._layer_norm(h, params["lnf_scale"], params["lnf_bias"],
                            cfg.ln_eps)
@@ -134,13 +174,12 @@ def make_train_step(cfg: ViTConfig, lr: float = 1e-3, mesh=None):
     """Returns ``step(params, opt_state, images, labels) -> (loss, acc,
     params, opt_state)``: the classifier's cross entropy, its gradient and
     one AdamW update, params and optimizer state updated in place (the
-    reference donates them). A mesh raises ``NotImplementedError``: ViT's
-    partition specs come with slice 8b."""
+    reference donates them). ``mesh`` (dp, tp): every rank passes the
+    global batch, ``params`` are this rank's (``shard_params``), and the
+    loss, accuracy and gradients are averaged over dp."""
     assert cfg.n_classes > 0, "training needs a classification head"
-    if mesh is not None:
-        raise NotImplementedError(
-            "ViT's train step on a mesh (its partition specs) comes with "
-            "slice 8b")
+    meshlib.check_mesh(mesh)
+    dp = tfm.DataParallel(mesh)
 
     def loss_fn(params, images, labels):
         logits = classify_logits(params, images, cfg, mesh)
@@ -151,9 +190,12 @@ def make_train_step(cfg: ViTConfig, lr: float = 1e-3, mesh=None):
         return loss, acc
 
     def step(params, opt_state, images, labels):
-        (loss, acc), grads = tfm.value_and_grad(loss_fn, params, images,
-                                                labels, has_aux=True)
-        params, opt_state = tfm.adamw_update(params, grads, opt_state, lr=lr)
+        (loss, acc), grads = tfm.value_and_grad(
+            loss_fn, params, dp.share(images), dp.share(labels),
+            has_aux=True)
+        tfm.sum_shared_kv_(grads, cfg.trunk(), mesh)
+        dp.mean_([loss, acc] + tfm.tree_leaves(grads))
+        params, opt_state = dp.apply(params, grads, opt_state, lr)
         return loss, acc, params, opt_state
 
     return step

@@ -10,10 +10,12 @@ same axis order (rank ``((d * pp + p) * ep + e) * sp + s) * tp + t`` at
 ep, sp, tp)``), with one process group per axis. A rank's tensors then
 compare with one device's shard of the JAX array.
 
-This slice runs data and pipeline parallelism, where each process holds
-whole tensors of its stage: a mesh whose ``tp``, ``sp`` or ``ep`` is
-greater than 1 raises ``NotImplementedError`` (slice 8b splits tensors
-inside a layer).
+The ``tp``, ``sp`` and ``ep`` axes split tensors inside a layer: each
+rank holds its tp slice of the Megatron-split weights and its ep share of
+the experts (``transformer.shard_params``), and its sp chunk of the
+sequence. The data ranks of a rank are those that differ from it only in
+dp and sp: they see different tokens, and a step averages its gradients
+over them (``data_group``; made once per mesh where both axes exceed 1).
 """
 from __future__ import annotations
 
@@ -26,17 +28,6 @@ import torch.distributed as dist
 from . import multihost
 
 AXES = ("dp", "pp", "ep", "sp", "tp")
-# the axes that split a tensor inside a layer: slice 8b
-MODEL_AXES = ("ep", "sp", "tp")
-
-
-def _refuse_model_axes(sizes: dict) -> None:
-    over = {a: sizes[a] for a in MODEL_AXES if sizes.get(a, 1) > 1}
-    if over:
-        raise NotImplementedError(
-            f"a mesh with {over}: tensor, sequence and expert parallelism "
-            "(tp, sp, ep) split tensors inside a layer and come with slice "
-            "8b; this slice runs dp and pp")
 
 
 def make_mesh(dp: int = 1, pp: int = 1, tp: int = 1, sp: int = 1,
@@ -46,8 +37,6 @@ def make_mesh(dp: int = 1, pp: int = 1, tp: int = 1, sp: int = 1,
     device type. Every rank of the world calls it: each axis's groups are
     made by a collective of the whole world. Size-1 axes hold one rank
     each and carry no traffic."""
-    sizes = dict(dp=dp, pp=pp, ep=ep, sp=sp, tp=tp)
-    _refuse_model_axes(sizes)
     if not multihost.is_initialized():
         raise RuntimeError("make_mesh: call multihost.initialize() first")
     ranks = (list(range(multihost.process_count())) if devices is None
@@ -57,9 +46,20 @@ def make_mesh(dp: int = 1, pp: int = 1, tp: int = 1, sp: int = 1,
         raise ValueError(f"mesh {dp}x{pp}x{ep}x{sp}x{tp}={want} != "
                          f"{len(ranks)} ranks")
     from torch.distributed.device_mesh import DeviceMesh
-    mesh = DeviceMesh(multihost.device().type,
-                      torch.tensor(ranks).reshape(dp, pp, ep, sp, tp),
-                      mesh_dim_names=AXES)
+    grid = torch.tensor(ranks).reshape(dp, pp, ep, sp, tp)
+    mesh = DeviceMesh(multihost.device().type, grid, mesh_dim_names=AXES)
+    # the data ranks' groups (dp x sp), one per (pp, ep, tp) point, made by
+    # every rank in one order (each new_group is a collective of the world)
+    mesh._hetu_data_group = None
+    if dp > 1 and sp > 1:
+        me = multihost.process_index()
+        for p in range(pp):
+            for e in range(ep):
+                for t in range(tp):
+                    line = sorted(grid[:, p, e, :, t].flatten().tolist())
+                    g = dist.new_group(line)
+                    if me in line:
+                        mesh._hetu_data_group = g
     multihost._meshes.append(weakref.ref(mesh))
     return mesh
 
@@ -89,18 +89,17 @@ def named(mesh, *spec) -> Named:
 # -- reading a mesh -----------------------------------------------------------
 
 def check_mesh(mesh) -> None:
-    """Refuse what this slice cannot run: an object that is no
-    ``DeviceMesh``, and a mesh whose tp, sp or ep axis has more than one
-    rank. ``None`` (one device) passes."""
+    """Refuse an object that is no ``DeviceMesh`` (the JAX package's
+    ``Mesh``, say). ``None`` (one device) passes."""
     if mesh is None:
         return
     names = getattr(mesh, "mesh_dim_names", None)
     if names is None:
         raise NotImplementedError(
-            f"mesh={mesh!r}: hetu_tpu_torch takes a torch.distributed "
-            "DeviceMesh from parallel.mesh.make_mesh (dp and pp); a mesh "
-            "that splits tensors inside a layer comes with slice 8b")
-    _refuse_model_axes({a: axis_size(mesh, a) for a in MODEL_AXES})
+            f"mesh={mesh!r} is no DeviceMesh: hetu_tpu_torch takes a "
+            "torch.distributed DeviceMesh from parallel.mesh.make_mesh or "
+            "multihost.global_mesh")
+
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -133,6 +132,19 @@ def axis_ranks(mesh, axis: str) -> list[int]:
     if axis_size(mesh, axis) == 1:
         return [multihost.process_index()]
     return dist.get_process_group_ranks(mesh.get_group(axis))
+
+
+def data_group(mesh):
+    """The group of this rank's data ranks (dp x sp), or None where it
+    holds this rank alone. Its ranks in ascending order are in the order
+    of the global batch's tokens: rows over dp, each row's chunks over
+    sp."""
+    dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+    if dp == 1:
+        return axis_group(mesh, "sp")
+    if sp == 1:
+        return axis_group(mesh, "dp")
+    return mesh._hetu_data_group
 
 
 # -- shards that a one-process checkpoint must not write ----------------------

@@ -42,6 +42,24 @@ _meshes: list = []
 _grids: list = []
 # the sub-groups group() made, by their ranks; shutdown() releases them
 _groups: dict = {}
+# the bytes this rank put into each kind of collective since the last
+# reset_traffic(): an all-reduce's tensor, an all-gather's piece, a sent
+# message (what a step's collectives move, as the smoke reports it)
+_traffic = {"all_reduce": 0, "all_gather": 0, "send": 0}
+
+
+def traffic() -> dict:
+    """A copy of the bytes counted by kind (see ``_traffic``)."""
+    return dict(_traffic)
+
+
+def reset_traffic() -> None:
+    for k in _traffic:
+        _traffic[k] = 0
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    _traffic[kind] += t.numel() * t.element_size()
 
 
 def is_initialized() -> bool:
@@ -171,6 +189,7 @@ def send(t: torch.Tensor, dst: int, group=None) -> Sent:
     ``wait()`` the handle (and must not write ``t`` before then on
     NCCL). Messages between two ranks arrive in the order sent."""
     buf = _host(t) if _staged(t, group) else t.contiguous()
+    _count("send", buf)
     return Sent(dist.isend(buf, dst=dst, group=group), buf)
 
 
@@ -190,6 +209,7 @@ def all_gather(t: torch.Tensor, group=None) -> list:
     """Every rank's ``t`` (one shape on all) in group-rank order, on
     ``t``'s device."""
     n = dist.get_world_size(group)
+    _count("all_gather", t)
     if _staged(t, group):
         h = _host(t.detach())
         out = [torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
@@ -210,6 +230,7 @@ def all_reduce_(tensors, group=None, mean: bool = False) -> None:
     if not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
+    _count("all_reduce", flat)
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     if mean:
         flat.div_(dist.get_world_size(group))
@@ -217,6 +238,171 @@ def all_reduce_(tensors, group=None, mean: bool = False) -> None:
     for t in tensors:
         t.copy_(flat[i:i + t.numel()].view_as(t))
         i += t.numel()
+
+
+# -- group collectives for autograd ------------------------------------------
+#
+# The tensor, sequence and expert axes split a layer's tensors over a group
+# of ranks. Each collective below is a ``torch.autograd.Function`` whose
+# backward is the adjoint of its forward under the port's rule: a rank's
+# loss counts once over tp and ep (every rank of those groups computes the
+# same value), and its gradients are averaged over the data ranks (dp x sp).
+# A group of one rank (None) makes each the identity: no collective runs on
+# an axis of size 1. Sums run in f32 (gloo takes CUDA tensors for
+# all_reduce as they are); gathers and ring messages stage a CUDA tensor
+# through pinned host memory on gloo, as send/recv/all_gather do.
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``t`` summed over ``group``, in f32, cast back to
+    ``t``'s dtype."""
+    out = t.detach().to(torch.float32, copy=True).contiguous()
+    _count("all_reduce", out)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(t.dtype)
+
+
+def _gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return torch.cat(all_gather(t.contiguous(), group), dim)
+
+
+def _chunk(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    k = t.shape[dim] // n
+    return t.narrow(dim, i * k, k).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, an all-reduce backward (a
+    replicated input whose consumers on each rank are partial)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's ``g``: an all-reduce forward (partial sums made whole),
+    the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBoth(torch.autograd.Function):
+    """An all-reduce forward and backward: a sum over the data ranks, each
+    of whose losses reads the whole sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """An all-gather along ``dim`` (group-rank order). Backward
+    ``"reduce_scatter"``: each rank's piece of the gradient summed over the
+    group (the consumers on each rank are partial); ``"slice"``: the rank's
+    own piece (the consumers are the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, grad):
+        ctx.dim, ctx.group, ctx.grad = dim, group, grad
+        return _gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad == "reduce_scatter":
+            g = _sum(g, ctx.group)
+        return _chunk(g, ctx.dim, ctx.group), None, None, None
+
+
+def ring_peers(group) -> tuple:
+    """``(next, prev)``: the global ranks after and before this one in
+    ``group``'s ring (its ranks in ascending order)."""
+    ranks = dist.get_process_group_ranks(group)
+    i = ranks.index(dist.get_rank())
+    return ranks[(i + 1) % len(ranks)], ranks[(i - 1) % len(ranks)]
+
+
+class RingTransfer:
+    """``tensors`` on their way to the next rank of ``group``'s ring, and
+    the previous rank's on their way here: the sends are posted when it is
+    made, the receives completed by ``wait()``, so work between the two
+    overlaps the transfer. The sends never block, so every rank sending
+    first cannot deadlock (blocking gloo sends between neighbours would).
+    No autograd."""
+
+    def __init__(self, tensors, group):
+        nxt, self.prev = ring_peers(group)
+        self.group = group
+        self.like = [(t.shape, t.dtype, t.device) for t in tensors]
+        self.sent = [send(t, nxt, group) for t in tensors]
+
+    def wait(self) -> list:
+        got = [recv(shape, dtype, self.prev, self.group).to(dev)
+               for shape, dtype, dev in self.like]
+        for s in self.sent:
+            s.wait()
+        return got
+
+
+def ring_exchange(tensors, group) -> list:
+    """The previous rank's ``tensors`` in ``group``'s ring, ours sent to
+    the next (``RingTransfer``)."""
+    return RingTransfer(tensors, group).wait()
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f`` over ``group`` (identity where it is None)."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g`` over ``group``: ``x`` summed (identity where the
+    group is None)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def sum_both(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, its gradient summed too."""
+    return x if group is None else _SumBoth.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group,
+               grad: str = "reduce_scatter") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order;
+    the backward per ``grad`` (``"reduce_scatter"`` or ``"slice"``, see
+    ``_Gather``)."""
+    if group is None:
+        return x
+    if grad not in ("reduce_scatter", "slice"):
+        raise ValueError(f"grad must be 'reduce_scatter' or 'slice', got "
+                         f"{grad!r}")
+    return _Gather.apply(x, dim % x.dim(), group, grad)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, without autograd."""
+    if group is None:
+        return x
+    out = x.detach().to(torch.float32, copy=True).contiguous()
+    _count("all_reduce", out)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def shutdown() -> None:
@@ -235,6 +421,7 @@ def shutdown() -> None:
         mesh = ref()
         if mesh is not None:
             getattr(mesh, "_pg_registry", {}).clear()
+            mesh._hetu_data_group = None
     _meshes.clear()
     for grid in _grids:
         grid.release()
@@ -285,14 +472,21 @@ def broadcast_from_chief(x):
     return box[0]
 
 
-def global_mesh(dp: int = 0):
-    """A one-dimensional ``DeviceMesh`` named ``"dp"`` over every process,
-    on this process's device type. ``dp`` is the world size, or 0 for
-    "whatever it is"; ``parallel.mesh.make_mesh`` lays the five-axis
-    mesh."""
+def global_mesh(dp: int = 0, pp: int = 1, tp: int = 1, sp: int = 1,
+                ep: int = 1):
+    """A mesh over every process, on this process's device type. With the
+    model axes at 1, a one-dimensional ``DeviceMesh`` named ``"dp"``
+    (``dp`` is the world size, or 0 for "whatever it is"); else the
+    five-axis mesh of ``parallel.mesh``, ``dp=0`` filling dp with whatever
+    ranks remain after ``pp * tp * sp * ep``, as the reference's."""
     from torch.distributed.device_mesh import init_device_mesh
     if not is_initialized():
         raise RuntimeError("global_mesh: call multihost.initialize() first")
+    if (pp, tp, sp, ep) != (1, 1, 1, 1):
+        from . import mesh as meshlib
+        if dp == 0:
+            return meshlib.auto_mesh(tp=tp, pp=pp, sp=sp, ep=ep)
+        return meshlib.make_mesh(dp=dp, pp=pp, tp=tp, sp=sp, ep=ep)
     if dp not in (0, process_count()):
         raise ValueError(f"global_mesh(dp={dp}): the dp axis spans the "
                          f"whole world of {process_count()} processes")

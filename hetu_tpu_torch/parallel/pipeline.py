@@ -66,13 +66,17 @@ def pipeline_spec(cfg: tfm.TransformerConfig, pp: int):
     return {**{k: () for k in base if k != "blocks"}, "blocks": blocks}
 
 
-def _make_stage_fn(cfg: tfm.TransformerConfig, layers_per_stage: int):
+def _make_stage_fn(cfg: tfm.TransformerConfig, layers_per_stage: int,
+                   mesh=None):
     """One stage's forward over one microbatch, shared by both schedules:
     ``stage_fn(h, stage_blocks, stage, rng_mb) -> (h, aux)``. Each layer
     folds its global index into the microbatch's dropout seed, as the
-    trunk's accumulation (``fold_in(rng, mi)``, then ``fold_in(., li)``)."""
+    trunk's accumulation (``fold_in(rng, mi)``, then ``fold_in(., li)``).
+    The blocks run their tp, sp and ep collectives on the stage's own
+    sub-groups of ``mesh`` (the ranks that share this rank's pp
+    coordinate)."""
     def stage_fn(h, stage_blocks, stage, rng_mb):
-        return tfm.run_blocks(stage_blocks, h, cfg, dropout_rng=rng_mb,
+        return tfm.run_blocks(stage_blocks, h, cfg, mesh, dropout_rng=rng_mb,
                               first_layer=stage * layers_per_stage)
     return stage_fn
 
@@ -108,12 +112,21 @@ def init_pipeline_params(rng, cfg: tfm.TransformerConfig, mesh, device=None):
     """This rank's pipeline params: ``init_params(rng, cfg)``'s values (the
     same generator schedule), with only this stage's blocks, ``(L/pp,
     ...)`` each and marked as a stage's (``checkpoint.save`` refuses
-    them)."""
+    them), and of each tensor this rank's tp/ep slice
+    (``transformer.shard_params``)."""
     pp, s = meshlib.axis_size(mesh, "pp"), meshlib.axis_rank(mesh, "pp")
     params = tfm.init_params(rng, cfg, device)
     blocks = _stack_stages(params["blocks"], pp)
-    params["blocks"] = tfm.tree_map(
-        lambda x: meshlib.mark_shard(x[s].clone(), "pipeline stage"), blocks)
+    params["blocks"] = tfm.tree_map(lambda x: x[s].clone(), blocks)
+    return stage_params(params, cfg, mesh)
+
+
+def stage_params(params, cfg: tfm.TransformerConfig, mesh):
+    """A stage's tree (its blocks ``(L/pp, ...)``, the rest whole) cut to
+    this rank's tp/ep slices, its blocks marked as a stage's."""
+    params = tfm.shard_params(params, cfg, mesh)
+    for v in params["blocks"].values():
+        meshlib.mark_shard(v, "pipeline stage")
     return params
 
 
@@ -135,8 +148,9 @@ class _Pipe:
         self.prev = ranks[self.s - 1] if not self.first else None
         self.next = ranks[self.s + 1] if not self.last else None
         self.group = meshlib.axis_group(mesh, "pp")
-        self.stage_fn, self.dp = stage_fn, dp
-        self.tokens, self.targets = dp.share(tokens, 1), dp.share(targets, 1)
+        self.stage_fn, self.dp, self.mesh = stage_fn, dp, mesh
+        self.tokens, self.targets = (dp.seq_share(dp.share(x, 1), 2)
+                                     for x in (tokens, targets))
         self.rng = dropout_rng
         self.leaves = tfm.tree_map(lambda p: p.detach().requires_grad_(),
                                    params)
@@ -160,7 +174,8 @@ class _Pipe:
         """Stage 0 embeds microbatch m (its graph reaches the embedding);
         another stage receives it from the previous stage."""
         if self.first:
-            return tfm.embed_tokens(self.other, self.tokens[m], self.cfg)
+            return tfm.embed_tokens(self.other, self.tokens[m], self.cfg,
+                                    self.mesh)
         return multihost.recv(self.act_shape, self.cfg.dtype, self.prev,
                               self.group)
 
@@ -172,8 +187,8 @@ class _Pipe:
         obj = aux * (self.aux_weight / self.M)
         self.aux_sum = self.aux_sum + aux.detach().float()
         if self.last:
-            nll = tfm.nll_loss(tfm.lm_head(self.other, h_out, self.cfg),
-                               self.targets[m])
+            nll = tfm.lm_nll(self.other, h_out, self.targets[m], self.cfg,
+                             self.mesh)
             self.nll_sum = self.nll_sum + nll.detach().float()
             obj = obj + nll / self.M
         return h_out, obj
@@ -208,6 +223,7 @@ class _Pipe:
             return loss, None
         grads = tfm.tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                              else p.grad, self.leaves)
+        tfm.sum_shared_kv_(grads, self.cfg, self.mesh)
         if self.pp > 1:
             multihost.all_reduce_([loss] + [grads[k] for k in grads
                                             if k != "blocks"], self.group)
@@ -222,14 +238,13 @@ def _make_step(cfg, mesh, num_microbatches, lr, aux_weight, zero1, schedule,
     forward-only schedule, for ``fwd_loss``. ``step.info["bytes_sent"]``
     counts the bytes this rank sent to its neighbours in the last step."""
     meshlib.check_mesh(mesh)
-    tfm.refuse_moe_over_dp(cfg, mesh)
     pp = meshlib.axis_size(mesh, "pp")
     if cfg.n_layers % pp:
         raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp {pp}")
     specs = (_local_specs(zero1_pipeline_opt_specs(cfg, mesh)) if zero1
              else None)
     dp = tfm.DataParallel(mesh, specs)
-    stage_fn = _make_stage_fn(cfg, cfg.n_layers // pp)
+    stage_fn = _make_stage_fn(cfg, cfg.n_layers // pp, mesh)
     M = num_microbatches
     use_dropout = cfg.dropout_rate > 0.0
 
@@ -245,7 +260,7 @@ def _make_step(cfg, mesh, num_microbatches, lr, aux_weight, zero1, schedule,
                              f"the step was built for {M}")
         pipe = _Pipe(cfg, mesh, M, aux_weight, dp, stage_fn, params, tokens,
                      targets, dropout_rng)
-        with tfm.batch_share(dp.rank, dp.size), \
+        with tfm.batch_share(dp.rank, dp.size, dp.sp_rank, dp.sp), \
                 torch.set_grad_enabled(sched is schedule):
             sched(pipe)
         info["bytes_sent"] = pipe.bytes_sent

@@ -194,15 +194,18 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
 
 def test_unported_paths_raise(batch):
     tokens = torch.zeros((1, 8), dtype=torch.int32)
+    # ring attention runs since slice 8b: without an sp axis it is one
+    # chunk, the unfused attention's values
     ring = tt.TransformerConfig(dtype=torch.float32, attn_impl="ring", **LM)
     p = tt.init_params(0, ring, "cpu")
-    with pytest.raises(NotImplementedError, match="ring.*slice 8"):
-        tt.forward(p, tokens, ring)
     plain = tt.TransformerConfig(dtype=torch.float32, **LM)
+    torch.testing.assert_close(tt.forward(p, tokens, ring)[0],
+                               tt.forward(p, tokens, plain)[0],
+                               rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.forward(p, tokens, plain, mesh=object())
-    # an object that is no DeviceMesh waits for slice 8b's meshes; ZeRO-1
-    # shards over a mesh's dp axis, so it needs one
+    # an object that is no DeviceMesh is refused; ZeRO-1 shards over a
+    # mesh's dp axis, so it needs one
     with pytest.raises(NotImplementedError, match="mesh"):
         tt.make_train_step(plain, mesh=object())
     with pytest.raises(ValueError, match="zero1"):

@@ -655,7 +655,7 @@ def test_unported_modes_raise_naming_their_slice(tmp_path, monkeypatch):
     # gpipe runs since slice 8a: a graph without stage contexts says so
     with pytest.raises(ValueError, match="context"):
         pt.Executor({"train": [loss, op]}, ctx=pt.cpu(0), gpipe=True)
-    with pytest.raises(NotImplementedError, match="slice 8b"):
+    with pytest.raises(NotImplementedError, match="slice 8c"):
         pt.dispatch(loss, (2, 1))
     # a sub-group is new_group_comm(devices)'s, not a list of ranks
     with pytest.raises(TypeError, match="new_group_comm"):

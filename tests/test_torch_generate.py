@@ -198,7 +198,9 @@ def test_config_hashes_with_a_torch_dtype():
 
 def test_decode_refuses_what_it_does_not_serve():
     tc = tt.TransformerConfig(dtype=torch.float32, **BASE)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    # mesh decoding runs since slice 8b (tests/test_torch_tp.py); an
+    # object that is no DeviceMesh is refused
+    with pytest.raises(NotImplementedError, match="DeviceMesh"):
         tg.make_generate_fn(tc, M, mesh=object())
     with pytest.raises(ValueError, match="max_len"):
         tg.make_generate_fn(tc, BASE["max_seq_len"] + 1)

@@ -286,6 +286,87 @@ def test_a_cpu_pipeline_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
         assert "LOADED []" in out, out
 
 
+def test_a_cpu_tp_sp_ep_step_loads_neither_jax_nor_hetu_tpu(tmp_path):
+    """The slice-8b path on the CPU: two gloo ranks (a file store) run each
+    of multihost's group collectives and ring attention
+    (parallel/ring_attention.py, under kernels "off" and "auto"), then a
+    trunk step at tp 2, at sp 2 and a MoE step at ep 2, a BERT step at sp
+    2 and a greedy decode at tp 2."""
+    source = os.path.join(PKG, "parallel", "ring_attention.py")
+    assert source in _port_sources()
+    script = textwrap.dedent(f"""
+        import sys
+        import torch
+        from hetu_tpu_torch.kernels import registry
+        from hetu_tpu_torch.models import bert, generate, transformer as tfm
+        from hetu_tpu_torch.parallel import mesh as meshlib, multihost
+        from hetu_tpu_torch.parallel import ring_attention as ra
+        rank = int(sys.argv[1])
+        multihost.initialize("file://{tmp_path}/store", 2, rank,
+                             device="cpu")
+        g = multihost.group([0, 1])
+        x = torch.full((2, 3), rank + 1.0, requires_grad=True)
+        y = (multihost.copy_to(x, g) + multihost.reduce_from(x, g)
+             + multihost.sum_both(x, g)).sum()
+        y = y + multihost.gather_dim(x, 0, g).sum() + multihost.gather_dim(
+            x, 1, g, grad="slice").sum()
+        y.backward()
+        assert torch.isfinite(x.grad).all()
+        assert multihost.ring_exchange([x.detach()], g)[0][0, 0] == 2 - rank
+        q = torch.randn((1, 2, 4, 8), generator=torch.Generator()
+                        .manual_seed(rank)).requires_grad_()
+        for mode in ("off", "auto"):
+            with registry.active(mode):
+                ra.ring_attention(q, q, q, group=g, causal=True).sum().backward()
+        cfg = tfm.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                                    n_layers=1, d_ff=32, max_seq_len=8,
+                                    dtype=torch.float32, remat=False)
+        tok = torch.randint(0, 32, (2, 8), generator=torch.Generator()
+                            .manual_seed(0))
+        moe = tfm.TransformerConfig(vocab_size=32, d_model=16, n_heads=2,
+                                    n_layers=1, d_ff=32, max_seq_len=8,
+                                    n_experts=2, dtype=torch.float32,
+                                    remat=False)
+        for c, kw in ((cfg, dict(tp=2)), (cfg, dict(sp=2)),
+                      (moe, dict(ep=2))):
+            mesh = meshlib.make_mesh(**kw)
+            p = tfm.shard_params(tfm.init_params(0, c, "cpu"), c, mesh)
+            loss, p, o = tfm.make_train_step(c, mesh)(
+                p, tfm.init_opt_state(p), tok, tok.roll(-1, 1))
+            assert torch.isfinite(loss)
+        mesh = meshlib.make_mesh(sp=2)
+        bcfg = bert.BertConfig(vocab_size=32, d_model=16, n_heads=2,
+                               n_layers=1, d_ff=32, max_seq_len=8,
+                               dtype=torch.float32)
+        p = bert.init_params(0, bcfg, "cpu")
+        batch = dict(input_ids=tok, segment_ids=tok * 0,
+                     input_mask=torch.ones_like(tok),
+                     mlm_positions=torch.tensor([[1, 2], [3, 4]]),
+                     mlm_ids=tok[:, :2], mlm_weights=torch.ones((2, 2)),
+                     nsp_label=torch.tensor([0, 1]))
+        loss = bert.make_pretrain_step(bcfg, mesh)(
+            p, bert.init_opt_state(p), batch)[0]
+        assert torch.isfinite(loss)
+        mesh = meshlib.make_mesh(tp=2)
+        p = tfm.shard_params(tfm.init_params(0, cfg, "cpu"), cfg, mesh)
+        toks, _ = generate.make_generate_fn(cfg, 6, mesh=mesh)(p, tok[:, :3])
+        assert toks.shape == (2, 6)
+        multihost.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hetu_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=REPO)
+             for r in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        assert "LOADED []" in out, out
+
+
 def test_a_cpu_hybrid_step_loads_neither_jax_nor_hetu_tpu():
     """Two Hybrid steps of a small WDL-Criteo against a local PS cluster
     (the port's own library, its light roles) on the CPU."""

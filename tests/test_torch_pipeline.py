@@ -21,8 +21,9 @@ JAX package's, carried over by ``interop.stage_tree``) and data. Ports of
 - ``:174``, ``:428`` dropout: the pipeline equals the trunk's accumulation
   and 1F1B equals GPipe, within the port (the masks come from the port's
   own generators);
-- ``:460`` the MoE with remat, at pp 4 (the MoE on several dp ranks is
-  refused: slice 8b).
+- ``:460`` the MoE with remat, at pp 4 (the MoE over several dp ranks
+  routes over the global batch: tests/test_torch_mesh.py and
+  tests/test_torch_moe_ep.py).
 
 Tolerances: losses rtol 1e-5 / atol 1e-6; gradients rtol 1e-5 and atol
 1e-6 times the tensor's largest magnitude (f32 sums in another order);
